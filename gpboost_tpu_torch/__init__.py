@@ -1,0 +1,25 @@
+"""gpboost_tpu_torch — the PyTorch / CUDA port of gpboost_tpu.
+
+Tree boosting combined with a Gaussian process, y = F(X) + b + xi, run with
+PyTorch tensors on an NVIDIA GPU (or the CPU). The first slice covers the
+Gaussian GPBoost algorithm with a Vecchia-approximated GP:
+
+    import gpboost_tpu_torch as gpt
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=20)
+    bst = gpt.train({"objective": "regression", "num_leaves": 31},
+                    gpt.Dataset(X, label=y), num_boost_round=100, gp_model=gp)
+    pred = bst.predict(X_new, gp_coords_pred=coords_new)
+
+The histogram of the tree learner is a hand-written CUDA kernel
+(csrc/histogram.cu); everything else is plain torch. The package never
+imports jax or gpboost_tpu; `convert.booster_from_jax_dict` reads the JAX
+package's model dicts.
+"""
+
+from .gp_model import GPModel
+from .boosting import Dataset, Booster, train
+
+__version__ = "0.1.0"
+
+__all__ = ["GPModel", "Dataset", "Booster", "train", "__version__"]

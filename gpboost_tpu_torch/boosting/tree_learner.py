@@ -1,0 +1,271 @@
+"""Leaf-wise histogram tree learner, single device, physically partitioned
+rows (counterpart of the positional path of
+gpboost_tpu/boosting/tree_learner.py).
+
+The data lives in position order: bins_pos (n, p) uint8/int32 and stats_pos
+(n, 3) f32 [grad, hess, count], and every leaf owns one contiguous position
+segment. A split partitions its parent's segment stably (left rows first),
+the smaller child's histogram comes from the kernel of ops/histogram.py
+over the child's segment, and the sibling's from the parent's histogram by
+subtraction (serial_tree_learner.cpp:325 + data_partition.hpp).
+
+The reference grows a whole tree in one compiled `fori_loop` with a `cond`
+per split. Here the loop is Python on the host. The per-leaf bookkeeping
+(gains, split candidates, segments, depths) lives in host numpy, the data
+and the histograms on the device, and each split ends with ONE host read of
+seven numbers (the left count and both children's best splits). The smaller
+child's segment start and count go to the kernel as a device tensor, so the
+kernel launch needs no sync of its own:
+
+    host syncs per tree = 1 (root split) + 1 per split + 2 (leaf values,
+    row -> leaf counts).
+
+The port keeps n rows with no padding: the kernel masks its ragged edge
+itself. Numeric features only; categorical features, missing-value bins,
+monotone constraints, path smoothing, CEGB, extra_trees, forced splits,
+interaction constraints, bagging/feature sampling and device meshes raise
+NotImplementedError.
+"""
+
+import numpy as np
+import torch
+
+from .tree import Tree
+from ..ops.histogram import hist_segment
+from ..utils.device import resolve_device
+
+
+def _thresholded(G, l1):
+    """ThresholdL1 (feature_histogram.hpp): soft-threshold the gradient sum
+    for L1 regularization."""
+    return torch.sign(G) * torch.clamp_min(torch.abs(G) - l1, 0.0)
+
+
+def _best_split_of_hist(hist, lambda_l2, min_data, min_hess, min_gain,
+                        feat_mask=None, lambda_l1=0.0):
+    """(best_gain, best_feat, best_bin) over all (feature, bin) pairs of
+    hist (p, 3, B) f32, as 0-dim device tensors (tree_learner.py:116,
+    numeric features, one missing direction). gain = TL1(GL)^2/(HL+l2) +
+    TL1(GR)^2/(HR+l2) - TL1(G)^2/(H+l2), computed in float32 like the
+    reference. The argmax runs over the flattened (direction, feature, bin)
+    array and takes the first maximum, as jnp.argmax does."""
+    G = torch.sum(hist[:, 0, :], dim=1, keepdim=True)
+    H = torch.sum(hist[:, 1, :], dim=1, keepdim=True)
+    C = torch.sum(hist[:, 2, :], dim=1, keepdim=True)
+    GL = torch.cumsum(hist[:, 0, :], dim=1)
+    HL = torch.cumsum(hist[:, 1, :], dim=1)
+    CL = torch.cumsum(hist[:, 2, :], dim=1)
+    GR = G - GL
+    HR = H - HL
+    gain = (_thresholded(GL, lambda_l1) ** 2 / (HL + lambda_l2)
+            + _thresholded(GR, lambda_l1) ** 2 / (HR + lambda_l2)
+            - _thresholded(G, lambda_l1) ** 2 / (H + lambda_l2))
+    valid = ((CL >= min_data) & (C - CL >= min_data)
+             & (HL >= min_hess) & (H - HL >= min_hess))
+    if feat_mask is not None:
+        valid = valid & (feat_mask[:, None] > 0)
+    gain = torch.where(valid & (gain > min_gain), gain,
+                       torch.full_like(gain, -float("inf")))
+    flat = torch.argmax(gain.reshape(-1))
+    B = hist.shape[2]
+    return gain.reshape(-1)[flat], flat // B, flat % B
+
+
+def _stable_partition(arr, new_pos):
+    """Rows of arr moved to new_pos (a permutation): index_copy_ with unique
+    indices, so deterministic on every device."""
+    return torch.empty_like(arr).index_copy_(0, new_pos, arr)
+
+
+def grow_tree_partitioned(bins_pos, stats_pos, num_bins, num_leaves,
+                          max_depth, lambda_l2, min_data, min_hess, min_gain,
+                          feat_mask=None, lambda_l1=0.0):
+    """Grow one leaf-wise tree (tree_learner.py:617-962
+    _grow_tree_partitioned_impl, numeric features).
+
+    Returns (rec (L-1, 4) int64 numpy [parent slot, feature, bin, ok],
+    leaf_values (L,) float64 numpy, node (n,) int64 device row -> leaf slot,
+    rec_gain (L-1,) float32 numpy). Leaf slot s + 1 is the right child made
+    by split s.
+    """
+    n, p = bins_pos.shape
+    dev = bins_pos.device
+    L = num_leaves
+
+    def best_of(hist):
+        return _best_split_of_hist(hist, lambda_l2, min_data, min_hess,
+                                   min_gain, feat_mask, lambda_l1)
+
+    bins_p = bins_pos.clone()
+    stats_p = stats_pos.clone()
+    row_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    leaf_of_pos = torch.zeros(n, dtype=torch.int64, device=dev)
+    hist0 = hist_segment(bins_p, stats_p, 0, n, num_bins)
+    leaf_hist = torch.zeros((L, p, 3, num_bins), dtype=torch.float32,
+                            device=dev)
+    leaf_hist[0] = hist0
+    g0, f0, b0 = best_of(hist0)
+    g0, f0, b0 = torch.stack([g0.to(torch.float64), f0.to(torch.float64),
+                              b0.to(torch.float64)]).tolist()
+
+    leaf_gain = np.full(L, -np.inf)
+    leaf_gain[0] = g0
+    leaf_feat = np.zeros(L, dtype=np.int64)
+    leaf_feat[0] = int(f0)
+    leaf_bin = np.zeros(L, dtype=np.int64)
+    leaf_bin[0] = int(b0)
+    leaf_depth = np.zeros(L, dtype=np.int64)
+    seg_start = np.zeros(L, dtype=np.int64)
+    seg_cnt = np.zeros(L, dtype=np.int64)
+    seg_cnt[0] = n
+    rec = np.full((L - 1, 4), -1, dtype=np.int64)
+    rec_gain = np.zeros(L - 1, dtype=np.float32)
+
+    for s in range(L - 1):
+        l = int(np.argmax(leaf_gain))        # first maximum, as jnp.argmax
+        if not np.isfinite(leaf_gain[l]):
+            break
+        f, b = int(leaf_feat[l]), int(leaf_bin[l])
+        s0, c = int(seg_start[l]), int(seg_cnt[l])
+        new_slot = s + 1
+        seg = slice(s0, s0 + c)
+
+        # stable in-segment partition: left rows first, then right
+        go_right = bins_p[seg, f].to(torch.int32) > b
+        go_left = ~go_right
+        csl = torch.cumsum(go_left, dim=0)
+        csr = torch.cumsum(go_right, dim=0)
+        cL = csl[-1]
+        new_pos = torch.where(go_left, csl - 1, cL + csr - 1)
+        bins_p[seg] = _stable_partition(bins_p[seg], new_pos)
+        stats_p[seg] = _stable_partition(stats_p[seg], new_pos)
+        row_ids[seg] = _stable_partition(row_ids[seg], new_pos)
+        in_right = torch.arange(c, device=dev) >= cL
+        leaf_of_pos[seg] = torch.where(in_right, new_slot, leaf_of_pos[seg])
+
+        # smaller child's histogram from the kernel, sibling by subtraction
+        cR = c - cL
+        left_smaller = cL <= cR
+        sS = s0 + torch.where(left_smaller, torch.zeros_like(cL), cL)
+        cS = torch.minimum(cL, cR)
+        hist_small = hist_segment(bins_p, stats_p, sS, cS, num_bins)
+        hist_big = leaf_hist[l] - hist_small
+        hist_left = torch.where(left_smaller, hist_small, hist_big)
+        hist_right = torch.where(left_smaller, hist_big, hist_small)
+        leaf_hist[l] = hist_left
+        leaf_hist[new_slot] = hist_right
+        gl_g, fl, bl = best_of(hist_left)
+        gr_g, fr, br = best_of(hist_right)
+        # the one host read of this split
+        cL, gl_g, fl, bl, gr_g, fr, br = torch.stack(
+            [t.to(torch.float64) for t in (cL, gl_g, fl, bl, gr_g, fr, br)]
+        ).tolist()
+        cL = int(cL)
+
+        d = leaf_depth[l] + 1
+        if d >= max_depth:
+            gl_g = gr_g = -np.inf
+        rec[s] = (l, f, b, 1)
+        rec_gain[s] = leaf_gain[l]
+        leaf_gain[l], leaf_gain[new_slot] = gl_g, gr_g
+        leaf_feat[l], leaf_feat[new_slot] = int(fl), int(fr)
+        leaf_bin[l], leaf_bin[new_slot] = int(bl), int(br)
+        leaf_depth[l] = leaf_depth[new_slot] = d
+        seg_start[l], seg_start[new_slot] = s0, s0 + cL
+        seg_cnt[l], seg_cnt[new_slot] = cL, c - cL
+
+    # row -> leaf slot, back in row order (one scatter)
+    node = torch.empty_like(leaf_of_pos).index_copy_(0, row_ids, leaf_of_pos)
+    Gs = torch.sum(leaf_hist[:, 0, 0, :], dim=1)
+    Hs = torch.sum(leaf_hist[:, 0, 1, :], dim=1)
+    Cs = torch.sum(leaf_hist[:, 0, 2, :], dim=1)
+    leaf_values = torch.where(
+        Cs > 0, -_thresholded(Gs, lambda_l1) / (Hs + lambda_l2),
+        torch.zeros_like(Gs))
+    return (rec, leaf_values.cpu().numpy().astype(np.float64), node,
+            rec_gain)
+
+
+class SerialTreeLearner:
+    """Leaf-wise growth on one device, one tree per `train` call."""
+
+    def __init__(self, dataset, num_leaves=31, max_depth=-1,
+                 min_data_in_leaf=20, lambda_l2=0.0,
+                 min_sum_hessian_in_leaf=1e-3, min_gain_to_split=0.0,
+                 lambda_l1=0.0, device=None):
+        dataset.construct()
+        self.mappers = getattr(dataset, "learner_mappers", dataset.mappers)
+        if getattr(dataset, "bundles", None):
+            raise NotImplementedError("exclusive feature bundling is not "
+                                      "ported yet")
+        for j, m in enumerate(self.mappers):
+            if getattr(m, "is_categorical", False):
+                raise NotImplementedError(
+                    f"feature {j} is categorical: categorical splits are not "
+                    "ported yet")
+            if getattr(m, "has_nan", False):
+                raise NotImplementedError(
+                    f"feature {j} has missing values: missing-value bins are "
+                    "not ported yet")
+        self.device = resolve_device(device)
+        n, p = dataset.bins.shape
+        self.n, self.p = n, p
+        self.num_bins = int(dataset.num_bins)
+        bdt = np.uint8 if self.num_bins <= 256 else np.int32
+        self.bins_pos = torch.as_tensor(
+            np.ascontiguousarray(dataset.bins, dtype=bdt), device=self.device)
+        self.num_leaves = int(num_leaves)
+        self.max_depth = max_depth if max_depth and max_depth > 0 else 10 ** 6
+        self.min_data_in_leaf = float(min_data_in_leaf)
+        self.lambda_l2 = float(lambda_l2)
+        self.lambda_l1 = float(lambda_l1)
+        self.min_sum_hessian = float(min_sum_hessian_in_leaf)
+        self.min_gain = float(min_gain_to_split)
+
+    def train(self, grad, hess):
+        """Grow one tree on grad/hess (numpy arrays or tensors, row order).
+        Returns (tree, slot_of_row (n,) int64 tensor on the device,
+        leaf_value_of_slot (L + 8,) float64 numpy)."""
+        stats = torch.ones((self.n, 3), dtype=torch.float32,
+                           device=self.device)
+        stats[:, 0] = torch.as_tensor(grad, device=self.device)
+        stats[:, 1] = torch.as_tensor(hess, device=self.device)
+        rec, leaf_values, node, rec_gain = grow_tree_partitioned(
+            self.bins_pos, stats, self.num_bins, self.num_leaves,
+            self.max_depth, self.lambda_l2, self.min_data_in_leaf,
+            self.min_sum_hessian, self.min_gain, lambda_l1=self.lambda_l1)
+        cnt = torch.bincount(node, minlength=self.num_leaves + 8).cpu().numpy()
+        tree, leaf_value_of_slot = self.build_tree(rec, leaf_values, rec_gain,
+                                                   cnt)
+        return tree, node, leaf_value_of_slot
+
+    def build_tree(self, rec, leaf_values, rec_gain, cnt):
+        """Host-side tree reconstruction from the split records
+        (tree_learner.py:1338, numeric splits). cnt: per-slot training row
+        counts (cover, for TreeSHAP)."""
+        rec_gain = np.asarray(rec_gain, dtype=np.float64)
+        tree = Tree(2 * self.num_leaves)
+        tree.leaf_value[0] = leaf_values[0]
+        slot_to_node = {0: 0}
+        for s in range(self.num_leaves - 1):
+            parent_slot, f, b, ok = rec[s]
+            if ok != 1:
+                break
+            node_id = slot_to_node[int(parent_slot)]
+            thr = self.mappers[int(f)].bin_to_threshold(int(b))
+            li, ri = tree.split(node_id, int(f), int(b), thr, 0.0, 0.0)
+            tree.split_gain[node_id] = rec_gain[s]
+            slot_to_node[int(parent_slot)] = li
+            slot_to_node[s + 1] = ri
+        leaf_value_of_slot = np.zeros(self.num_leaves + 8)
+        for slot, node_id in slot_to_node.items():
+            tree.leaf_value[node_id] = leaf_values[slot]
+            leaf_value_of_slot[slot] = leaf_values[slot]
+        tree.slot_to_node = dict(slot_to_node)
+        for slot, node_id in slot_to_node.items():
+            tree.cover[node_id] = max(float(cnt[slot]), 1e-9)
+        for i in range(tree.num_nodes - 1, -1, -1):
+            if not tree.is_leaf[i]:
+                tree.cover[i] = tree.cover[tree.left[i]] \
+                    + tree.cover[tree.right[i]]
+        return tree, leaf_value_of_slot

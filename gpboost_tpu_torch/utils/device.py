@@ -1,0 +1,19 @@
+"""Device and dtype resolution shared by the port's entry points."""
+
+import torch
+
+
+def resolve_device(device=None):
+    """The torch.device a model runs on: the given one, else the first CUDA
+    card when one is present, else the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def resolve_dtype(dtype):
+    """'float32'/'f32'/torch.float32 -> torch.float32, anything else float64
+    (the GP side's default, as in the reference)."""
+    if dtype in (torch.float32, "float32", "f32"):
+        return torch.float32
+    return torch.float64

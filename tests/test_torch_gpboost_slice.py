@@ -1,0 +1,150 @@
+"""The Gaussian GPBoost slice of the PyTorch port against the JAX package.
+
+n = 400, p = 5, Vecchia with 10 neighbours, 7-leaf trees, 5 rounds,
+float64. The JAX side runs its host loop (a callback turns the fused scan
+off, as tests/test_scan_train.py does), the port always does. Tolerances:
+the trees' leaf values are float32 histogram sums in another order (~1e-7),
+so training scores and predictions agree to 1e-6 and the refitted
+covariance parameters to rtol 1e-5; tree splits are equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import gpboost_tpu as gpb
+import gpboost_tpu_torch as gpt
+from gpboost_tpu_torch.convert import booster_from_jax_dict
+
+torch.set_num_threads(1)
+
+N, P, M, LEAVES, ROUNDS = 400, 5, 10, 7, 5
+PARAMS = {"objective": "regression", "learning_rate": 0.1,
+          "num_leaves": LEAVES, "verbose": 0}
+
+
+def _data(n=N, seed=1):
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2)
+    X = rng.rand(n, P)
+    y = (np.sin(3 * X[:, 0]) + X[:, 1] ** 2
+         + np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1])
+         + 0.3 * rng.randn(n))
+    return coords, X, y
+
+
+def _new_points(n=60, seed=2):
+    rng = np.random.RandomState(seed)
+    return rng.rand(n, P), rng.rand(n, 2)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    coords, X, y = _data()
+    gj = gpb.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=M)
+    bj = gpb.train(PARAMS, gpb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                   gp_model=gj, callbacks=[lambda env: None])
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=M, device="cpu")
+    bp = gpt.train(PARAMS, gpt.Dataset(X, label=y), num_boost_round=ROUNDS,
+                   gp_model=gp)
+    return bj, gj, bp, gp
+
+
+def test_cov_pars_match(trained):
+    _, gj, _, gp = trained
+    np.testing.assert_allclose(gp.get_cov_pars(), gj.get_cov_pars(),
+                               rtol=1e-5)
+
+
+def test_tree_splits_match(trained):
+    bj, _, bp, _ = trained
+    assert len(bp.trees) == len(bj.trees) == ROUNDS
+    for tj, tp in zip(bj.trees, bp.trees):
+        nn = tj.num_nodes
+        assert tp.num_nodes == nn
+        internal = ~tj.is_leaf[:nn]
+        np.testing.assert_array_equal(tp.is_leaf[:nn], tj.is_leaf[:nn])
+        np.testing.assert_array_equal(tp.split_feature[:nn][internal],
+                                      tj.split_feature[:nn][internal])
+        np.testing.assert_array_equal(tp.threshold_bin[:nn][internal],
+                                      tj.threshold_bin[:nn][internal])
+
+
+def test_training_score_and_predictions_match(trained):
+    bj, _, bp, _ = trained
+    np.testing.assert_allclose(bp.F.numpy(), bj.F, rtol=0, atol=1e-6)
+    Xn, cn = _new_points()
+    pj = bj.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    pp = bp.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    for k in ("response_mean", "fixed_effect", "random_effect_mean"):
+        np.testing.assert_allclose(pp[k], pj[k], rtol=0, atol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_allclose(pp["response_var"], pj["response_var"],
+                               rtol=1e-5)
+
+
+def test_jax_model_dict_predicts_the_same_in_the_port(trained):
+    bj, _, _, _ = trained
+    bc, gc = booster_from_jax_dict(bj.model_to_dict(), device="cpu")
+    np.testing.assert_array_equal(gc.get_cov_pars(),
+                                  bj.gp_model.get_cov_pars())
+    Xn, cn = _new_points(seed=3)
+    pj = bj.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    pc = bc.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    for k in ("response_mean", "response_var", "fixed_effect"):
+        np.testing.assert_allclose(pc[k], pj[k], rtol=0, atol=1e-10,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("change", ["no_gp_model", "dense_gp", "two_sets"])
+def test_unported_jax_model_dicts_raise(trained, change):
+    d = trained[0].model_to_dict()
+    if change == "no_gp_model":
+        d["has_gp_model"] = 0
+    elif change == "dense_gp":
+        d["gp_model"] = {**d["gp_model"], "gp_approx": "none"}
+    else:
+        d["num_sets"] = 2
+    with pytest.raises(NotImplementedError):
+        booster_from_jax_dict(d, device="cpu")
+
+
+def test_port_model_dict_loads_in_jax(trained):
+    _, _, bp, _ = trained
+    bl = gpb.Booster(model_dict=bp.model_to_dict())
+    Xn, cn = _new_points(seed=4)
+    pl = bl.predict(Xn, gp_coords_pred=cn)
+    pp = bp.predict(Xn, gp_coords_pred=cn)
+    np.testing.assert_allclose(pp["response_mean"], pl["response_mean"],
+                               rtol=0, atol=1e-10)
+
+
+def test_float32_engine_trains():
+    coords, X, y = _data(n=300, seed=5)
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=M, dtype="float32",
+                     device="cpu")
+    assert gp._engine._d_nn.dtype == torch.float32
+    bst = gpt.train(PARAMS, gpt.Dataset(X, label=y), num_boost_round=2,
+                    gp_model=gp)
+    cov = gp.get_cov_pars()
+    assert np.all(np.isfinite(cov)) and np.all(cov > 0)
+    Xn, cn = _new_points()
+    assert np.all(np.isfinite(bst.predict(Xn, gp_coords_pred=cn)[
+        "response_mean"]))
+
+
+@pytest.mark.parametrize("params", [{"boosting": "dart"},
+                                    {"leaves_newton_update": True},
+                                    {"objective": "binary"},
+                                    {"bagging_fraction": 0.5,
+                                     "bagging_freq": 1}])
+def test_unported_booster_options_raise(params):
+    coords, X, y = _data(n=300, seed=6)
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=M, device="cpu")
+    with pytest.raises(NotImplementedError):
+        gpt.Booster({**PARAMS, **params}, gpt.Dataset(X, label=y),
+                    gp_model=gp)
