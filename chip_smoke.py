@@ -6,21 +6,41 @@
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compiles the histogram kernel (csrc/histogram.cu) from the
-     checkout's sources and prints the build seconds;
-  3. kernel vs plain: the kernel against its plain PyTorch version on the
-     card at the slice's shapes (n = 10,000 rows, p = 5, the dataset's real
-     bin count; uint8 and int32 bins; root, unaligned, empty and one-row
-     segments, host-int and device-tensor segments), bitwise repeatability,
-     and both versions' times (CUDA events, median of 25);
-  4. the slice at full size: the bench configuration w_gpboost1000
+  2. build: compiles the histogram kernels (csrc/histogram.cu and
+     csrc/hist_masked.cu, one nvcc each, started together) from the
+     checkout's sources and prints the build seconds and what ptxas reports;
+  3. kernel vs plain, hist_segment: the kernel against its plain PyTorch
+     version on the card at the GPBoost slice's shapes (n = 10,000 rows,
+     p = 5, the dataset's real bin count; uint8 and int32 bins; root,
+     unaligned, empty and one-row segments, host-int and device-tensor
+     segments), bitwise repeatability, and both versions' times (CUDA
+     events, median of 25);
+  4. the GPBoost slice at full size: the bench configuration w_gpboost1000
      (n = 10,000, p = 5, 2-D coordinates, exponential kernel, Vecchia with
      20 neighbours, 31-leaf trees, learning rate 0.1, float32 engine,
      sim_gpboost data with seed 1) for 10 rounds, then predict on 1,000 new
-     points; the kernel's launch count over that run must be positive;
+     points; hist_segment's launch count over that run must be positive;
   5. card vs CPU: the same slice at n = 2,000 in float64 on the card (with
      the kernel) and on the CPU (plain version): first tree, covariance
-     parameters and predictions.
+     parameters and predictions;
+  6. kernel vs plain, hist_masked and hist_block: at the boosting slice's
+     shapes (p = 50; n = 200,000 and a ragged n; the dataset's real bin
+     count; uint8 and int32 bins; a target that selects about half the
+     rows, one that selects none, a device-tensor target), bitwise
+     repeatability, and both versions' times;
+  7. the parallel boosting slice at full width: the bench configuration
+     boosting_n200k_p50 (sim_boost, n = 200,000, p = 50, seed 2, 31 leaves,
+     learning rate 0.1, Gaussian regression, no GP model) for 20 rounds
+     with tree_learner="data" on a one-rank NCCL group; hist_masked's
+     launch count over that run must be positive. Then 5 rounds each of
+     the feature and voting (top_k 20) learners, which at one rank must
+     grow the data learner's trees, and one round of the serial positional
+     learner (hist_segment), whose tree must equal the data learner's first
+     under phase 5's float32 near-tie rule. Device busy share from a
+     torch.profiler window over two more rounds;
+  8. two ranks on one card: spawn_train with gloo on CUDA tensors at
+     n = 20,000, data, feature and voting (top_k 25), against the one-rank
+     data learner's trees; predictions to 1e-5.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -29,6 +49,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +58,13 @@ SEED = 1
 N_FULL, N_CPU, P, ROUNDS, N_PRED = 10_000, 2_000, 5, 10, 1_000
 PARAMS = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
           "verbose": 0}
+# boosting_n200k_p50 (bench.py:302-327): plain boosting, no GP model
+N_BOOST, P_BOOST, SEED_BOOST, ROUNDS_BOOST, ROUNDS_MODE = 200_000, 50, 2, 20, 5
+N_RAGGED, N_TWO_RANKS = 123_457, 20_000
+BOOST = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
+         "verbose": 0}
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
 
 def sim_gpboost(n, p=P, seed=SEED):
@@ -47,6 +75,22 @@ def sim_gpboost(n, p=P, seed=SEED):
     f = np.sin(3 * X[:, 0]) + X[:, 1] ** 2
     b = np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1])
     return coords, X, f + b + 0.3 * rng.randn(n)
+
+
+def sim_boost(n=N_BOOST, p=P_BOOST, seed=SEED_BOOST):
+    """bench.py sim_boost: the boosting-only benchmark's data."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, p)
+    y = X[:, 0] * 2 + np.sin(5 * X[:, 1]) + X[:, 2] * X[:, 3] \
+        + 0.5 * rng.randn(n)
+    return X, y
+
+
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the least time for nbytes moved and nops
+    float32 operations at the card's published peaks."""
+    tb, to = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def new_points(n, p=P, seed=SEED + 1):
@@ -70,12 +114,15 @@ def phase_device(torch):
 
 
 def phase_build(histogram):
-    path, secs, log = histogram.build()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] {os.path.relpath(path)} in {secs:.2f} s; "
-          + " | ".join(ptxas), flush=True)
-    return secs
+    t0 = time.perf_counter()
+    built = histogram.build()
+    for name, (path, secs, log) in built.items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        print(f"[build] {name}: {os.path.relpath(path)} in {secs:.2f} s; "
+              + " | ".join(ptxas), flush=True)
+    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
 
 def _time_ms(torch, fn, reps=25):
@@ -137,13 +184,22 @@ def phase_kernel(torch, gpt, histogram):
         bins_u8, stats_d, 0, N_FULL, num_bins))
     plain_ms = _time_ms(torch, lambda: histogram.hist_segment_plain(
         bins_u8, stats_d, 0, N_FULL, num_bins))
+    # each input read once (uint8 codes, three f32 stats), output written
+    # once; 3 adds per row and feature
+    bound_ms, bound_by = bound(N_FULL * P + 12 * N_FULL + 12 * P * num_bins,
+                               3 * N_FULL * P)
     print(f"[kernel] hist_segment n={N_FULL} p={P} B={num_bins} uint8: "
-          f"kernel {ms:.4f} ms, plain einsum {plain_ms:.4f} ms, "
-          f"max |err| {max_err:.3g}", flush=True)
+          f"kernel {ms:.4f} ms, plain einsum {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}), max |err| {max_err:.3g}",
+          flush=True)
+    # no one PyTorch call computes a weighted histogram of every feature
+    # (bincount takes one weight vector of one feature), so library_ms is
+    # null
     return {"name": "hist_segment", "route": "cuda",
             "source": "gpboost_tpu_torch/csrc/histogram.cu",
             "replaces": "gpboost_tpu/ops/histogram.py:85",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def _train(torch, gpt, n, dtype, device):
@@ -174,7 +230,7 @@ def _train(torch, gpt, n, dtype, device):
 
 def phase_slice(torch, gpt, histogram):
     """w_gpboost1000 at full width for 10 rounds on the card, then predict."""
-    histogram.hist_segment.launches = 0
+    _reset_launches(histogram)
     bst, gp, fit_s, train_s = _train(torch, gpt, N_FULL, "float32", "cuda")
     Xn, cn = new_points(N_PRED)
     t0 = time.perf_counter()
@@ -197,6 +253,12 @@ def phase_slice(torch, gpt, histogram):
           f"{pred_s:.3f} s; cov pars {cov.tolist()}; hist_segment launches "
           f"{launches}", flush=True)
     return launches
+
+
+def _reset_launches(histogram):
+    for fn in (histogram.hist_segment, histogram.hist_masked,
+               histogram.hist_block):
+        fn.launches = 0
 
 
 def _split_records(tree):
@@ -241,6 +303,256 @@ def phase_card_vs_cpu(torch, gpt):
           flush=True)
 
 
+def _check_hist(torch, name, k1, k2, ref):
+    """Kernel result k1 (and a second launch k2) against the plain ref:
+    bitwise repeatable, counts exact, grad/hess to 1e-5 of the largest
+    entry (float32 sums of up to ~1,000 order-one values a bin, in another
+    order: a few hundred ulps of that scale at most). Returns the error."""
+    if not torch.equal(k1, k2):
+        raise AssertionError(f"{name}: two launches differ")
+    if not torch.equal(k1[:, 2], ref[:, 2]):
+        raise AssertionError(f"{name}: counts differ")
+    err = float((k1[:, :2] - ref[:, :2]).abs().max())
+    tol = 1e-5 * max(1.0, float(ref[:, :2].abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"{name}: grad/hess error {err:.3g} > {tol:.3g}")
+    return err
+
+
+def phase_masked_kernels(torch, histogram, ds):
+    """hist_masked and hist_block against their plain versions on the card
+    at the boosting slice's shapes."""
+    dev = torch.device("cuda")
+    num_bins = int(ds.num_bins)
+    n, p = ds.bins.shape
+    rng = np.random.RandomState(SEED_BOOST)
+    stats = np.ones((3, n), dtype=np.float32)
+    stats[0] = rng.randn(n)
+    stats[1] = rng.rand(n) + 0.5
+    node_np = rng.randint(0, 2, size=n).astype(np.int32)
+    stats_d = torch.as_tensor(stats, device=dev)
+    node_d = torch.as_tensor(node_np, device=dev)
+    bins_u8 = torch.as_tensor(np.ascontiguousarray(ds.bins.T, dtype=np.uint8),
+                              device=dev)
+    bins_i32 = bins_u8.to(torch.int32)
+    err = {"hist_masked": 0.0, "hist_block": 0.0}
+    for bname, bins in (("uint8", bins_u8), ("int32", bins_i32)):
+        for m in (n, N_RAGGED):
+            b = bins[:, :m].contiguous()
+            s = stats_d[:, :m].contiguous()
+            nd = node_d[:m].contiguous()
+            for target in (1, 5, torch.tensor(1, device=dev)):
+                tname = "device 1" if isinstance(target, torch.Tensor) \
+                    else str(target)
+                k1 = histogram.hist_masked(b, nd, s, target, num_bins)
+                k2 = histogram.hist_masked(b, nd, s, target, num_bins)
+                ref = histogram.hist_masked_plain(b, nd, s, target, num_bins)
+                torch.cuda.synchronize()
+                e = _check_hist(torch, f"hist_masked {bname} n={m} "
+                                f"target {tname}",
+                                k1, k2, ref)
+                if target == 5 and k1.any():
+                    raise AssertionError("hist_masked: an empty target "
+                                         "gave a non-zero histogram")
+                err["hist_masked"] = max(err["hist_masked"], e)
+            sm = s * (nd == 1).to(torch.float32)[None, :]
+            k1 = histogram.hist_block(b, sm, num_bins)
+            k2 = histogram.hist_block(b, sm, num_bins)
+            ref = histogram.hist_block_plain(b, sm, num_bins)
+            torch.cuda.synchronize()
+            err["hist_block"] = max(err["hist_block"], _check_hist(
+                torch, f"hist_block {bname} n={m}", k1, k2, ref))
+            print(f"[kernel] hist_masked, hist_block {bname} bins n={m} "
+                  f"p={p} B={num_bins}: ok", flush=True)
+    sel = int(np.sum(node_np == 1))
+    out_bytes = 12 * p * num_bins
+    masked = dict(
+        ms=_time_ms(torch, lambda: histogram.hist_masked(
+            bins_u8, node_d, stats_d, 1, num_bins)),
+        plain_ms=_time_ms(torch, lambda: histogram.hist_masked_plain(
+            bins_u8, node_d, stats_d, 1, num_bins)))
+    # the least a masked scan must move: every node id, the bin codes and
+    # stats of the selected rows only, the output; 3 adds per selected row
+    # and feature
+    masked["bound_ms"], masked["bound_by"] = bound(
+        4 * n + sel * (p + 12) + out_bytes, 3 * sel * p)
+    block = dict(
+        ms=_time_ms(torch, lambda: histogram.hist_block(
+            bins_u8, stats_d, num_bins)),
+        plain_ms=_time_ms(torch, lambda: histogram.hist_block_plain(
+            bins_u8, stats_d, num_bins)))
+    block["bound_ms"], block["bound_by"] = bound(
+        n * p + 12 * n + out_bytes, 3 * n * p)
+    out = []
+    for name, t in (("hist_masked", masked), ("hist_block", block)):
+        print(f"[kernel] {name} n={n} p={p} B={num_bins} uint8"
+              + (f" ({sel} rows selected)" if name == "hist_masked" else "")
+              + f": kernel {t['ms']:.4f} ms, plain einsum "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), max |err| {err[name]:.3g}", flush=True)
+        out.append({"name": name, "route": "cuda",
+                    "source": "gpboost_tpu_torch/csrc/hist_masked.cu",
+                    "replaces": ("gpboost_tpu/ops/histogram.py:155"
+                                 if name == "hist_masked" else
+                                 "gpboost_tpu/ops/histogram.py:129"),
+                    "max_abs_err": err[name], **t, "library_ms": None})
+    return out
+
+
+def _compare_models(what, ref, other, X=None):
+    """Split records of every tree equal, or the first difference a float32
+    near-tie (phase 5's rule; later trees are then not compared); with X,
+    predictions to 1e-5 when every split is equal."""
+    for t, (a, b) in enumerate(zip(ref.trees, other.trees)):
+        ra, rb = _split_records(a), _split_records(b)
+        if [r[:3] for r in ra] == [r[:3] for r in rb]:
+            continue
+        i = next((k for k, (u, v) in enumerate(zip(ra, rb))
+                  if u[:3] != v[:3]), min(len(ra), len(rb)))
+        if i >= min(len(ra), len(rb)):
+            raise AssertionError(f"{what}: tree {t} has {len(rb)} splits, "
+                                 f"not {len(ra)}")
+        gap = abs(ra[i][3] - rb[i][3]) / max(abs(ra[i][3]), 1e-30)
+        print(f"[{what}] tree {t} split {i} differs: {ra[i]} vs {rb[i]}, "
+              f"relative gain gap {gap:.3g}", flush=True)
+        if not gap < 1e-5:
+            raise AssertionError(f"{what}: splits differ beyond an f32 "
+                                 "near-tie")
+        return "near tie"
+    if X is not None:
+        k = len(other.trees)
+        pa = sum(tr.predict_raw(X) for tr in ref.trees[:k]) + ref.init_score
+        pb = other.predict(X)
+        d = float(np.max(np.abs(pa - pb)))
+        if not d <= 1e-5:
+            raise AssertionError(f"{what}: predictions differ by {d:.3g}")
+        return f"all splits equal, predictions max |diff| {d:.3g}"
+    return "all splits equal"
+
+
+def _device_busy_s(torch, fn, kernel="hist_"):
+    """(device busy seconds, wall seconds, seconds in device kernels whose
+    name holds `kernel`) of fn() under torch.profiler: busy is the union of
+    the device events' time spans, None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if str(e.device_type).endswith("CUDA")]
+    if not events:
+        return None, wall, None
+    mine = sum(e.time_range.end - e.time_range.start for e in events
+               if kernel in e.name) * 1e-6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) * 1e-6, wall, mine
+
+
+def phase_parallel(torch, gpt, histogram, ds, X, y):
+    """boosting_n200k_p50 on a one-rank NCCL group: the data learner for 20
+    rounds (the path's run), the feature and voting learners for 5, the
+    serial positional learner for 1; then the one-rank reference of phase
+    8 at n = 20,000. Returns the launches of hist_masked and hist_block
+    over the data learner's 20 rounds, and the reference booster."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            par = {**BOOST, "num_parallel_devices": 1}
+            _reset_launches(histogram)
+            t0 = time.perf_counter()
+            bst = gpt.Booster({**par, "tree_learner": "data"}, ds,
+                              device="cuda")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            rounds = []
+            for _ in range(ROUNDS_BOOST):
+                t0 = time.perf_counter()
+                bst.update()
+                torch.cuda.synchronize()
+                rounds.append(time.perf_counter() - t0)
+            launches = histogram.hist_masked.launches
+            block_launches = histogram.hist_block.launches
+            if histogram.hist_segment.launches or launches <= 0:
+                raise AssertionError(
+                    f"data learner: {launches} hist_masked and "
+                    f"{histogram.hist_segment.launches} hist_segment "
+                    "launches")
+            busy, wall, hist_s = _device_busy_s(
+                torch, lambda: [bst.update() for _ in range(2)])
+            pred = bst.predict(X)
+            mse0 = float(np.mean((y - np.mean(y)) ** 2))
+            mse = float(np.mean((y - pred) ** 2))
+            if pred.shape != (len(y),) or not np.all(np.isfinite(pred)) \
+                    or not mse < 0.8 * mse0:
+                raise AssertionError(f"data learner: training MSE {mse:.4g} "
+                                     f"(label variance {mse0:.4g})")
+            busy_txt = "not measured (no device events)" if busy is None \
+                else (f"{busy:.4f} s of {wall:.4f} s ({busy / wall:.1%}), "
+                      f"of which histogram kernels {hist_s:.4f} s")
+            print(f"[parallel] boosting_n200k_p50 data learner, 1 NCCL rank,"
+                  f" {ROUNDS_BOOST} rounds: setup {setup_s:.3f} s, first "
+                  f"round {rounds[0]:.4f} s, mean of rounds 2-"
+                  f"{ROUNDS_BOOST} {np.mean(rounds[1:]):.4f} s (min "
+                  f"{np.min(rounds[1:]):.4f}, max {np.max(rounds[1:]):.4f}); "
+                  f"hist_masked launches {launches}; training MSE {mse:.4f} "
+                  f"(label variance {mse0:.4f}); device busy over rounds "
+                  f"{ROUNDS_BOOST + 1}-{ROUNDS_BOOST + 2}: {busy_txt}",
+                  flush=True)
+            for mode, extra in (("feature", {}), ("voting", {"top_k": 20})):
+                t0 = time.perf_counter()
+                other = gpt.train({**par, "tree_learner": mode, **extra}, ds,
+                                  num_boost_round=ROUNDS_MODE, device="cuda")
+                torch.cuda.synchronize()
+                res = _compare_models(f"parallel {mode}", bst, other)
+                print(f"[parallel] {mode} learner, 1 rank, {ROUNDS_MODE} "
+                      f"rounds in {time.perf_counter() - t0:.3f} s against "
+                      f"the data learner: {res}", flush=True)
+            serial = gpt.train(BOOST, ds, num_boost_round=1, device="cuda")
+            if serial.learner.group is not None:
+                raise AssertionError("serial learner ran on the group")
+            print("[parallel] serial positional learner (hist_segment), "
+                  "first tree against the data learner's: "
+                  + _compare_models("masked-vs-positional", bst, serial),
+                  flush=True)
+            X2, y2 = X[:N_TWO_RANKS], y[:N_TWO_RANKS]
+            ref = gpt.train({**par, "tree_learner": "data"},
+                            gpt.Dataset(X2, label=y2),
+                            num_boost_round=ROUNDS_MODE, device="cuda")
+        finally:
+            dist.destroy_process_group()
+    return launches, block_launches, ref
+
+
+def phase_two_ranks(torch, gpt, X, y, ref):
+    """spawn_train, 2 gloo ranks on one card, at n = 20,000: each learner
+    against the one-rank data learner."""
+    X2, y2 = X[:N_TWO_RANKS], y[:N_TWO_RANKS]
+    modes = [("data", {}), ("feature", {}), ("voting", {"top_k": 25})]
+    t0 = time.perf_counter()
+    boosters = gpt.spawn_train(
+        [{**BOOST, "tree_learner": m, **extra} for m, extra in modes], X2, y2,
+        num_boost_round=ROUNDS_MODE, world_size=2, backend="gloo",
+        device="cuda")
+    secs = time.perf_counter() - t0
+    for (mode, _), b in zip(modes, boosters):
+        print(f"[two-ranks] {mode}: "
+              + _compare_models(f"two-ranks {mode}", ref, b, X2), flush=True)
+    print(f"[two-ranks] n={N_TWO_RANKS} p={P_BOOST}, 2 gloo ranks on one "
+          f"card, {len(modes)} models x {ROUNDS_MODE} rounds: "
+          f"{secs:.2f} s including the ranks' start", flush=True)
+
+
 def main():
     import torch
     import gpboost_tpu_torch as gpt
@@ -248,10 +560,22 @@ def main():
 
     phase_device(torch)
     phase_build(histogram)
-    kernel = phase_kernel(torch, gpt, histogram)
-    kernel["launches"] = phase_slice(torch, gpt, histogram)
+    segment = phase_kernel(torch, gpt, histogram)
+    segment["launches"] = phase_slice(torch, gpt, histogram)
     phase_card_vs_cpu(torch, gpt)
-    print(json.dumps({"kernels": [kernel]}))
+    X, y = sim_boost()
+    t0 = time.perf_counter()
+    ds = gpt.Dataset(X, label=y)
+    ds.construct()
+    print(f"[data] sim_boost n={N_BOOST} p={P_BOOST}: binned in "
+          f"{time.perf_counter() - t0:.2f} s, {int(ds.num_bins)} bins",
+          flush=True)
+    masked, block = phase_masked_kernels(torch, histogram, ds)
+    # hist_block has no caller in either package: its count reads 0
+    masked["launches"], block["launches"], ref = phase_parallel(
+        torch, gpt, histogram, ds, X, y)
+    phase_two_ranks(torch, gpt, X, y, ref)
+    print(json.dumps({"kernels": [segment, masked, block]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,15 +11,25 @@ Gaussian GPBoost algorithm with a Vecchia-approximated GP:
                     gpt.Dataset(X, label=y), num_boost_round=100, gp_model=gp)
     pred = bst.predict(X_new, gp_coords_pred=coords_new)
 
-The histogram of the tree learner is a hand-written CUDA kernel
-(csrc/histogram.cu); everything else is plain torch. The package never
+Plain Gaussian regression boosting (gp_model=None) also trains over a
+torch.distributed group with the data-, feature- and voting-parallel tree
+learners; `spawn_train` starts the local ranks from one process:
+
+    bst = gpt.spawn_train({"objective": "regression", "num_leaves": 31,
+                           "tree_learner": "data"}, X, y,
+                          num_boost_round=100, world_size=4)
+
+The histograms of the tree learners are hand-written CUDA kernels
+(csrc/histogram.cu, csrc/hist_masked.cu); everything else is plain torch. The package never
 imports jax or gpboost_tpu; `convert.booster_from_jax_dict` reads the JAX
 package's model dicts.
 """
 
 from .gp_model import GPModel
 from .boosting import Dataset, Booster, train
+from .parallel import spawn_train
 
 __version__ = "0.1.0"
 
-__all__ = ["GPModel", "Dataset", "Booster", "train", "__version__"]
+__all__ = ["GPModel", "Dataset", "Booster", "train", "spawn_train",
+           "__version__"]

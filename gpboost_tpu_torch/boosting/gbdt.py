@@ -1,14 +1,21 @@
-"""Booster for the Gaussian GPBoost algorithm (counterpart of
-gpboost_tpu/boosting/gbdt.py, host-loop path).
+"""Booster for Gaussian regression boosting, alone or with a Gaussian GP
+model (the GPBoost algorithm); counterpart of gpboost_tpu/boosting/gbdt.py,
+host-loop path.
 
 One boosting round (gbdt.cpp:412 TrainOneIter with the GP hooks):
 
-  1. gradients of the Gaussian marginal NLL at the current score F:
-     grad = Psi~^-1 (F - y) / sigma2 through the Vecchia factors, hess = 1;
-  2. one leaf-wise tree on them (tree_learner.py, histogram kernel);
+  1. gradients at the current score F: without a GP model grad = F - y
+     (gbdt.py:954-960); with one, those of the Gaussian marginal NLL,
+     grad = Psi~^-1 (F - y) / sigma2 through the Vecchia factors; hess = 1;
+  2. one leaf-wise tree on them (tree_learner.py, histogram kernels);
   3. F += learning_rate * tree output;
-  4. the covariance parameters are refitted on the new residuals: a full
-     L-BFGS-B fit in the first round, warm-started Nesterov GD after.
+  4. with a GP model, the covariance parameters are refitted on the new
+     residuals: a full L-BFGS-B fit in the first round, warm-started
+     Nesterov GD after.
+
+Boosting without a GP model can grow its trees over a torch.distributed
+group (num_parallel_devices = the group's size, tree_learner data, feature
+or voting); each rank then keeps the score of the rows its learner holds.
 
 The training score F and the labels live on the booster's device in
 float64; the trees are host numpy objects (tree.py), as in the reference.
@@ -16,8 +23,9 @@ The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is, for its Vecchia
 branch, `VecchiaGaussianEngine.psi_tilde_inv_mat` here.
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
 `train` always runs the host loop. Newton leaf updates, line search,
-Nesterov-accelerated boosting, DART/GOSS/RF, sampling and every objective
-other than Gaussian regression with a GP model raise NotImplementedError.
+Nesterov-accelerated boosting, DART/GOSS/RF, sampling, a GP model together
+with a parallel tree learner, and every objective other than Gaussian
+regression raise NotImplementedError.
 """
 
 import numpy as np
@@ -26,6 +34,7 @@ import torch
 from .tree import Tree
 from .tree_learner import SerialTreeLearner
 from ..models.jit_gd import gd_fit_engine
+from ..parallel.group import default_group
 from ..utils.device import resolve_device
 
 _OBJ_ALIASES = {
@@ -49,7 +58,7 @@ _BOOST_PARAM_DEFAULTS = dict(
     monotone_constraints=None, interaction_constraints=None,
     forcedsplits_filename="", cegb_penalty_split=0.0,
     cegb_penalty_feature_coupled=None, cegb_penalty_feature_lazy=None,
-    num_parallel_devices=None, tree_learner="serial",
+    num_parallel_devices=None, tree_learner="serial", top_k=20,
 )
 _UNPORTED_IF_CHANGED = (
     "boosting", "leaves_newton_update", "line_search_step_length",
@@ -57,8 +66,14 @@ _UNPORTED_IF_CHANGED = (
     "feature_fraction", "path_smooth", "extra_trees", "linear_tree",
     "monotone_constraints", "interaction_constraints",
     "forcedsplits_filename", "cegb_penalty_split",
-    "cegb_penalty_feature_coupled", "cegb_penalty_feature_lazy",
-    "num_parallel_devices", "tree_learner")
+    "cegb_penalty_feature_coupled", "cegb_penalty_feature_lazy")
+# tree_learner values and their aliases -> the learner's parallel_mode
+# (gbdt.py:590-596)
+_TREE_LEARNERS = {
+    "serial": "data", "data": "data", "data_parallel": "data",
+    "feature": "feature", "feature_parallel": "feature",
+    "voting": "voting", "voting_parallel": "voting",
+}
 
 _PARAM_ALIASES = {
     "shrinkage_rate": "learning_rate", "eta": "learning_rate",
@@ -79,34 +94,43 @@ def _parse_params(raw):
     for k, v in (raw or {}).items():
         p[_PARAM_ALIASES.get(k, k)] = v
     changed = [k for k in _UNPORTED_IF_CHANGED
-               if p[k] != _BOOST_PARAM_DEFAULTS[k]
-               and not (k == "tree_learner" and p[k] == "serial")]
+               if p[k] != _BOOST_PARAM_DEFAULTS[k]]
     if changed:
         raise NotImplementedError("not ported yet: " + ", ".join(
             f"{k}={p[k]!r}" for k in changed))
     if _OBJ_ALIASES.get(p["objective"]) != "gaussian":
         raise NotImplementedError(
-            f"objective '{p['objective']}' is not ported yet (regression "
-            "with a Gaussian GP model only)")
+            f"objective '{p['objective']}' is not ported yet (Gaussian "
+            "regression only)")
+    if str(p["tree_learner"]) not in _TREE_LEARNERS:
+        raise ValueError(f"Unknown tree_learner '{p['tree_learner']}'")
     return p
 
 
 class Booster:
-    """Tree-boosting model combined with a Gaussian Vecchia GPModel
-    (basic.py:2315 Booster)."""
+    """Tree-boosting model for Gaussian regression, alone or combined with
+    a Gaussian Vecchia GPModel (basic.py:2315 Booster)."""
 
     def __init__(self, params=None, train_set=None, gp_model=None,
                  model_dict=None, device=None):
         if model_dict is not None:
             self._load(model_dict, device)
             return
-        if gp_model is None or gp_model.likelihood != "gaussian":
+        if gp_model is not None and gp_model.likelihood != "gaussian":
             raise NotImplementedError(
                 "the port boosts with a Gaussian GPModel only")
         self.params = _parse_params(params)
         p = self.params
-        self.device = resolve_device(device if device is not None
-                                     else gp_model.device)
+        if gp_model is not None:
+            if int(p["num_parallel_devices"] or 1) > 1:
+                raise NotImplementedError("a GP model with a parallel tree "
+                                          "learner is not ported yet")
+            group = None
+        else:
+            group = default_group(p["num_parallel_devices"])
+        if device is None and gp_model is not None:
+            device = gp_model.device
+        self.device = resolve_device(device)
         self.train_set = train_set
         self.gp_model = gp_model
         train_set.construct()
@@ -122,15 +146,20 @@ class Booster:
             lambda_l2=float(p["lambda_l2"]), lambda_l1=float(p["lambda_l1"]),
             min_sum_hessian_in_leaf=float(p["min_sum_hessian_in_leaf"]),
             min_gain_to_split=float(p["min_gain_to_split"]),
-            device=self.device)
+            device=self.device,
+            parallel_mode=_TREE_LEARNERS[str(p["tree_learner"])],
+            top_k=int(p["top_k"]), group=group)
         self.trees = []
-        # BoostFromScore for a Gaussian GP model: the response mean
-        # (regression_objective.hpp:239-283)
+        # BoostFromScore for Gaussian regression, with or without a GP
+        # model: the response mean over all rows (regression_objective.hpp:
+        # 239-283)
         self.init_score = float(np.mean(y))
-        self.y = torch.as_tensor(np.asarray(y, dtype=np.float64),
-                                 device=self.device)
-        self.F = torch.full((self.n,), self.init_score, dtype=torch.float64,
-                            device=self.device)
+        # the score and labels of the rows this rank's learner holds
+        self.y = torch.as_tensor(
+            np.asarray(y, dtype=np.float64)[self.learner.rows],
+            device=self.device)
+        self.F = torch.full((self.learner.n,), self.init_score,
+                            dtype=torch.float64, device=self.device)
         self._gp_init_pars = None
         self._gp_lr = 0.1
         self._gp_refit_iter = -1
@@ -139,6 +168,8 @@ class Booster:
     # ------------------------------------------------------------------
     def _gradients(self):
         """(grad, hess) at the current score F, as device tensors."""
+        if self.gp_model is None:
+            return self.F - self.y, torch.ones_like(self.F)
         # covariance parameters are refitted after each tree (update());
         # here only when no fit for the current F exists yet
         if self._gp_refit_iter != self.current_iteration_:
@@ -191,14 +222,16 @@ class Booster:
         self.current_iteration_ = len(self.trees)
         # refit on the post-tree residuals so get_cov_pars(), predictions
         # and the next round's gradients see the current ensemble
-        self._refit_gp_cov()
+        if self.gp_model is not None:
+            self._refit_gp_cov()
         return False
 
     # ------------------------------------------------------------------
     def predict(self, data, gp_coords_pred=None, predict_var=False,
                 pred_latent=False):
         """Fixed effect from the trees plus the GP's random effect
-        (basic.py:3455; gbdt.py:2095-2124 Gaussian branch)."""
+        (basic.py:3455; gbdt.py:2095-2124 Gaussian branch). Without a GP
+        model, the raw score (n,) numpy."""
         X = np.asarray(data, dtype=np.float64)
         if X.ndim == 1:
             X = X[:, None]
@@ -206,6 +239,8 @@ class Booster:
         for tree in self.trees:
             F_pred = F_pred + tree.predict_raw(X)
         F_pred = F_pred + self.init_score
+        if self.gp_model is None:
+            return F_pred
         resid = (self.y - self.F).cpu().numpy()
         pred = self.gp_model.predict(
             y=resid, gp_coords_pred=gp_coords_pred, predict_var=predict_var,
@@ -227,11 +262,11 @@ class Booster:
             "params": {k: v for k, v in self.params.items()
                        if isinstance(v, (int, float, str, bool))},
             "trees": [t.to_dict() for t in self.trees],
-            "has_gp_model": 1,
+            "has_gp_model": int(self.gp_model is not None),
             "num_sets": 1,
             "init_score2": 0.0,
         }
-        if self.gp_model.model_has_been_fitted:
+        if self.gp_model is not None and self.gp_model.model_has_been_fitted:
             d["gp_model"] = self.gp_model.model_to_dict()
             d["residual_or_y"] = (self.y - self.F).cpu().numpy().tolist()
             d["fixed_effect_train"] = self.F.cpu().numpy().tolist()
@@ -239,14 +274,14 @@ class Booster:
 
     def _load(self, d, device):
         """Rebuild a booster that predicts from a model dict (gbdt.py:2330
-        _load), with its GP model on `device`."""
+        _load), with its GP model, if it has one, on `device`."""
         from ..gp_model import GPModel
         unsupported = [k for k in ("efb", "init_scores", "pandas_categorical",
                                    "binary_label_weights") if d.get(k)]
         if int(d.get("num_sets", 1)) != 1:
             unsupported.append("num_sets")
-        if not d.get("has_gp_model"):
-            unsupported.append("a booster without a GP model")
+        if d["objective"] != "gaussian":
+            unsupported.append(f"objective '{d['objective']}'")
         if unsupported:
             raise NotImplementedError(
                 "model dict holds parts that are not ported yet: "
@@ -259,6 +294,9 @@ class Booster:
         self.train_set = None
         self.current_iteration_ = len(self.trees)
         self.device = resolve_device(device)
+        self.gp_model = None
+        if not d.get("has_gp_model"):
+            return
         self.gp_model = GPModel(model_dict=d["gp_model"], device=self.device)
         F = np.asarray(d["fixed_effect_train"], dtype=np.float64)
         y = F + np.asarray(d["residual_or_y"], dtype=np.float64)
@@ -269,9 +307,11 @@ class Booster:
 
 def train(params, train_set, num_boost_round=100, gp_model=None,
           device=None):
-    """Train a GPBoost model (engine.py:22 train) with the host loop: one
-    `Booster.update` per round. Validation sets and callbacks are not
-    ported yet."""
+    """Train a boosting model, with or without a GP model (engine.py:22
+    train), with the host loop: one `Booster.update` per round. Run inside
+    an initialised torch.distributed group with num_parallel_devices equal
+    to its size, the trees grow over the group (tree_learner data, feature
+    or voting). Validation sets and callbacks are not ported yet."""
     raw = dict(params or {})
     for k in list(raw):
         if _PARAM_ALIASES.get(k, k) == "num_boost_round":

@@ -13,8 +13,9 @@ from .boosting.gbdt import Booster
 
 def booster_from_jax_dict(d, device=None):
     """(Booster, GPModel) of the port from a JAX `Booster.model_to_dict()`,
-    ready to `predict` on `device` (default: CUDA when present, else CPU).
-    Only Gaussian GPBoost models with a Vecchia GP are ported so far; any
-    other model raises NotImplementedError."""
+    ready to `predict` on `device` (default: the first CUDA card). The
+    GPModel is None for a booster trained without one. Gaussian regression
+    boosting, alone or with a Vecchia GP, is ported so far; any other model
+    raises NotImplementedError."""
     booster = Booster(model_dict=d, device=device)
     return booster, booster.gp_model

@@ -8,8 +8,8 @@ L-BFGS-B on the nugget-profiled NLL, prediction with the default
 reference (`model_to_dict`), so a model moves between the two packages.
 Every other engine, likelihood and option raises NotImplementedError.
 
-device: where the engine's tensors live (default: the first CUDA card when
-one is present, else the CPU). dtype: the engine's float type, "float64"
+device: where the engine's tensors live (default: the first CUDA card; it
+raises without one, and the CPU runs only when device="cpu" is passed). dtype: the engine's float type, "float64"
 (default, as the reference) or "float32".
 """
 

@@ -90,7 +90,7 @@ class VecchiaGaussianEngine:
 
     def __init__(self, components, num_data, num_neighbors=20,
                  vecchia_ordering="random", seed=0, dtype=torch.float64,
-                 device="cpu", mesh=None, weights=None, cluster_ids=None):
+                 *, device, mesh=None, weights=None, cluster_ids=None):
         if mesh is not None or weights is not None or cluster_ids is not None:
             raise NotImplementedError(
                 "mesh, weights and cluster_ids are not ported yet for "

@@ -5,10 +5,14 @@ import torch
 
 def resolve_device(device=None):
     """The torch.device a model runs on: the given one, else the first CUDA
-    card when one is present, else the CPU."""
+    card. Without a card and without an explicit device it raises: the CPU
+    runs the port only when the caller passes device="cpu"."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_dtype(dtype):

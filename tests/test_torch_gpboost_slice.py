@@ -102,7 +102,10 @@ def test_jax_model_dict_predicts_the_same_in_the_port(trained):
 def test_unported_jax_model_dicts_raise(trained, change):
     d = trained[0].model_to_dict()
     if change == "no_gp_model":
+        # a booster without a GP model loads (test_torch_parallel_learner);
+        # one of an objective other than Gaussian regression does not
         d["has_gp_model"] = 0
+        d["objective"] = "bernoulli_logit"
     elif change == "dense_gp":
         d["gp_model"] = {**d["gp_model"], "gp_approx": "none"}
     else:
