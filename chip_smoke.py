@@ -7,14 +7,21 @@ Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
      limit as nvidia-smi reports them;
   2. build: compiles the histogram kernels (csrc/histogram.cu and
-     csrc/hist_masked.cu, one nvcc each, started together) from the
-     checkout's sources and prints the build seconds and what ptxas reports;
-  3. kernel vs plain, hist_segment: the kernel against its plain PyTorch
-     version on the card at the GPBoost slice's shapes (n = 10,000 rows,
-     p = 5, the dataset's real bin count; uint8 and int32 bins; root,
-     unaligned, empty and one-row segments, host-int and device-tensor
-     segments), bitwise repeatability, and both versions' times (CUDA
-     events, median of 25);
+     csrc/hist_masked.cu around csrc/hist_common.cuh, one nvcc each,
+     started together) from the checkout's sources and prints the build
+     seconds and what ptxas reports;
+  3. kernel checks, hist_segment: at the GPBoost slice's shapes (n = 10,000
+     rows, p = 5, the dataset's real bin count; uint8 and int32 bins; root,
+     unaligned, empty and one-row segments, a feature whose rows all fall
+     in one bin; host-int, 0-dim tensor and (2,) device-pair segments) the
+     kernel must equal its fixed-point emulation bit for bit, equal itself
+     across two launches and under a permutation of the segment's rows, and
+     match the plain version (counts exact, grad/hess to 1e-4); then at the
+     serial learner's shapes of boosting_n200k_p50 (n = 200,000, p = 50,
+     uint8; whole and half segment, one-bin feature). Times: CUDA events
+     around the wrapper (median of 25, host work included) and the kernel's
+     own device time from torch.profiler (mean of 25), beside the plain
+     version's;
   4. the GPBoost slice at full size: the bench configuration w_gpboost1000
      (n = 10,000, p = 5, 2-D coordinates, exponential kernel, Vecchia with
      20 neighbours, 31-leaf trees, learning rate 0.1, float32 engine,
@@ -23,11 +30,13 @@ Phases; any failure exits non-zero and prints no result line:
   5. card vs CPU: the same slice at n = 2,000 in float64 on the card (with
      the kernel) and on the CPU (plain version): first tree, covariance
      parameters and predictions;
-  6. kernel vs plain, hist_masked and hist_block: at the boosting slice's
+  6. kernel checks, hist_masked and hist_block: at the boosting slice's
      shapes (p = 50; n = 200,000 and a ragged n; the dataset's real bin
-     count; uint8 and int32 bins; a target that selects about half the
-     rows, one that selects none, a device-tensor target), bitwise
-     repeatability, and both versions' times;
+     count; uint8 and int32 bins and a one-bin feature; targets that select
+     about half the rows, none, one row, and a device-tensor target), the
+     same checks as phase 3 (emulation, two launches, a row permutation,
+     plain version to 1e-5 of the largest entry), a NaN grad (that channel
+     NaN in every bin, the others exact), and the same times;
   7. the parallel boosting slice at full width: the bench configuration
      boosting_n200k_p50 (sim_boost, n = 200,000, p = 50, seed 2, 31 leaves,
      learning rate 0.1, Gaussian regression, no GP model) for 20 rounds
@@ -126,7 +135,9 @@ def phase_build(histogram):
 
 
 def _time_ms(torch, fn, reps=25):
-    """Median device time of fn() in ms over reps launches (CUDA events)."""
+    """Median time of fn() in ms over reps calls, by CUDA events around
+    each call: the wrapper's host work is inside it where the device waits
+    for the host."""
     for _ in range(3):
         fn()
     times = []
@@ -141,8 +152,89 @@ def _time_ms(torch, fn, reps=25):
     return float(np.median(times))
 
 
+def _device_ms(torch, fn, reps=25, kernel="hist_"):
+    """The kernel's own device time in ms per call of fn(): the summed
+    durations of the device kernels whose name holds `kernel` under
+    torch.profiler, over reps calls. None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if str(e.device_type).endswith("CUDA") and kernel in e.name]
+    return sum(spans) * 1e-3 / reps if spans else None
+
+
+def _fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _check_exact(torch, name, k1, k2, emu, ref, tol):
+    """Kernel result k1 against a second launch k2 and the fixed-point
+    emulation emu (both bitwise), and against the plain version ref:
+    counts exact, grad/hess within tol (absolute). Returns the error."""
+    if not torch.equal(k1, k2):
+        raise AssertionError(f"{name}: two launches differ")
+    if not torch.equal(k1, emu):
+        d = float((k1 - emu).abs().max())
+        raise AssertionError(f"{name}: differs from its fixed-point "
+                             f"emulation by {d:.3g}")
+    if not torch.equal(k1[:, 2], ref[:, 2]):
+        raise AssertionError(f"{name}: counts differ from the plain version")
+    err = float((k1[:, :2] - ref[:, :2]).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name}: grad/hess error {err:.3g} > {tol:.3g}")
+    return err
+
+
+def _segment_case(torch, histogram, name, bins, stats, s0, cnt, num_bins,
+                  tol, gen):
+    """hist_segment on [s0, s0 + cnt): host ints and a device pair, twice
+    each, against the emulation and the plain version, and bitwise under a
+    permutation of the segment's rows. Returns the grad/hess error."""
+    dev = bins.device
+    seg = torch.tensor([s0, cnt], dtype=torch.int32, device=dev)
+    emu = histogram.hist_segment_fixed_point_reference(bins, stats, s0, cnt,
+                                                       num_bins)
+    ref = histogram.hist_segment_plain(bins, stats, s0, cnt, num_bins)
+    err = 0.0
+    for args in ((s0, cnt), (seg, None),
+                 (torch.tensor(s0, device=dev), torch.tensor(cnt, device=dev))):
+        k1 = histogram.hist_segment(bins, stats, *args, num_bins)
+        k2 = histogram.hist_segment(bins, stats, *args, num_bins)
+        torch.cuda.synchronize()
+        err = max(err, _check_exact(torch, name, k1, k2, emu, ref, tol))
+    perm = s0 + torch.randperm(cnt, generator=gen).to(dev)
+    pb, ps = bins.clone(), stats.clone()
+    pb[s0:s0 + cnt] = bins[perm]
+    ps[s0:s0 + cnt] = stats[perm]
+    kp = histogram.hist_segment(pb, ps, s0, cnt, num_bins)
+    torch.cuda.synchronize()
+    if not torch.equal(kp, k1):
+        raise AssertionError(f"{name}: a permutation of the rows changes "
+                             "the bits")
+    return err
+
+
+def _one_bin(bins, axis):
+    """bins with feature 0's rows all in bin 3 (the worst case for shared
+    atomics): column 0 of (n, p), or row 0 of (p, n)."""
+    b = bins.clone()
+    if axis == 1:
+        b[:, 0] = 3
+    else:
+        b[0] = 3
+    return b
+
+
 def phase_kernel(torch, gpt, histogram):
-    """Kernel vs its plain version on the card at the slice's shapes."""
+    """hist_segment against its emulation and plain version on the card at
+    the GPBoost slice's shapes."""
     torch.backends.cuda.matmul.allow_tf32 = False   # plain einsum in full f32
     _, X, y = sim_gpboost(N_FULL)
     ds = gpt.Dataset(X, label=y)
@@ -150,56 +242,95 @@ def phase_kernel(torch, gpt, histogram):
     num_bins = int(ds.num_bins)
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
     stats = np.ones((N_FULL, 3), dtype=np.float32)
     stats[:, 0] = rng.randn(N_FULL)
     stats[:, 1] = rng.rand(N_FULL) + 0.5
     stats_d = torch.as_tensor(stats, device=dev)
     bins_u8 = torch.as_tensor(ds.bins.astype(np.uint8), device=dev)
     bins_i32 = bins_u8.to(torch.int32)
+    one_bin = _one_bin(bins_u8, 1)
     cases = [("uint8", bins_u8, 0, N_FULL), ("uint8", bins_u8, 1237, 4321),
              ("uint8", bins_u8, 500, 0), ("uint8", bins_u8, N_FULL - 1, 1),
-             ("int32", bins_i32, 0, N_FULL), ("int32", bins_i32, 3, 7777)]
+             ("int32", bins_i32, 0, N_FULL), ("int32", bins_i32, 3, 7777),
+             ("uint8 one-bin feature", one_bin, 0, N_FULL)]
     max_err = 0.0
     for name, bins, s0, cnt in cases:
-        for seg in ((s0, cnt), (torch.tensor(s0, device=dev),
-                                torch.tensor(cnt, device=dev))):
-            k1 = histogram.hist_segment(bins, stats_d, *seg, num_bins)
-            k2 = histogram.hist_segment(bins, stats_d, *seg, num_bins)
-            ref = histogram.hist_segment_plain(bins, stats_d, s0, cnt,
-                                               num_bins)
-            torch.cuda.synchronize()
-            if not torch.equal(k1, k2):
-                raise AssertionError(f"{name} [{s0},+{cnt}): two launches "
-                                     "differ")
-            if not torch.equal(k1[:, 2], ref[:, 2]):
-                raise AssertionError(f"{name} [{s0},+{cnt}): counts differ")
-            err = float((k1[:, :2] - ref[:, :2]).abs().max())
-            # f32 sums of order-one values over <= 10k rows, in another order
-            if not err <= 1e-4:
-                raise AssertionError(f"{name} [{s0},+{cnt}): grad/hess error "
-                                     f"{err:.3g} > 1e-4")
-            max_err = max(max_err, err)
-        print(f"[kernel] {name} bins, segment [{s0}, {s0 + cnt}): ok", flush=True)
-    ms = _time_ms(torch, lambda: histogram.hist_segment(
-        bins_u8, stats_d, 0, N_FULL, num_bins))
-    plain_ms = _time_ms(torch, lambda: histogram.hist_segment_plain(
-        bins_u8, stats_d, 0, N_FULL, num_bins))
+        # f32 sums of order-one values over <= 10k rows, in another order
+        max_err = max(max_err, _segment_case(
+            torch, histogram, f"hist_segment {name} [{s0},+{cnt})", bins,
+            stats_d, s0, cnt, num_bins, 1e-4, gen))
+        print(f"[kernel] {name} bins, segment [{s0}, {s0 + cnt}): ok",
+              flush=True)
+    amax = histogram.stat_amax(stats_d, 0)
+
+    def kernel(b=bins_u8):
+        return histogram.hist_segment(b, stats_d, 0, N_FULL, num_bins,
+                                      amax=amax)
+    t = dict(ms=_time_ms(torch, kernel), device_ms=_device_ms(torch, kernel),
+             plain_ms=_time_ms(torch, lambda: histogram.hist_segment_plain(
+                 bins_u8, stats_d, 0, N_FULL, num_bins)))
+    one_ms = _device_ms(torch, lambda: kernel(one_bin))
     # each input read once (uint8 codes, three f32 stats), output written
     # once; 3 adds per row and feature
-    bound_ms, bound_by = bound(N_FULL * P + 12 * N_FULL + 12 * P * num_bins,
-                               3 * N_FULL * P)
+    t["bound_ms"], t["bound_by"] = bound(
+        N_FULL * P + 12 * N_FULL + 12 * P * num_bins, 3 * N_FULL * P)
     print(f"[kernel] hist_segment n={N_FULL} p={P} B={num_bins} uint8: "
-          f"kernel {ms:.4f} ms, plain einsum {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}), max |err| {max_err:.3g}",
-          flush=True)
+          f"kernel {t['ms']:.4f} ms by events, {_fmt_ms(t['device_ms'])} "
+          f"device; plain einsum {t['plain_ms']:.4f} ms; bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']}); feature 0 in one bin "
+          f"{_fmt_ms(one_ms)} device; max |err| {max_err:.3g}", flush=True)
     # no one PyTorch call computes a weighted histogram of every feature
     # (bincount takes one weight vector of one feature), so library_ms is
     # null
     return {"name": "hist_segment", "route": "cuda",
             "source": "gpboost_tpu_torch/csrc/histogram.cu",
             "replaces": "gpboost_tpu/ops/histogram.py:85",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max_err, **t, "library_ms": None}
+
+
+def phase_segment_large(torch, histogram, ds, kernel_row):
+    """hist_segment at the serial learner's shapes of boosting_n200k_p50
+    (n = 200,000, p = 50, uint8): whole and half segment, and a feature in
+    one bin. Adds the whole segment's times to kernel_row under
+    "at_n200k"."""
+    dev = torch.device("cuda")
+    num_bins = int(ds.num_bins)
+    n, p = ds.bins.shape
+    rng = np.random.RandomState(SEED_BOOST)
+    gen = torch.Generator().manual_seed(SEED_BOOST)
+    stats = np.ones((n, 3), dtype=np.float32)
+    stats[:, 0] = rng.randn(n)
+    stats[:, 1] = rng.rand(n) + 0.5
+    stats_d = torch.as_tensor(stats, device=dev)
+    bins = torch.as_tensor(np.ascontiguousarray(ds.bins, dtype=np.uint8),
+                           device=dev)
+    one_bin = _one_bin(bins, 1)
+    half = n // 2
+    for name, b, s0, cnt in (("whole", bins, 0, n), ("half", bins, 777, half),
+                             ("one-bin feature", one_bin, 0, n)):
+        # f32 sums of up to ~1,000 order-one values a bin in another order
+        tol = 1e-5 * float(histogram.hist_segment_plain(
+            b, stats_d, s0, cnt, num_bins)[:, :2].abs().max())
+        _segment_case(torch, histogram, f"hist_segment n={n} {name}", b,
+                      stats_d, s0, cnt, num_bins, max(tol, 1e-5), gen)
+    amax = histogram.stat_amax(stats_d, 0)
+    res = {}
+    for name, b, s0, cnt in (("whole", bins, 0, n), ("half", bins, 777, half),
+                             ("one-bin feature", one_bin, 0, n)):
+        def kernel():
+            return histogram.hist_segment(b, stats_d, s0, cnt, num_bins,
+                                          amax=amax)
+        res[name] = (_time_ms(torch, kernel), _device_ms(torch, kernel))
+    bound_ms, bound_by = bound(n * p + 12 * n + 12 * p * num_bins, 3 * n * p)
+    print(f"[kernel] hist_segment n={n} p={p} B={num_bins} uint8: "
+          + "; ".join(f"{k} {v[0]:.4f} ms by events, {_fmt_ms(v[1])} device"
+                      for k, v in res.items())
+          + f"; bound (whole) {bound_ms:.5f} ms ({bound_by})", flush=True)
+    kernel_row["at_n200k_p50"] = {
+        "ms": res["whole"][0], "device_ms": res["whole"][1],
+        "bound_ms": bound_ms, "half_ms": res["half"][0],
+        "half_device_ms": res["half"][1]}
 
 
 def _train(torch, gpt, n, dtype, device):
@@ -303,25 +434,10 @@ def phase_card_vs_cpu(torch, gpt):
           flush=True)
 
 
-def _check_hist(torch, name, k1, k2, ref):
-    """Kernel result k1 (and a second launch k2) against the plain ref:
-    bitwise repeatable, counts exact, grad/hess to 1e-5 of the largest
-    entry (float32 sums of up to ~1,000 order-one values a bin, in another
-    order: a few hundred ulps of that scale at most). Returns the error."""
-    if not torch.equal(k1, k2):
-        raise AssertionError(f"{name}: two launches differ")
-    if not torch.equal(k1[:, 2], ref[:, 2]):
-        raise AssertionError(f"{name}: counts differ")
-    err = float((k1[:, :2] - ref[:, :2]).abs().max())
-    tol = 1e-5 * max(1.0, float(ref[:, :2].abs().max()))
-    if not err <= tol:
-        raise AssertionError(f"{name}: grad/hess error {err:.3g} > {tol:.3g}")
-    return err
-
-
 def phase_masked_kernels(torch, histogram, ds):
-    """hist_masked and hist_block against their plain versions on the card
-    at the boosting slice's shapes."""
+    """hist_masked and hist_block against their fixed-point emulation
+    (bitwise) and their plain versions on the card at the boosting slice's
+    shapes."""
     dev = torch.device("cuda")
     num_bins = int(ds.num_bins)
     n, p = ds.bins.shape
@@ -330,66 +446,116 @@ def phase_masked_kernels(torch, histogram, ds):
     stats[0] = rng.randn(n)
     stats[1] = rng.rand(n) + 0.5
     node_np = rng.randint(0, 2, size=n).astype(np.int32)
+    node_np[12345] = 7                           # a one-row selection
     stats_d = torch.as_tensor(stats, device=dev)
     node_d = torch.as_tensor(node_np, device=dev)
     bins_u8 = torch.as_tensor(np.ascontiguousarray(ds.bins.T, dtype=np.uint8),
                               device=dev)
     bins_i32 = bins_u8.to(torch.int32)
+    one_bin = _one_bin(bins_u8, 0)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(
+        SEED_BOOST)).to(dev)
     err = {"hist_masked": 0.0, "hist_block": 0.0}
-    for bname, bins in (("uint8", bins_u8), ("int32", bins_i32)):
+
+    def check(name, fn, emu_fn, ref_fn, args, perm_args):
+        k1, k2 = fn(*args), fn(*args)
+        emu, ref = emu_fn(*args), ref_fn(*args)
+        kp = fn(*perm_args)
+        torch.cuda.synchronize()
+        # f32 sums of up to ~1,000 order-one values a bin, in another
+        # order: a few hundred ulps of the largest entry at most
+        tol = 1e-5 * max(1.0, float(ref[:, :2].abs().max()))
+        e = _check_exact(torch, name, k1, k2, emu, ref, tol)
+        if not torch.equal(kp, k1):
+            raise AssertionError(f"{name}: a permutation of the rows changes "
+                                 "the bits")
+        return k1, e
+
+    for bname, bins in (("uint8", bins_u8), ("int32", bins_i32),
+                        ("uint8 one-bin feature", one_bin)):
         for m in (n, N_RAGGED):
             b = bins[:, :m].contiguous()
             s = stats_d[:, :m].contiguous()
             nd = node_d[:m].contiguous()
-            for target in (1, 5, torch.tensor(1, device=dev)):
+            pm = perm[perm < m]
+            bp, sp, ndp = b[:, pm].contiguous(), s[:, pm].contiguous(), \
+                nd[pm].contiguous()
+            for target in (1, 5, 7, torch.tensor(1, device=dev)):
                 tname = "device 1" if isinstance(target, torch.Tensor) \
                     else str(target)
-                k1 = histogram.hist_masked(b, nd, s, target, num_bins)
-                k2 = histogram.hist_masked(b, nd, s, target, num_bins)
-                ref = histogram.hist_masked_plain(b, nd, s, target, num_bins)
-                torch.cuda.synchronize()
-                e = _check_hist(torch, f"hist_masked {bname} n={m} "
-                                f"target {tname}",
-                                k1, k2, ref)
+                k1, e = check(f"hist_masked {bname} n={m} target {tname}",
+                              histogram.hist_masked,
+                              histogram.hist_masked_fixed_point_reference,
+                              histogram.hist_masked_plain,
+                              (b, nd, s, target, num_bins),
+                              (bp, ndp, sp, target, num_bins))
                 if target == 5 and k1.any():
                     raise AssertionError("hist_masked: an empty target "
                                          "gave a non-zero histogram")
+                if target == 7 and float(k1[0, 2].sum()) != 1.0:
+                    raise AssertionError("hist_masked: a one-row target "
+                                         "did not count one row")
                 err["hist_masked"] = max(err["hist_masked"], e)
             sm = s * (nd == 1).to(torch.float32)[None, :]
-            k1 = histogram.hist_block(b, sm, num_bins)
-            k2 = histogram.hist_block(b, sm, num_bins)
-            ref = histogram.hist_block_plain(b, sm, num_bins)
-            torch.cuda.synchronize()
-            err["hist_block"] = max(err["hist_block"], _check_hist(
-                torch, f"hist_block {bname} n={m}", k1, k2, ref))
+            smp = sp * (ndp == 1).to(torch.float32)[None, :]
+            _, e = check(f"hist_block {bname} n={m}", histogram.hist_block,
+                         histogram.hist_block_fixed_point_reference,
+                         histogram.hist_block_plain, (b, sm, num_bins),
+                         (bp, smp, num_bins))
+            err["hist_block"] = max(err["hist_block"], e)
             print(f"[kernel] hist_masked, hist_block {bname} bins n={m} "
                   f"p={p} B={num_bins}: ok", flush=True)
+    # a non-finite stat: that channel is NaN in every bin, the others exact
+    bad = stats_d.clone()
+    bad[0, 99] = float("nan")
+    k = histogram.hist_masked(bins_u8, node_d, bad, 1, num_bins)
+    emu = histogram.hist_masked_fixed_point_reference(bins_u8, node_d, bad,
+                                                      1, num_bins)
+    torch.cuda.synchronize()
+    if not (bool(torch.isnan(k[:, 0]).all())
+            and torch.equal(k[:, 1:], emu[:, 1:])):
+        raise AssertionError("hist_masked: a NaN grad did not give a NaN "
+                             "grad channel and exact other channels")
+    print("[kernel] hist_masked with a NaN grad: grad channel NaN in every "
+          "bin, hess and count bitwise equal to the emulation", flush=True)
+
     sel = int(np.sum(node_np == 1))
     out_bytes = 12 * p * num_bins
-    masked = dict(
-        ms=_time_ms(torch, lambda: histogram.hist_masked(
-            bins_u8, node_d, stats_d, 1, num_bins)),
-        plain_ms=_time_ms(torch, lambda: histogram.hist_masked_plain(
-            bins_u8, node_d, stats_d, 1, num_bins)))
+    amax = histogram.stat_amax(stats_d, 1)
+
+    def times(fn, plain):
+        return dict(ms=_time_ms(torch, fn), device_ms=_device_ms(torch, fn),
+                    plain_ms=_time_ms(torch, plain))
+    masked = times(lambda: histogram.hist_masked(
+        bins_u8, node_d, stats_d, 1, num_bins, amax=amax),
+        lambda: histogram.hist_masked_plain(bins_u8, node_d, stats_d, 1,
+                                            num_bins))
     # the least a masked scan must move: every node id, the bin codes and
     # stats of the selected rows only, the output; 3 adds per selected row
     # and feature
     masked["bound_ms"], masked["bound_by"] = bound(
         4 * n + sel * (p + 12) + out_bytes, 3 * sel * p)
-    block = dict(
-        ms=_time_ms(torch, lambda: histogram.hist_block(
-            bins_u8, stats_d, num_bins)),
-        plain_ms=_time_ms(torch, lambda: histogram.hist_block_plain(
-            bins_u8, stats_d, num_bins)))
+    block = times(lambda: histogram.hist_block(bins_u8, stats_d, num_bins,
+                                               amax=amax),
+                  lambda: histogram.hist_block_plain(bins_u8, stats_d,
+                                                     num_bins))
     block["bound_ms"], block["bound_by"] = bound(
         n * p + 12 * n + out_bytes, 3 * n * p)
+    extra = {
+        "hist_masked": _device_ms(torch, lambda: histogram.hist_masked(
+            one_bin, node_d, stats_d, 1, num_bins, amax=amax)),
+        "hist_block": _device_ms(torch, lambda: histogram.hist_block(
+            one_bin, stats_d, num_bins, amax=amax))}
     out = []
     for name, t in (("hist_masked", masked), ("hist_block", block)):
         print(f"[kernel] {name} n={n} p={p} B={num_bins} uint8"
               + (f" ({sel} rows selected)" if name == "hist_masked" else "")
-              + f": kernel {t['ms']:.4f} ms, plain einsum "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}), max |err| {err[name]:.3g}", flush=True)
+              + f": kernel {t['ms']:.4f} ms by events, "
+              f"{_fmt_ms(t['device_ms'])} device; plain einsum "
+              f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}); feature 0 in one bin "
+              f"{_fmt_ms(extra[name])} device; max |err| {err[name]:.3g}",
+              flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": "gpboost_tpu_torch/csrc/hist_masked.cu",
                     "replaces": ("gpboost_tpu/ops/histogram.py:155"
@@ -570,6 +736,7 @@ def main():
     print(f"[data] sim_boost n={N_BOOST} p={P_BOOST}: binned in "
           f"{time.perf_counter() - t0:.2f} s, {int(ds.num_bins)} bins",
           flush=True)
+    phase_segment_large(torch, histogram, ds, segment)
     masked, block = phase_masked_kernels(torch, histogram, ds)
     # hist_block has no caller in either package: its count reads 0
     masked["launches"], block["launches"], ref = phase_parallel(

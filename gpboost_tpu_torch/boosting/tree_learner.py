@@ -41,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from .tree import Tree
-from ..ops.histogram import hist_masked, hist_segment
+from ..ops.histogram import hist_masked, hist_segment, stat_amax
 from ..parallel.group import all_reduce, block
 from ..utils.device import resolve_device
 
@@ -118,9 +118,12 @@ def grow_tree_partitioned(bins_pos, stats_pos, num_bins, num_leaves,
 
     bins_p = bins_pos.clone()
     stats_p = stats_pos.clone()
+    # the kernel's fixed-point scale: the stats do not change while the
+    # tree grows (partitioning only permutes them)
+    amax = stat_amax(stats_pos, 0)
     row_ids = torch.arange(n, dtype=torch.int64, device=dev)
     leaf_of_pos = torch.zeros(n, dtype=torch.int64, device=dev)
-    hist0 = hist_segment(bins_p, stats_p, 0, n, num_bins)
+    hist0 = hist_segment(bins_p, stats_p, 0, n, num_bins, amax=amax)
     leaf_hist = torch.zeros((L, p, 3, num_bins), dtype=torch.float32,
                             device=dev)
     leaf_hist[0] = hist0
@@ -167,8 +170,9 @@ def grow_tree_partitioned(bins_pos, stats_pos, num_bins, num_leaves,
         cR = c - cL
         left_smaller = cL <= cR
         sS = s0 + torch.where(left_smaller, torch.zeros_like(cL), cL)
-        cS = torch.minimum(cL, cR)
-        hist_small = hist_segment(bins_p, stats_p, sS, cS, num_bins)
+        seg = torch.stack([sS, torch.minimum(cL, cR)]).to(torch.int32)
+        hist_small = hist_segment(bins_p, stats_p, seg, None, num_bins,
+                                  amax=amax)
         hist_big = leaf_hist[l] - hist_small
         hist_left = torch.where(left_smaller, hist_small, hist_big)
         hist_right = torch.where(left_smaller, hist_big, hist_small)
@@ -313,9 +317,10 @@ def grow_tree(bins_T, stats_T, num_bins, num_leaves, max_depth, lambda_l2,
         raise ValueError(f"grow_tree mode must be 'data' or 'feature', not "
                          f"{mode!r}")
     bins_own = bins_T[f0:f1]
+    amax = stat_amax(stats_T, 1)        # the kernel's scale, once per tree
 
     def hist_of(node, target):
-        h = hist_masked(bins_own, node, stats_T, target, B)
+        h = hist_masked(bins_own, node, stats_T, target, B, amax=amax)
         return all_reduce(h, group) if mode == "data" else h
 
     def best_of(hists):
@@ -363,9 +368,10 @@ def grow_tree_voting(bins_T, stats_T, num_bins, num_leaves, max_depth,
     B = num_bins
     K = int(min(top_k, p))
     S = int(min(2 * top_k, p))
+    amax = stat_amax(stats_T, 1)        # the kernel's scale, once per tree
 
     def hist_of(node, target):
-        return hist_masked(bins_T, node, stats_T, target, B)
+        return hist_masked(bins_T, node, stats_T, target, B, amax=amax)
 
     def gains(hists):
         return _split_gains(hists, lambda_l2, min_data, min_hess, min_gain,

@@ -11,10 +11,13 @@ the rows whose leaf id equals a target, over feature-major bins (p, n).
 `hist_block`, the port of `hist_block_pallas` (histogram.py:129), is the
 same kernel source with the mask compiled out: the histogram of every row.
 
-On a CUDA tensor each wrapper launches its hand-written kernel (csrc/*.cu,
-built with nvcc for sm_90a at first use, loaded with ctypes) or raises;
-there is no fallback. On a CPU tensor it runs the plain version, the
-reference's one-hot einsum in float32.
+On a CUDA tensor each wrapper launches its hand-written kernel (csrc/*.cu
+around the shared core csrc/hist_common.cuh, built with nvcc for sm_90a at
+first use, loaded with ctypes) or raises; there is no fallback. Each is
+one launch that sums in fixed point (int64), so its result is the same bits
+for any order of the rows and any grid; `hist_*_fixed_point_reference`
+repeat that arithmetic in plain torch. On a CPU tensor a wrapper runs the
+plain version, the reference's one-hot einsum in float32.
 """
 
 import ctypes
@@ -35,12 +38,18 @@ KERNEL_SOURCES = {
     "hist_segment": os.path.join(_PKG_ROOT, "csrc", "histogram.cu"),
     "hist_masked": os.path.join(_PKG_ROOT, "csrc", "hist_masked.cu"),
 }
+# the header both sources include
+KERNEL_HEADERS = [os.path.join(_PKG_ROOT, "csrc", "hist_common.cuh")]
 _BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # rows per block of the plain versions (the reference's non-TPU row block)
 _PLAIN_ROW_BLOCK = 8192
+# what the kernels take (csrc/hist_common.cuh kMaxBins; row offsets and
+# node ids are int32 on the learners' side)
+MAX_KERNEL_BINS = 4096
+MAX_ROWS = 2 ** 31 - 1
 
 
 def _nvcc():
@@ -52,14 +61,16 @@ def _nvcc():
 
 
 def _library_path(name):
-    with open(KERNEL_SOURCES[name], "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [KERNEL_SOURCES[name], *KERNEL_HEADERS]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(_BUILD_DIR, f"libgpb_{name}-{h.hexdigest()[:16]}.so")
 
 
 def build():
     """Compile every kernel source into _build/ (keyed by a content hash of
-    the source) unless it is there already, one nvcc per source, all
+    the source, the shared header and the flags) unless it is there already, one nvcc per source, all
     started together. Returns {name: (library path, seconds spent
     compiling, compiler output)}."""
     done, todo, running = {}, {}, {}
@@ -100,34 +111,147 @@ def build():
 
 
 _c = ctypes
-# each library's C entry points and their argument types; all return int
+_P = _c.c_void_p
+# each library's C entry point and its argument types; both return int
 _ENTRY_POINTS = {
-    "hist_segment": {
-        "gpb_hist_chunk_rows": [],
-        "gpb_hist_segment": [
-            _c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p,
-            _c.c_longlong, _c.c_longlong, _c.c_longlong, _c.c_longlong,
-            _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p]},
-    "hist_masked": {
-        "gpb_hist_masked_chunk_rows": [],
-        "gpb_hist_masked": [
-            _c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p,
-            _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_int, _c.c_int,
-            _c.c_longlong, _c.c_void_p, _c.c_void_p, _c.c_void_p]},
+    "hist_segment": ("gpb_hist_segment", [
+        _c.c_int, _P, _c.c_int, _P, _P, _c.c_int, _P, _c.c_longlong,
+        _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _P, _P, _P, _P]),
+    "hist_masked": ("gpb_hist_masked", [
+        _c.c_int, _P, _c.c_int, _P, _P, _P, _c.c_int, _P, _c.c_int,
+        _c.c_longlong, _c.c_int, _c.c_int, _P, _P, _P, _P]),
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name):
-    lib = ctypes.CDLL(build()[name][0])
-    for fn, argtypes in _ENTRY_POINTS[name].items():
-        getattr(lib, fn).restype = ctypes.c_int
-        getattr(lib, fn).argtypes = argtypes
-    return lib
+def _entry(name):
+    fn_name, argtypes = _ENTRY_POINTS[name]
+    fn = getattr(ctypes.CDLL(build()[name][0]), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
 
 
 def _device_index(dev):
     return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+# (device index, p, num_bins) -> (int64 accumulator (p * 3 * num_bins,),
+# int32 ticket counters (p,)): zero at rest; every launch leaves them zero
+# again, so one pair serves every launch of that shape on the device's
+# stream (launches on one device run in stream order)
+_SCRATCH = {}
+
+
+def _scratch(dev, p, num_bins):
+    key = (_device_index(dev), p, num_bins)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (
+            torch.zeros(p * 3 * num_bins, dtype=torch.int64, device=dev),
+            torch.zeros(p, dtype=torch.int32, device=dev))
+    return _SCRATCH[key]
+
+
+def _launch(name, *args):
+    rc = _entry(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+# --- fixed point (csrc/hist_common.cuh) ---------------------------------
+
+def _log2_rows(n):
+    """The least L with n <= 2^L."""
+    return max(int(n) - 1, 0).bit_length()
+
+
+def stat_amax(stats, dim):
+    """(3,) f32 max |stats| of each channel; stats hold the channels along
+    `dim` (stats_T (3, n): dim=1; stats_pos (n, 3): dim=0). Zeros when
+    there are no rows; NaN or inf where a channel holds one."""
+    if stats.shape[dim] == 0:
+        return torch.zeros(3, dtype=torch.float32, device=stats.device)
+    return torch.amax(torch.abs(stats), dim=dim).to(torch.float32)
+
+
+def _pow2(k):
+    """2.0 ** k in float64, exactly, from the exponent bits (|k| < 1000)."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def fixed_point_scale(amax, n):
+    """(up, down, finite), each (3,): 2^k_c, 2^-k_c in float64 and whether
+    max|v_c| is finite, with k_c = 62 - L - e_c, n <= 2^L and
+    max|v_c| < 2^e_c (frexp's exponent): the kernels' scale."""
+    a = torch.abs(amax.to(torch.float64))
+    finite = torch.isfinite(a)
+    _, e = torch.frexp(torch.where(finite, a, torch.zeros_like(a)))
+    k = 62 - _log2_rows(n) - e.to(torch.int64)
+    return _pow2(k), _pow2(-k), finite
+
+
+def _quantize(stats_T, up, finite):
+    """(3, m) int64 round-half-even(v * 2^k_c); channels that are not
+    finite quantise to 0."""
+    v = torch.where(finite[:, None], stats_T.to(torch.float64),
+                    torch.zeros((), dtype=torch.float64, device=up.device))
+    return torch.round(v * up[:, None]).to(torch.int64)
+
+
+def _fixed_point_hist(codes, q, num_bins, down, finite):
+    """The kernels' arithmetic in plain torch: codes (p, m) of the rows,
+    q (3, m) their quantised stats; integer index_add_ (deterministic on
+    every device), then f32(double(sum) * 2^-k_c), NaN where a channel is
+    not finite. (p, 3, num_bins) f32."""
+    p, m = codes.shape
+    dev = codes.device
+    codes = codes.to(torch.int64)
+    valid = (codes >= 0) & (codes < num_bins)
+    idx = torch.where(valid, codes + num_bins * torch.arange(
+        p, device=dev)[:, None], torch.full_like(codes, p * num_bins))
+    acc = torch.zeros((3, p * num_bins + 1), dtype=torch.int64, device=dev)
+    for c in range(3):
+        acc[c].index_add_(0, idx.reshape(-1), q[c].expand(p, m).reshape(-1))
+    out = acc[:, :-1].to(torch.float64) * down[:, None]
+    out = torch.where(finite[:, None], out, torch.full_like(out, math.nan))
+    return out.to(torch.float32).reshape(3, p, num_bins).permute(1, 0, 2) \
+        .contiguous()
+
+
+def hist_segment_fixed_point_reference(bins_pos, stats_pos, s0, cnt,
+                                       num_bins, amax=None):
+    """`hist_segment`'s kernel arithmetic in plain torch, on any device;
+    its result equals the kernel's bit for bit. The scale is set by n,
+    the rows of bins_pos, and amax (default: that of stats_pos)."""
+    s0, cnt = _segment_ints(s0, cnt)
+    if amax is None:
+        amax = stat_amax(stats_pos, 0)
+    up, down, finite = fixed_point_scale(amax, bins_pos.shape[0])
+    rows = slice(s0, s0 + cnt)
+    return _fixed_point_hist(bins_pos[rows].T, _quantize(
+        stats_pos[rows].T, up, finite), num_bins, down, finite)
+
+
+def hist_masked_fixed_point_reference(bins_T, node, stats_T, target,
+                                      num_bins, amax=None):
+    """`hist_masked`'s kernel arithmetic in plain torch, bit for bit."""
+    if isinstance(target, torch.Tensor):
+        target = target.reshape(()).to(device=node.device)
+    if amax is None:
+        amax = stat_amax(stats_T, 1)
+    up, down, finite = fixed_point_scale(amax, bins_T.shape[1])
+    sel = node == target
+    return _fixed_point_hist(bins_T[:, sel], _quantize(
+        stats_T[:, sel], up, finite), num_bins, down, finite)
+
+
+def hist_block_fixed_point_reference(bins_T, stats_T, num_bins, amax=None):
+    """`hist_block`'s kernel arithmetic in plain torch, bit for bit."""
+    if amax is None:
+        amax = stat_amax(stats_T, 1)
+    up, down, finite = fixed_point_scale(amax, bins_T.shape[1])
+    return _fixed_point_hist(bins_T, _quantize(stats_T, up, finite),
+                             num_bins, down, finite)
 
 
 def hist_segment_plain(bins_pos, stats_pos, s0, cnt, num_bins):
@@ -144,6 +268,20 @@ def hist_segment_plain(bins_pos, stats_pos, s0, cnt, num_bins):
                   == bvals[None, None, :]).to(torch.float32)
         acc = acc + torch.einsum("rc,rfb->fcb", stats_pos[start:stop], onehot)
     return acc
+
+
+def _check_amax(name, amax, dev):
+    if amax is not None and (amax.shape != (3,) or amax.device != dev
+                             or amax.dtype != torch.float32):
+        raise ValueError(f"{name}: amax must be (3,) float32 on {dev}")
+
+
+def _check_kernel_size(name, n, num_bins):
+    if n > MAX_ROWS:
+        raise ValueError(f"{name} takes at most {MAX_ROWS} rows, got {n}")
+    if num_bins > MAX_KERNEL_BINS:
+        raise ValueError(f"{name}'s kernel holds at most {MAX_KERNEL_BINS} "
+                         f"bins, got {num_bins}")
 
 
 def _check(bins_pos, stats_pos, num_bins):
@@ -166,51 +304,65 @@ def _check(bins_pos, stats_pos, num_bins):
         raise ValueError("hist_segment needs num_bins >= 1 and p >= 1")
 
 
-def hist_segment(bins_pos, stats_pos, s0, cnt, num_bins):
+def _segment_ints(s0, cnt):
+    """Host ints (s0, cnt) of a segment given as ints, 0-dim tensors, or
+    one (2,) tensor [s0, cnt] with cnt None."""
+    if cnt is None:
+        s0, cnt = s0.tolist()
+    return int(s0), int(cnt)
+
+
+def hist_segment(bins_pos, stats_pos, s0, cnt, num_bins, amax=None):
     """(p, 3, num_bins) f32 histogram of positions [s0, s0 + cnt).
 
     bins_pos (n, p) uint8/int32, stats_pos (n, 3) f32 [grad, hess, count].
-    s0 and cnt are host ints, or 0-dim integer tensors on the bins' device
-    (then the kernel reads them on the device and the call needs no host
-    sync). A CUDA tensor launches the kernel, a CPU tensor runs
-    `hist_segment_plain`; any other device raises.
+    The segment is s0 and cnt as host ints or 0-dim integer tensors, or
+    one (2,) int32 tensor [s0, cnt] on the bins' device with cnt None:
+    then the kernel reads it on the device and the call needs no host sync
+    and no conversion. amax, (3,) f32 on the bins' device, is max |stats|
+    of each channel over all n rows and sets the kernel's fixed-point
+    scale; the tree learner computes it once per tree, and without it the
+    wrapper does (`stat_amax`). A CUDA tensor launches the kernel, a CPU
+    tensor runs `hist_segment_plain`, which ignores amax; any other device
+    raises.
     """
     _check(bins_pos, stats_pos, num_bins)
     dev = bins_pos.device
     if dev.type == "cpu":
-        return hist_segment_plain(bins_pos, stats_pos, s0, cnt, num_bins)
+        return hist_segment_plain(bins_pos, stats_pos,
+                                  *_segment_ints(s0, cnt), num_bins)
     if dev.type != "cuda":
         raise ValueError(f"hist_segment runs on cuda or cpu, not {dev.type}")
-    lib = _library("hist_segment")
-    chunk = lib.gpb_hist_chunk_rows()
     n, p = bins_pos.shape
+    _check_kernel_size("hist_segment", n, num_bins)
+    _check_amax("hist_segment", amax, dev)
     if isinstance(s0, torch.Tensor):
-        seg = torch.stack([s0.reshape(()), cnt.reshape(())]).to(
-            device=dev, dtype=torch.int32)
-        s0_h = cnt_h = chunk0 = 0
-        nchunks = max(1, math.ceil(n / chunk))
+        if cnt is None:
+            seg = s0
+            if seg.shape != (2,) or seg.dtype != torch.int32 \
+                    or seg.device != dev:
+                raise ValueError("a segment tensor must be (2,) int32 "
+                                 "[s0, cnt] on the bins' device")
+        else:
+            seg = torch.stack([s0.reshape(()), cnt.reshape(())]).to(
+                device=dev, dtype=torch.int32)
+        s0_h = cnt_h = 0
         seg_ptr = seg.data_ptr()
     else:
-        seg = None
         s0_h, cnt_h = int(s0), int(cnt)
         if s0_h < 0 or cnt_h < 0 or s0_h + cnt_h > n:
             raise ValueError(f"segment [{s0_h}, {s0_h + cnt_h}) outside "
                              f"[0, {n})")
-        chunk0 = s0_h // chunk
-        nchunks = max(1, math.ceil((s0_h + cnt_h) / chunk) - chunk0)
         seg_ptr = None
-    partial = torch.empty((nchunks, p, 3, num_bins), dtype=torch.float32,
-                          device=dev)
+    if amax is None:
+        amax = stat_amax(stats_pos, 0)
+    acc, counters = _scratch(dev, p, num_bins)
     out = torch.empty((p, 3, num_bins), dtype=torch.float32, device=dev)
-    rc = lib.gpb_hist_segment(
-        _device_index(dev),
-        bins_pos.data_ptr(), int(bins_pos.dtype == torch.uint8),
-        stats_pos.data_ptr(), seg_ptr, s0_h, cnt_h, chunk0, nchunks, p,
-        num_bins, partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"hist_segment kernel launch failed: CUDA error "
-                           f"{rc}")
+    _launch("hist_segment", _device_index(dev), bins_pos.data_ptr(),
+            int(bins_pos.dtype == torch.uint8), stats_pos.data_ptr(),
+            amax.data_ptr(), _log2_rows(n), seg_ptr, s0_h, cnt_h, n, p,
+            num_bins, acc.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     hist_segment.launches += 1
     return out
 
@@ -283,13 +435,13 @@ def _check_T(name, bins_T, stats_T, num_bins, node=None):
                          f"{bins_T.device.type}")
 
 
-def _launch_masked(bins_T, node, stats_T, target, num_bins):
-    """Both passes of csrc/hist_masked.cu; node None is the unmasked
+def _launch_masked(bins_T, node, stats_T, target, num_bins, amax):
+    """One launch of csrc/hist_masked.cu; node None is the unmasked
     variant."""
     dev = bins_T.device
-    lib = _library("hist_masked")
     p, n = bins_T.shape
-    nchunks = max(1, math.ceil(n / lib.gpb_hist_masked_chunk_rows()))
+    _check_kernel_size("hist_masked", n, num_bins)
+    _check_amax("hist_masked", amax, dev)
     tgt = None
     target_host = 0
     if isinstance(target, torch.Tensor):
@@ -297,52 +449,55 @@ def _launch_masked(bins_T, node, stats_T, target, num_bins):
                 or target.dtype.is_floating_point:
             raise ValueError("a tensor target must be one integer on the "
                              "bins' device")
-        tgt = target.reshape(()).to(torch.int32)
+        tgt = target.reshape(())
+        if tgt.dtype != torch.int32:
+            tgt = tgt.to(torch.int32)
     elif target is not None:
         target_host = int(target)
-    partial = torch.empty((nchunks, p, 3, num_bins), dtype=torch.float32,
-                          device=dev)
+    if amax is None:
+        amax = stat_amax(stats_T, 1)
+    acc, counters = _scratch(dev, p, num_bins)
     out = torch.empty((p, 3, num_bins), dtype=torch.float32, device=dev)
-    rc = lib.gpb_hist_masked(
-        _device_index(dev), bins_T.data_ptr(),
-        int(bins_T.dtype == torch.uint8),
-        None if node is None else node.data_ptr(), stats_T.data_ptr(),
-        None if tgt is None else tgt.data_ptr(), target_host, n, p, num_bins,
-        nchunks, partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"hist_masked kernel launch failed: CUDA error "
-                           f"{rc}")
+    _launch("hist_masked", _device_index(dev), bins_T.data_ptr(),
+            int(bins_T.dtype == torch.uint8),
+            None if node is None else node.data_ptr(), stats_T.data_ptr(),
+            amax.data_ptr(), _log2_rows(n),
+            None if tgt is None else tgt.data_ptr(), target_host, n, p,
+            num_bins, acc.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def hist_masked(bins_T, node, stats_T, target, num_bins):
+def hist_masked(bins_T, node, stats_T, target, num_bins, amax=None):
     """(p, 3, num_bins) f32 histogram of the rows r with node[r] == target.
 
     bins_T (p, n) uint8/int32 feature-major, node (n,) int32, stats_T (3, n)
     f32 [grad, hess, count]; n needs no padding. target is a host int or a
     0-dim integer tensor on the bins' device (then the launch needs no host
-    sync). A CUDA tensor launches the kernel, a CPU tensor runs
-    `hist_masked_plain`; any other device raises.
+    sync). amax, (3,) f32 on the bins' device, is max |stats| of each
+    channel over all n rows and sets the kernel's fixed-point scale
+    (default: `stat_amax(stats_T, 1)`). A CUDA tensor launches the kernel,
+    a CPU tensor runs `hist_masked_plain`, which ignores amax; any other
+    device raises.
     """
     _check_T("hist_masked", bins_T, stats_T, num_bins, node)
     if bins_T.device.type == "cpu":
         return hist_masked_plain(bins_T, node, stats_T, target, num_bins)
-    out = _launch_masked(bins_T, node, stats_T, target, num_bins)
+    out = _launch_masked(bins_T, node, stats_T, target, num_bins, amax)
     hist_masked.launches += 1
     return out
 
 
-def hist_block(bins_T, stats_T, num_bins):
+def hist_block(bins_T, stats_T, num_bins, amax=None):
     """(p, 3, num_bins) f32 histogram of every row: bins_T (p, n)
     uint8/int32, stats_T (3, n) f32 whose rows outside the block the caller
-    has already zeroed. A CUDA tensor launches the unmasked variant of the
-    hist_masked kernel, a CPU tensor runs `hist_block_plain`; any other
-    device raises."""
+    has already zeroed; amax as for `hist_masked`. A CUDA tensor launches
+    the unmasked variant of the hist_masked kernel, a CPU tensor runs
+    `hist_block_plain`; any other device raises."""
     _check_T("hist_block", bins_T, stats_T, num_bins)
     if bins_T.device.type == "cpu":
         return hist_block_plain(bins_T, stats_T, num_bins)
-    out = _launch_masked(bins_T, None, stats_T, None, num_bins)
+    out = _launch_masked(bins_T, None, stats_T, None, num_bins, amax)
     hist_block.launches += 1
     return out
 
