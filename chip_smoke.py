@@ -49,7 +49,29 @@ Phases; any failure exits non-zero and prints no result line:
      torch.profiler window over two more rounds;
   8. two ranks on one card: spawn_train with gloo on CUDA tensors at
      n = 20,000, data, feature and voting (top_k 25), against the one-rank
-     data learner's trees; predictions to 1e-5.
+     data learner's trees; predictions to 1e-5;
+  9. kernel checks, hist_segment at the grouped slice's shapes (n = 100,000,
+     p = 6 and its first 5 features, uint8, the real bin count; whole and
+     part segments, a one-bin feature): phase 3's checks and times;
+ 10. the grouped slice at full width: GPBoost with a grouped random
+     intercept on examples/03_gpboost_algorithm.py's data at n = 100,000,
+     q = 1,000 groups, p = 6, seed 1 (31 leaves, learning rate 0.1,
+     min_data_in_leaf 20, float64) for 10 rounds, then predict on 1,000 new
+     rows, half in unseen groups; first-fit and per-round seconds, the host
+     syncs of one steady round (torch.cuda sync debug mode), the device
+     busy share of two more rounds; hist_segment's launch count over the 10
+     rounds must be positive;
+ 11. the R suite's n = 100,000 grouped GPBoost goldens (62 rounds; the
+     line-search step length at learning rate 0.5) at their own tolerances;
+ 12. card vs CPU for phase 10 at the example's size (n = 2,000, q = 50),
+     float64: trees under phase 5's near-tie rule, covariance parameters to
+     rtol 1e-4, predictions to 1e-4;
+ 13. Gaussian fits on the card: the LMM of examples/01 at n = 100,000,
+     q = 1,000 with X and standard errors; exact GPs at n = 500 (against the
+     CPU, rtol 1e-4) and n = 5,000;
+ 14. the headline Vecchia fit (bench.py:231-245, n = 100,000, m = 20,
+     float32, lbfgs, maxit 30): it must take the device L-BFGS; iterations,
+     seconds and host syncs, beside the forced scipy path's.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -72,6 +94,14 @@ N_BOOST, P_BOOST, SEED_BOOST, ROUNDS_BOOST, ROUNDS_MODE = 200_000, 50, 2, 20, 5
 N_RAGGED, N_TWO_RANKS = 123_457, 20_000
 BOOST = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
          "verbose": 0}
+# the grouped-random-effects slice: examples/03_gpboost_algorithm.py at the
+# GLMM bench's scale (bench.py:131-138), and its card-vs-CPU size
+N_GROUPED, Q_GROUPED, P_GROUPED, N_GROUPED_CPU, Q_GROUPED_CPU = \
+    100_000, 1_000, 6, 2_000, 50
+GROUPED = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
+           "min_data_in_leaf": 20, "verbose": 0}
+# the headline Vecchia fit (bench.py:231-245)
+N_VECCHIA, MAXIT_VECCHIA = 100_000, 30
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
@@ -93,6 +123,38 @@ def sim_boost(n=N_BOOST, p=P_BOOST, seed=SEED_BOOST):
     y = X[:, 0] * 2 + np.sin(5 * X[:, 1]) + X[:, 2] * X[:, 3] \
         + 0.5 * rng.randn(n)
     return X, y
+
+
+def sim_grouped(n, q, p=P_GROUPED, seed=SEED):
+    """examples/03_gpboost_algorithm.py:19-25 with n rows and q groups."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, p)
+    F = 2 * X[:, 0] + 2 * np.sin(8 * X[:, 1]) + (X[:, 2] > 0.6)
+    group = rng.randint(0, q, n)
+    b = 0.8 * rng.randn(q)
+    return X, group, F + b[group] + 0.3 * rng.randn(n)
+
+
+def sim_vecchia(n, seed=0):
+    """bench.py sim_vecchia: a smooth spatial field plus noise."""
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2)
+    y = np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1]) \
+        + 0.5 * rng.randn(n)
+    return coords, y
+
+
+def lcg_unif(n, init_c):
+    """The LCG of the R suite's GPBoost tests (test_z_GPBoost_algorithm.R:27,
+    tests/test_gpboost_algorithm_golden.py sim_rand_unif)."""
+    mod = 134456
+    out = np.empty(n)
+    s = np.floor(init_c * mod)
+    out[0] = s
+    for i in range(1, n):
+        s = (8121 * s + 28411) % mod
+        out[i] = s
+    return out / mod
 
 
 def bound(nbytes, nops):
@@ -623,6 +685,13 @@ def _device_busy_s(torch, fn, kernel="hist_"):
     return (busy + hi - lo) * 1e-6, wall, mine
 
 
+def _busy_txt(busy, wall, hist_s):
+    if busy is None:
+        return "not measured (no device events)"
+    return (f"{busy:.4f} s of {wall:.4f} s ({busy / wall:.1%}), of which "
+            f"histogram kernels {hist_s:.4f} s")
+
+
 def phase_parallel(torch, gpt, histogram, ds, X, y):
     """boosting_n200k_p50 on a one-rank NCCL group: the data learner for 20
     rounds (the path's run), the feature and voting learners for 5, the
@@ -663,9 +732,7 @@ def phase_parallel(torch, gpt, histogram, ds, X, y):
                     or not mse < 0.8 * mse0:
                 raise AssertionError(f"data learner: training MSE {mse:.4g} "
                                      f"(label variance {mse0:.4g})")
-            busy_txt = "not measured (no device events)" if busy is None \
-                else (f"{busy:.4f} s of {wall:.4f} s ({busy / wall:.1%}), "
-                      f"of which histogram kernels {hist_s:.4f} s")
+            busy_txt = _busy_txt(busy, wall, hist_s)
             print(f"[parallel] boosting_n200k_p50 data learner, 1 NCCL rank,"
                   f" {ROUNDS_BOOST} rounds: setup {setup_s:.3f} s, first "
                   f"round {rounds[0]:.4f} s, mean of rounds 2-"
@@ -719,6 +786,371 @@ def phase_two_ranks(torch, gpt, X, y, ref):
           f"{secs:.2f} s including the ranks' start", flush=True)
 
 
+def _count_syncs(torch, fn, sites=None):
+    """(fn(), host syncs): the synchronizing CUDA calls that torch's sync
+    debug mode flags while fn runs (reads of device values, copies from
+    pageable host memory, cuSOLVER info checks). A given Counter `sites`
+    gets the Python line of each."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        sites.update(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                     for w in syncs)
+    return out, len(syncs)
+
+
+def phase_segment_grouped(torch, histogram, ds, kernel_row):
+    """hist_segment at the grouped slice's shapes: n = 100,000 rows, the
+    dataset's p = 6 features and its first 5, uint8, the real bin count;
+    the checks of phase 3. Adds the times to kernel_row under
+    "at_n100k_p6"."""
+    dev = torch.device("cuda")
+    num_bins = int(ds.num_bins)
+    n, p = ds.bins.shape
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    stats = np.ones((n, 3), dtype=np.float32)
+    stats[:, 0] = rng.randn(n)
+    stats[:, 1] = rng.rand(n) + 0.5
+    stats_d = torch.as_tensor(stats, device=dev)
+    bins6 = torch.as_tensor(np.ascontiguousarray(ds.bins, dtype=np.uint8),
+                            device=dev)
+    bins5 = bins6[:, :5].contiguous()
+    for name, b, s0, cnt in (("p=6 whole", bins6, 0, n),
+                             ("p=6 part", bins6, 4321, 37_777),
+                             ("p=5 whole", bins5, 0, n),
+                             ("p=6 one-bin feature", _one_bin(bins6, 1), 0,
+                              n)):
+        tol = 1e-5 * float(histogram.hist_segment_plain(
+            b, stats_d, s0, cnt, num_bins)[:, :2].abs().max())
+        _segment_case(torch, histogram, f"hist_segment n={n} {name}", b,
+                      stats_d, s0, cnt, num_bins, max(tol, 1e-5), gen)
+    amax = histogram.stat_amax(stats_d, 0)
+    row = {}
+    for pp, b in ((6, bins6), (5, bins5)):
+        def kernel():
+            return histogram.hist_segment(b, stats_d, 0, n, num_bins,
+                                          amax=amax)
+        bound_ms, bound_by = bound(n * pp + 12 * n + 12 * pp * num_bins,
+                                   3 * n * pp)
+        row[f"p{pp}"] = {
+            "ms": _time_ms(torch, kernel), "device_ms": _device_ms(
+                torch, kernel),
+            "plain_ms": _time_ms(torch, lambda: histogram.hist_segment_plain(
+                b, stats_d, 0, n, num_bins)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[kernel] hist_segment n={n} B={num_bins} uint8, whole segment: "
+          + "; ".join(f"{k}: {v['ms']:.4f} ms by events, "
+                      f"{_fmt_ms(v['device_ms'])} device, plain "
+                      f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.5f} ms"
+                      for k, v in row.items()), flush=True)
+    kernel_row["at_n100k_p6"] = row["p6"]
+    kernel_row["at_n100k_p5"] = row["p5"]
+
+
+def _grouped_new_rows(q, n_pred=N_PRED, seed=SEED + 2):
+    """n_pred new rows, the first half in training groups, the second in
+    groups never seen."""
+    rng = np.random.RandomState(seed)
+    Xn = rng.rand(n_pred, P_GROUPED)
+    gn = np.concatenate([rng.randint(0, q, n_pred // 2),
+                         q + rng.randint(0, 50, n_pred - n_pred // 2)])
+    return Xn, gn
+
+
+def _train_grouped(torch, gpt, n, q, device, rounds=ROUNDS):
+    """The grouped slice: (booster, gp, first-fit s, per-round s)."""
+    X, group, y = sim_grouped(n, q)
+    gp = gpt.GPModel(group_data=group, device=device)
+    fit_secs = []
+    fit = gp.fit
+
+    def timed_fit(*args, **kwargs):
+        t = time.perf_counter()
+        out = fit(*args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        fit_secs.append(time.perf_counter() - t)
+        return out
+
+    gp.fit = timed_fit
+    bst = gpt.Booster(GROUPED, gpt.Dataset(X, label=y), gp_model=gp,
+                      device=device)
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        bst.update()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    secs[0] -= fit_secs[0]
+    return bst, gp, fit_secs[0], secs
+
+
+def phase_grouped_slice(torch, gpt, histogram):
+    """GPBoost with a grouped random intercept at full width (n = 100,000,
+    q = 1,000, p = 6, float64) for 10 rounds, then predict 1,000 new rows,
+    half of them in unseen groups. Returns hist_segment's launches."""
+    _reset_launches(histogram)
+    bst, gp, fit_s, secs = _train_grouped(torch, gpt, N_GROUPED, Q_GROUPED,
+                                          "cuda")
+    launches = histogram.hist_segment.launches
+    # one steady round's host syncs, those of the tree counted apart
+    from collections import Counter
+    tree_syncs, sites = [], Counter()
+    train = bst.learner.train
+
+    def counted_train(*args):
+        out, s = _count_syncs(torch, lambda: train(*args), sites)
+        tree_syncs.append(s)
+        return out
+
+    bst.learner.train = counted_train
+    _, syncs = _count_syncs(torch, bst.update, sites)
+    bst.learner.train = train
+    print("[grouped] host syncs of round 11 by Python line: " + ", ".join(
+        f"{k} x{v}" for k, v in sites.most_common()), flush=True)
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)])
+    Xn, gn = _grouped_new_rows(Q_GROUPED)
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, group_data_pred=gn, predict_var=True)
+    pred_s = time.perf_counter() - t0
+    cov = gp.get_cov_pars()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+        raise AssertionError(f"grouped slice: covariance parameters {cov}")
+    for k in ("response_mean", "response_var"):
+        if pred[k].shape != (N_PRED,) or not np.all(np.isfinite(pred[k])):
+            raise AssertionError(f"grouped slice: prediction {k}")
+    var = pred["response_var"]
+    half = N_PRED // 2
+    # an unseen group adds the group variance to the predictive variance
+    if not np.min(var[half:]) > np.max(var[:half]):
+        raise AssertionError("grouped slice: unseen groups' variances are "
+                             "not above the seen groups'")
+    if launches <= 0:
+        raise AssertionError(f"grouped slice: {launches} hist_segment "
+                             "launches")
+    print(f"[grouped] n={N_GROUPED} q={Q_GROUPED} p={P_GROUPED} float64, "
+          f"{ROUNDS} rounds: first GP fit {fit_s:.3f} s "
+          f"({gp.get_num_optim_iter()} iterations, "
+          f"{gp._fit_result.optimizer}), mean per round {np.mean(secs):.4f} "
+          f"s (min {np.min(secs):.4f}, max {np.max(secs):.4f}); host syncs "
+          f"in round {ROUNDS + 1}: {syncs + tree_syncs[0]} ({tree_syncs[0]} "
+          f"in the tree, {syncs} in the rest); device busy over rounds "
+          f"{ROUNDS + 2}-{ROUNDS + 3}: {_busy_txt(busy, wall, hist_s)}; "
+          f"predict {N_PRED} rows {pred_s:.3f} s; cov pars {cov.tolist()}; "
+          f"hist_segment launches over the {ROUNDS} rounds {launches}",
+          flush=True)
+    return launches
+
+
+def phase_grouped_goldens(torch, gpt):
+    """The n = 100,000 grouped GPBoost goldens of the R suite
+    (tests/test_gpboost_algorithm_golden.py TestLargeDataAndLineSearch) on
+    the card, at that file's tolerances."""
+    from scipy.stats import norm
+    n = 100_000
+    X = np.reshape(lcg_unif(2 * n, 0.135), (2, n)).T.copy()
+    m = n // 100
+    group = np.repeat(np.arange(1, m + 1), n // m).astype(float)
+    b1 = np.sqrt(0.6) * norm.ppf(lcg_unif(m, 0.462))
+    xi = 0.1 * norm.ppf(lcg_unif(n, 0.17556))
+    xi[xi < -100] = 0
+    y = b1[(group - 1).astype(int)] + xi
+    opt = {"optimizer_cov": "gradient_descent", "lr_cov": 0.1,
+           "use_nesterov_acc": True, "acc_rate_cov": 0.5,
+           "delta_rel_conv": 1e-6, "optimizer_coef": "gradient_descent",
+           "lr_coef": 0.1,
+           "convergence_criterion": "relative_change_in_log_likelihood",
+           "init_coef_aux_pars_from_iid_model": False}
+    boost = {"learning_rate": 0.01, "max_depth": 6, "min_data_in_leaf": 5,
+             "objective": "regression_l2", "verbose": 0}
+
+    def run(label, lr, rounds, line_search):
+        gp = gpt.GPModel(group_data=group, device="cuda")
+        gp.set_optim_params(params=opt)
+        t0 = time.perf_counter()
+        gpt.train({**boost, "learning_rate": lr,
+                   "line_search_step_length": line_search},
+                  gpt.Dataset(X, label=label), num_boost_round=rounds,
+                  gp_model=gp, device="cuda")
+        torch.cuda.synchronize()
+        return gp, time.perf_counter() - t0
+
+    gp, secs = run(y, 0.01, 62, False)
+    cp, nll = gp.get_cov_pars(), gp.get_current_neg_log_likelihood()
+    if not (np.sum(np.abs(cp - [0.009426053798, 0.602785377299])) < 1e-3
+            and abs(nll + 86930.9172156506) / 86930.9 < 1e-3):
+        raise AssertionError(f"62-round golden: cov pars {cp}, nll {nll}")
+    ycv = y + X @ np.array([1.0, 1.0])
+    nlls = {ls: run(ycv, 0.5, 10, ls)[0].get_current_neg_log_likelihood()
+            for ls in (False, True)}
+    if not (abs(nlls[False] - 162232.5638) / 162232.6 < 0.05
+            and abs(nlls[True] + 82056.84807) / 82056.8 < 0.005):
+        raise AssertionError(f"line-search golden: nlls {nlls}")
+    print(f"[grouped-goldens] n={n} q={m}: 62 rounds in {secs:.2f} s, cov "
+          f"pars {cp.tolist()} (golden [0.009426, 0.602785]), nll {nll:.4f} "
+          f"(golden -86930.9172); lr 0.5, 10 rounds: nll without line "
+          f"search {nlls[False]:.2f} (golden 162232.56), with "
+          f"{nlls[True]:.2f} (golden -82056.85)", flush=True)
+
+
+def phase_grouped_card_vs_cpu(torch, gpt):
+    """The grouped slice at the example's own size (n = 2,000, q = 50),
+    float64: card against CPU."""
+    runs = {dev: _train_grouped(torch, gpt, N_GROUPED_CPU, Q_GROUPED_CPU,
+                                dev) for dev in ("cuda", "cpu")}
+    (bg, gg, _, sg), (bc, gc, _, sc) = runs["cuda"], runs["cpu"]
+    res = _compare_models("grouped card-vs-cpu", bc, bg)
+    cg, cc = gg.get_cov_pars(), gc.get_cov_pars()
+    cov_rel = float(np.max(np.abs(cg / cc - 1.0)))
+    if not cov_rel < 1e-4:
+        raise AssertionError(f"grouped cov pars card {cg} cpu {cc}")
+    # a near tie moves a threshold, and so the fixed effect of new rows
+    # from that tree on; the training fit, the random part and the trees
+    # before it must agree
+    k = next((t for t, (a, b) in enumerate(zip(bc.trees, bg.trees))
+              if [r[:3] for r in _split_records(a)]
+              != [r[:3] for r in _split_records(b)]), len(bc.trees))
+    Xn, gn = _grouped_new_rows(Q_GROUPED_CPU, 200)
+    pg = bg.predict(Xn, group_data_pred=gn, predict_var=True)
+    pc = bc.predict(Xn, group_data_pred=gn, predict_var=True)
+    keys = ("random_effect_mean", "response_var") if k < len(bc.trees) \
+        else ("response_mean", "response_var")
+    errs = {key: float(np.max(np.abs(pg[key] - pc[key]))) for key in keys}
+    errs["training score"] = float((bg.F.cpu() - bc.F).abs().max())
+    errs[f"fixed effect of trees 0-{k - 1}"] = float(np.max(np.abs(
+        sum(t.predict_raw(Xn) for t in bg.trees[:k])
+        - sum(t.predict_raw(Xn) for t in bc.trees[:k]))))
+    if not max(errs.values()) < 1e-4:
+        raise AssertionError(f"grouped card vs CPU: max |diff| {errs}")
+    print(f"[grouped card-vs-cpu] n={N_GROUPED_CPU} q={Q_GROUPED_CPU} "
+          f"float64 {ROUNDS} rounds: trees {res}; cov pars max rel diff "
+          f"{cov_rel:.3g}; max |diff| "
+          + ", ".join(f"{key} {v:.3g}" for key, v in errs.items())
+          + f"; rounds card {sum(sg):.3f} s, cpu {sum(sc):.3f} s",
+          flush=True)
+
+
+def phase_gaussian_fits(torch, gpt):
+    """Gaussian mixed-model and exact-GP fits on the card: the LMM of
+    examples/01_grouped_random_effects.py:14-24 at n = 100,000, q = 1,000
+    with X and std_dev=True; exact GPs (BASELINE config 1) at n = 500,
+    against the CPU, and at n = 5,000."""
+    n, m = N_GROUPED, Q_GROUPED
+    rng = np.random.RandomState(42)
+    group = rng.randint(0, m, n)
+    b = 0.8 * rng.randn(m)
+    X = np.column_stack([np.ones(n), rng.rand(n)])
+    y = X @ np.array([1.0, 2.0]) + b[group] + 0.5 * rng.randn(n)
+    model = gpt.GPModel(group_data=group, device="cuda")
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(torch, lambda: model.fit(
+        y=y, X=X, params={"std_dev": True}))
+    secs = time.perf_counter() - t0
+    cov = model.get_cov_pars(std_err=True)
+    # as in the reference, the Woodbury engine reports no coefficient
+    # standard errors (optimize.py:123-130 needs a dense Psi)
+    coef = model.get_coef()
+    if not (abs(cov[0, 0] / 0.25 - 1) < 0.05 and abs(cov[0, 1] / 0.64 - 1)
+            < 0.3 and np.all(np.abs(coef - [1.0, 2.0]) < 0.2)
+            and np.all(np.isfinite(cov)) and np.all(cov[1] > 0)):
+        raise AssertionError(f"LMM: cov pars {cov}, coef {coef}")
+    pred = model.predict(group_data_pred=[0, 1, 10 ** 6],
+                         X_pred=[[1.0, 0.5]] * 3, predict_var=True)
+    if not pred["var"][2] > pred["var"][0]:
+        raise AssertionError("LMM: an unseen group's variance is not the "
+                             "largest")
+    print(f"[lmm] n={n} q={m} with X, std_dev: fit {secs:.3f} s, "
+          f"{model.get_num_optim_iter()} iterations "
+          f"({model._fit_result.optimizer}), host syncs {syncs}; cov pars "
+          f"{cov[0].tolist()} (sd {cov[1].tolist()}), coef "
+          f"{coef.tolist()}", flush=True)
+    for ng in (500, 5_000):
+        coords, yg = sim_vecchia(ng, seed=SEED)
+        fits = {}
+        for dev in ("cuda", "cpu") if ng == 500 else ("cuda",):
+            gm = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                             device=dev)
+            t0 = time.perf_counter()
+            gm.fit(y=yg)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            fits[dev] = (gm, time.perf_counter() - t0)
+        gm, secs = fits["cuda"]
+        cov = gm.get_cov_pars()
+        if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+            raise AssertionError(f"exact GP n={ng}: cov pars {cov}")
+        txt = ""
+        if "cpu" in fits:
+            rel = float(np.max(np.abs(cov / fits["cpu"][0].get_cov_pars()
+                                      - 1.0)))
+            if not rel < 1e-4:
+                raise AssertionError(f"exact GP n={ng}: card {cov} cpu "
+                                     f"{fits['cpu'][0].get_cov_pars()}")
+            txt = f"; against the CPU max rel diff {rel:.3g}"
+        pred = gm.predict(gp_coords_pred=coords[:50] + 0.005,
+                          predict_var=True)
+        if not (np.all(np.isfinite(pred["mu"]))
+                and np.all(pred["var"] > 0)):
+            raise AssertionError(f"exact GP n={ng}: predictions")
+        print(f"[exact-gp] n={ng} exponential float64: fit {secs:.3f} s, "
+              f"{gm.get_num_optim_iter()} iterations "
+              f"({gm._fit_result.optimizer}); cov pars {cov.tolist()}{txt}",
+              flush=True)
+
+
+def phase_vecchia_headline(torch, gpt):
+    """The headline fit (bench.py:231-245): sim_vecchia n = 100,000, 20
+    neighbours, random ordering, float32, lbfgs with maxit 30 and
+    init_cov_pars [0.5, 1.0, 0.1]. By default (n >= 20,000) it must take
+    the device L-BFGS; the scipy path's iteration count is printed
+    beside it."""
+    coords, y = sim_vecchia(N_VECCHIA)
+    t0 = time.perf_counter()
+    model = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                        gp_approx="vecchia", num_neighbors=20,
+                        vecchia_ordering="random", dtype="float32",
+                        device="cuda")
+    setup_s = time.perf_counter() - t0
+    params = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1]}
+    model.fit(y=y, params={**params, "maxit": 1})          # first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(torch, lambda: model.fit(
+        y=y, params={**params, "maxit": MAXIT_VECCHIA}))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = model._fit_result
+    if r.optimizer != "device_lbfgs":
+        raise AssertionError(f"headline fit took the {r.optimizer} path")
+    cov = model.get_cov_pars()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+        raise AssertionError(f"headline fit: cov pars {cov}")
+    t0 = time.perf_counter()
+    model.fit(y=y, params={**params, "maxit": MAXIT_VECCHIA,
+                           "use_device_optimizer": False})
+    torch.cuda.synchronize()
+    scipy_s = time.perf_counter() - t0
+    rs = model._fit_result
+    print(f"[vecchia-headline] n={N_VECCHIA} m=20 float32 lbfgs maxit "
+          f"{MAXIT_VECCHIA}: engine setup {setup_s:.3f} s; device L-BFGS "
+          f"{r.num_it} iterations in {secs:.3f} s, {syncs} host syncs, nll "
+          f"{r.neg_log_likelihood:.4f}, cov pars {cov.tolist()}; scipy "
+          f"L-BFGS-B (forced) {rs.num_it} iterations in {scipy_s:.3f} s, "
+          f"nll {rs.neg_log_likelihood:.4f}, cov pars "
+          f"{rs.cov_pars.tolist()}", flush=True)
+
+
 def main():
     import torch
     import gpboost_tpu_torch as gpt
@@ -742,6 +1174,16 @@ def main():
     masked["launches"], block["launches"], ref = phase_parallel(
         torch, gpt, histogram, ds, X, y)
     phase_two_ranks(torch, gpt, X, y, ref)
+    Xg, _, yg = sim_grouped(N_GROUPED, Q_GROUPED)
+    dsg = gpt.Dataset(Xg, label=yg)
+    dsg.construct()
+    phase_segment_grouped(torch, histogram, dsg, segment)
+    segment["launches_grouped_n100k"] = phase_grouped_slice(torch, gpt,
+                                                            histogram)
+    phase_grouped_goldens(torch, gpt)
+    phase_grouped_card_vs_cpu(torch, gpt)
+    phase_gaussian_fits(torch, gpt)
+    phase_vecchia_headline(torch, gpt)
     print(json.dumps({"kernels": [segment, masked, block]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
 """gpboost_tpu_torch — the PyTorch / CUDA port of gpboost_tpu.
 
-Tree boosting combined with a Gaussian process, y = F(X) + b + xi, run with
-PyTorch tensors on an NVIDIA GPU (or the CPU). The first slice covers the
-Gaussian GPBoost algorithm with a Vecchia-approximated GP:
+Tree boosting combined with grouped random effects or a Gaussian process,
+y = F(X) + Zb + xi, run with PyTorch tensors on an NVIDIA GPU (or the CPU).
+Gaussian mixed-effects models and GPs fit alone (exact, grouped random
+effects by the Woodbury identity, or Vecchia-approximated) and inside the
+GPBoost algorithm:
 
     import gpboost_tpu_torch as gpt
+    lmm = gpt.GPModel(group_data=group).fit(y=y, X=X,
+                                            params={"std_dev": True})
     gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
                      gp_approx="vecchia", num_neighbors=20)
     bst = gpt.train({"objective": "regression", "num_leaves": 31},
@@ -20,8 +24,8 @@ learners; `spawn_train` starts the local ranks from one process:
                           num_boost_round=100, world_size=4)
 
 The histograms of the tree learners are hand-written CUDA kernels
-(csrc/histogram.cu, csrc/hist_masked.cu); everything else is plain torch. The package never
-imports jax or gpboost_tpu; `convert.booster_from_jax_dict` reads the JAX
+(csrc/histogram.cu, csrc/hist_masked.cu); everything else is plain torch.
+The package never imports jax or gpboost_tpu; `convert` reads the JAX
 package's model dicts.
 """
 

@@ -6,12 +6,15 @@ One boosting round (gbdt.cpp:412 TrainOneIter with the GP hooks):
 
   1. gradients at the current score F: without a GP model grad = F - y
      (gbdt.py:954-960); with one, those of the Gaussian marginal NLL,
-     grad = Psi~^-1 (F - y) / sigma2 through the Vecchia factors; hess = 1;
+     grad = Psi~^-1 (F - y) / sigma2 through the GP model's engine (dense,
+     Woodbury or Vecchia); hess = 1;
   2. one leaf-wise tree on them (tree_learner.py, histogram kernels);
+     with leaves_newton_update the leaf values are re-solved by GLS, with
+     line_search_step_length the tree is scaled by the 1-D GLS optimum;
   3. F += learning_rate * tree output;
   4. with a GP model, the covariance parameters are refitted on the new
-     residuals: a full L-BFGS-B fit in the first round, warm-started
-     Nesterov GD after.
+     residuals: a full fit with the GP model's optimizer settings in the
+     first round, warm-started Nesterov GD after.
 
 Boosting without a GP model can grow its trees over a torch.distributed
 group (num_parallel_devices = the group's size, tree_learner data, feature
@@ -19,13 +22,13 @@ or voting); each rank then keeps the score of the rows its learner holds.
 
 The training score F and the labels live on the booster's device in
 float64; the trees are host numpy objects (tree.py), as in the reference.
-The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is, for its Vecchia
-branch, `VecchiaGaussianEngine.psi_tilde_inv_mat` here.
+The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is each engine's
+`psi_tilde_inv_mat` here, on the device.
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
-`train` always runs the host loop. Newton leaf updates, line search,
-Nesterov-accelerated boosting, DART/GOSS/RF, sampling, a GP model together
-with a parallel tree learner, and every objective other than Gaussian
-regression raise NotImplementedError.
+`train` always runs the host loop. Nesterov-accelerated boosting,
+DART/GOSS/RF, sampling, a GP model together with a parallel tree learner,
+and every objective other than Gaussian regression raise
+NotImplementedError.
 """
 
 import numpy as np
@@ -61,8 +64,7 @@ _BOOST_PARAM_DEFAULTS = dict(
     num_parallel_devices=None, tree_learner="serial", top_k=20,
 )
 _UNPORTED_IF_CHANGED = (
-    "boosting", "leaves_newton_update", "line_search_step_length",
-    "use_nesterov_acc", "bagging_fraction", "bagging_freq",
+    "boosting", "use_nesterov_acc", "bagging_fraction", "bagging_freq",
     "feature_fraction", "path_smooth", "extra_trees", "linear_tree",
     "monotone_constraints", "interaction_constraints",
     "forcedsplits_filename", "cegb_penalty_split",
@@ -109,7 +111,7 @@ def _parse_params(raw):
 
 class Booster:
     """Tree-boosting model for Gaussian regression, alone or combined with
-    a Gaussian Vecchia GPModel (basic.py:2315 Booster)."""
+    a Gaussian GPModel (basic.py:2315 Booster)."""
 
     def __init__(self, params=None, train_set=None, gp_model=None,
                  model_dict=None, device=None):
@@ -210,10 +212,53 @@ class Booster:
             self._gp_init_pars = gp._fit_result.cov_pars
         self._gp_refit_iter = self.current_iteration_
 
+    def _newton_leaf_values(self, tree, slot_of_row, leaf_value_of_slot):
+        """Joint GLS re-solve of the leaf values given the tree's
+        structure, a* = (H' Psi~^-1 H)^-1 H' Psi~^-1 (y - F) with H the
+        (n, leaves) leaf incidence (re_model_template.h:4947
+        NewtonUpdateLeafValues; gbdt.py:1411-1430), on the device."""
+        eng = self.gp_model._engine
+        t = eng.transform_pars(self.gp_model._fit_result.cov_pars)
+        slots = torch.unique(slot_of_row)
+        H = (slot_of_row[:, None] == slots[None, :]).to(torch.float64)
+        PiH = eng.psi_tilde_inv_mat(t, H)
+        A = H.T @ PiH + 1e-12 * torch.eye(len(slots), dtype=torch.float64,
+                                          device=H.device)
+        vals = torch.linalg.solve(A, PiH.T @ (self.y - self.F))
+        for s_, v_ in zip(slots.tolist(), vals.tolist()):
+            leaf_value_of_slot[s_] = v_
+            node = tree.slot_to_node.get(s_)
+            if node is not None:
+                tree.leaf_value[node] = v_
+
+    def _line_search(self, tree, slot_of_row, leaf_value_of_slot):
+        """Optimal step length of the Gaussian GPBoost algorithm: the 1-D
+        GLS optimum alpha = h' Psi~^-1 r / h' Psi~^-1 h, clipped to [0, 10]
+        (re_model.cpp:697 LineSearchLearningRate; gbdt.py:1431-1450).
+        Returns the scaled leaf values; the tree is scaled in place."""
+        eng = self.gp_model._engine
+        t = eng.transform_pars(self.gp_model._fit_result.cov_pars)
+        h = torch.as_tensor(leaf_value_of_slot,
+                            device=self.device)[slot_of_row]
+        Pih = eng.psi_tilde_inv_mat(t, h[:, None])[:, 0]
+        denom, num = torch.stack([h @ Pih, (self.y - self.F) @ Pih]).tolist()
+        if denom > 1e-300:
+            alpha = min(max(num / denom, 0.0), 10.0)
+            tree.shrinkage(alpha)
+            leaf_value_of_slot = leaf_value_of_slot * alpha
+        return leaf_value_of_slot
+
     def update(self):
         """One boosting iteration (gbdt.cpp:412 TrainOneIter)."""
         grad, hess = self._gradients()
         tree, slot_of_row, leaf_value_of_slot = self.learner.train(grad, hess)
+        if self.gp_model is not None:
+            if self.params["leaves_newton_update"]:
+                self._newton_leaf_values(tree, slot_of_row,
+                                         leaf_value_of_slot)
+            if self.params["line_search_step_length"]:
+                leaf_value_of_slot = self._line_search(
+                    tree, slot_of_row, leaf_value_of_slot)
         lr = float(self.params["learning_rate"])
         tree.shrinkage(lr)
         lv = torch.as_tensor(leaf_value_of_slot, device=self.device)
@@ -227,11 +272,14 @@ class Booster:
         return False
 
     # ------------------------------------------------------------------
-    def predict(self, data, gp_coords_pred=None, predict_var=False,
-                pred_latent=False):
-        """Fixed effect from the trees plus the GP's random effect
-        (basic.py:3455; gbdt.py:2095-2124 Gaussian branch). Without a GP
-        model, the raw score (n,) numpy."""
+    def predict(self, data, group_data_pred=None,
+                group_rand_coef_data_pred=None, gp_coords_pred=None,
+                cluster_ids_pred=None, predict_var=False,
+                predict_cov_mat=False, pred_latent=False, cov_pars=None):
+        """Fixed effect from the trees plus the GP model's random effect
+        (basic.py:3455; gbdt.py:2095-2124 Gaussian branch);
+        random_effect_cov holds the covariance matrix with predict_cov_mat,
+        else the variances. Without a GP model, the raw score (n,) numpy."""
         X = np.asarray(data, dtype=np.float64)
         if X.ndim == 1:
             X = X[:, None]
@@ -243,15 +291,31 @@ class Booster:
             return F_pred
         resid = (self.y - self.F).cpu().numpy()
         pred = self.gp_model.predict(
-            y=resid, gp_coords_pred=gp_coords_pred, predict_var=predict_var,
-            predict_response=not pred_latent)
+            y=resid, group_data_pred=group_data_pred,
+            group_rand_coef_data_pred=group_rand_coef_data_pred,
+            gp_coords_pred=gp_coords_pred, cluster_ids_pred=cluster_ids_pred,
+            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
+            predict_response=not pred_latent, cov_pars=cov_pars)
         out = {"fixed_effect": F_pred, "random_effect_mean": pred["mu"],
-               "random_effect_cov": pred["var"],
+               "random_effect_cov": pred["cov"] if predict_cov_mat
+               else pred["var"],
                "random_effect_var": pred["var"],
                "response_mean": F_pred + pred["mu"]}
         if not pred_latent:
             out["response_var"] = pred["var"]
         return out
+
+    def predict_training_data_random_effects(self, predict_var=False):
+        """The random effects at the training points with the current
+        ensemble as fixed effects (basic.py:3407; gbdt.py:2155)."""
+        if self.gp_model is None:
+            raise ValueError("predict_training_data_random_effects: "
+                             "Booster has no gp_model")
+        # the Gaussian hook works on residuals: refresh them to the current
+        # ensemble
+        self.gp_model.y = (self.y - self.F).cpu().numpy()
+        return self.gp_model.predict_training_data_random_effects(
+            predict_var=predict_var)
 
     # ------------------------------------------------------------------
     def model_to_dict(self):

@@ -88,7 +88,9 @@ def _best_split_of_hist(hist, lambda_l2, min_data, min_hess, min_gain,
                         feat_mask, lambda_l1)
     flat = torch.argmax(gain.reshape(-1))
     B = hist.shape[2]
-    return gain.reshape(-1)[flat], flat // B, flat % B
+    # take, not gain[flat]: indexing by a 0-dim device tensor reads it back
+    # to the host
+    return torch.take(gain, flat), flat // B, flat % B
 
 
 def _stable_partition(arr, new_pos):
@@ -485,7 +487,10 @@ class SerialTreeLearner:
             self.bins_pos, stats, self.num_bins, self.num_leaves,
             self.max_depth, self.lambda_l2, self.min_data_in_leaf,
             self.min_sum_hessian, self.min_gain, lambda_l1=self.lambda_l1)
-        cnt = torch.bincount(node, minlength=self.num_leaves + 8).cpu().numpy()
+        # rows per slot; bincount would read the largest slot back first
+        cnt = torch.zeros(self.num_leaves + 8, dtype=torch.int64,
+                          device=node.device).index_add_(
+            0, node, torch.ones_like(node)).cpu().numpy()
         tree, leaf_value_of_slot = self.build_tree(rec, leaf_values, rec_gain,
                                                    cnt)
         return tree, node, leaf_value_of_slot

@@ -1,21 +1,33 @@
 """Carry a model trained by the JAX package over to the port.
 
-The JAX package's `Booster.model_to_dict()` returns plain numpy/JSON values:
-the trees, the init score, the embedded `GPModel.model_to_dict()` (training
-coordinates, covariance parameters, ordering seed, neighbour count) and the
-training residuals. The port reads the same schema, so no array crosses
-between the frameworks: the port rebuilds the Vecchia ordering and the
-neighbour sets from the seed and the coordinates, as the reference did.
+The JAX package's `GPModel.model_to_dict()` and `Booster.model_to_dict()`
+return plain numpy/JSON values: the covariance parameters and coefficients,
+the model-defining data (grouping variables, slopes, coordinates, cluster
+ids, covariates, the Vecchia ordering seed and neighbour count), the
+response, and for a booster the trees, the init score and the training
+residuals. The port reads the same schema, so no array crosses between the
+frameworks: the port rebuilds every engine from that data, as the reference
+did. The port's own dicts load in the JAX package the same way.
 """
 
 from .boosting.gbdt import Booster
+from .gp_model import GPModel
+
+
+def gp_model_from_jax_dict(d, device=None):
+    """The port's GPModel from a JAX `GPModel.model_to_dict()`, ready to
+    `predict` on `device` (default: the first CUDA card). Gaussian models
+    with grouped random effects, an exact GP (alone or with grouped random
+    effects) or a Vecchia GP are ported; any other model raises
+    NotImplementedError."""
+    return GPModel(model_dict=d, device=device)
 
 
 def booster_from_jax_dict(d, device=None):
     """(Booster, GPModel) of the port from a JAX `Booster.model_to_dict()`,
     ready to `predict` on `device` (default: the first CUDA card). The
     GPModel is None for a booster trained without one. Gaussian regression
-    boosting, alone or with a Vecchia GP, is ported so far; any other model
-    raises NotImplementedError."""
+    boosting, alone or with a GP model that `gp_model_from_jax_dict`
+    loads, is ported so far; any other model raises NotImplementedError."""
     booster = Booster(model_dict=d, device=device)
     return booster, booster.gp_model

@@ -1,38 +1,68 @@
-"""GPModel — the Gaussian-process façade of the PyTorch port
-(counterpart of gpboost_tpu/gp_model.py).
+"""GPModel — the Gaussian mixed-effects and Gaussian-process façade of the
+PyTorch port (counterpart of gpboost_tpu/gp_model.py).
 
-Ported: the Gaussian likelihood with gp_approx='vecchia' and one isotropic
-GP (exponential, or matern with shape 0.5 / 1.5 / 2.5), estimation by
-L-BFGS-B on the nugget-profiled NLL, prediction with the default
-'order_obs_first_cond_obs_only' ordering, and the model dict of the
-reference (`model_to_dict`), so a model moves between the two packages.
-Every other engine, likelihood and option raises NotImplementedError.
+Ported, for the Gaussian likelihood, with the engine the reference picks
+(gp_model.py:497-519):
+
+  * grouped random effects only: the Woodbury engine (models/grouped_re.py)
+    with intercepts, crossed and nested groupings, random slopes
+    (group_rand_coef_data, ind_effect_group_rand_coef) and cluster_ids
+    (each level refined by its cluster);
+  * a GP, alone or with grouped random effects, gp_approx="none": the dense
+    engine (models/gaussian_gp.py);
+  * gp_approx="vecchia" with one isotropic GP: the Vecchia engine
+    (models/vecchia.py).
+
+GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
+every optimizer of models/optimize.py (gradient descent, Fisher scoring,
+Newton, L-BFGS on the host or on the device, Nelder-Mead), with linear
+covariates `fit(y, X)`, fixed parameters and standard errors. Prediction
+takes group_data_pred, group_rand_coef_data_pred, gp_coords_pred, X_pred
+and cluster_ids_pred; `model_to_dict` writes the reference's state dict and
+a dict of either package loads here. Other likelihoods and approximations,
+GP random coefficients, weights, the dense engine's cluster_ids, the
+iterative Woodbury branch (chosen automatically from q > 20,000) and
+posterior sampling raise NotImplementedError.
 
 device: where the engine's tensors live (default: the first CUDA card; it
-raises without one, and the CPU runs only when device="cpu" is passed). dtype: the engine's float type, "float64"
-(default, as the reference) or "float32".
+raises without one, and the CPU runs only when device="cpu" is passed).
+dtype: the engine's float type, "float64" (default, as the reference) or
+"float32".
 """
 
 import numpy as np
 import torch
 
-from .models.components import GPComponent
+from .models.components import GPComponent, GroupedComponent
+from .models.gaussian_gp import DenseGaussianEngine
+from .models.grouped_re import WoodburyGaussianEngine
 from .models.optimize import OptimConfig, OptimResult, optimize_gaussian
 from .models.vecchia import VecchiaGaussianEngine
 from .ops.cov_fcts import CovarianceFunction
 from .ops.distances import pairwise_dist
 from .utils.device import resolve_device, resolve_dtype
 
-_OPTIM_PARAM_KEYS = set(OptimConfig.__dataclass_fields__)
+_OPTIM_PARAM_KEYS = set(OptimConfig.__dataclass_fields__) | {
+    "init_coef",
+    # accepted, without effect, as in the reference
+    "trace", "init_aux_pars", "estimate_aux_pars", "cg_max_num_it",
+    "cg_max_num_it_tridiag", "cg_delta_conv", "cg_preconditioner_type",
+    "num_rand_vec_trace", "reuse_rand_vec_trace", "seed_rand_vec_trace",
+    "piv_chol_rank", "init_coef_aux_pars_from_iid_model", "nsim_var_pred",
+}
+_WOODBURY_MAX_Q = 20000
 
 
 class GPModel:
-    """Gaussian process model y = F + b + xi with a Vecchia-approximated GP
-    b (basic.py:4172 GPModel, Gaussian Vecchia branch)."""
+    """Gaussian mixed-effects / Gaussian-process model y = F + Zb + xi
+    (basic.py:4172 GPModel, Gaussian branches)."""
 
     def __init__(self,
                  likelihood="gaussian",
                  group_data=None,
+                 group_rand_coef_data=None,
+                 ind_effect_group_rand_coef=None,
+                 drop_intercept_group_rand_effect=None,
                  gp_coords=None,
                  gp_rand_coef_data=None,
                  cov_function="matern",
@@ -56,18 +86,22 @@ class GPModel:
         if likelihood not in ("gaussian", "regression"):
             raise NotImplementedError(
                 f"likelihood '{likelihood}' is not ported yet (gaussian only)")
-        if gp_approx != "vecchia":
+        if gp_approx not in ("none", "vecchia"):
             raise NotImplementedError(
-                f"gp_approx '{gp_approx}' is not ported yet (vecchia only)")
+                f"gp_approx '{gp_approx}' is not ported yet ('none', "
+                "'vecchia')")
         unsupported = [nm for nm, v in (
-            ("group_data", group_data), ("gp_rand_coef_data", gp_rand_coef_data),
-            ("cluster_ids", cluster_ids), ("weights", weights),
+            ("gp_rand_coef_data", gp_rand_coef_data), ("weights", weights),
             ("num_parallel_devices", num_parallel_devices)) if v is not None]
+        if drop_intercept_group_rand_effect is not None \
+                and np.any(drop_intercept_group_rand_effect):
+            unsupported.append("drop_intercept_group_rand_effect")
         if unsupported:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(unsupported))
-        if gp_coords is None:
-            raise ValueError("gp_coords is required")
+        if group_data is None and gp_coords is None:
+            raise ValueError("Both group_data and gp_coords are None. "
+                             "Provide at least one random effect.")
         self._dtype = resolve_dtype(dtype)
         self.likelihood = "gaussian"
         self.gp_approx = gp_approx
@@ -79,25 +113,92 @@ class GPModel:
         self.vecchia_ordering = vecchia_ordering
         self.vecchia_pred_type = "order_obs_first_cond_obs_only"
         self.num_neighbors_pred = None
-        gp_coords = np.asarray(gp_coords, dtype=np.float64)
-        if gp_coords.ndim == 1:
-            gp_coords = gp_coords[:, None]
-        self.gp_coords = gp_coords
-        cov_fn = CovarianceFunction(cov_function, shape=cov_fct_shape,
-                                    dim=gp_coords.shape[1])
-        self.components = [GPComponent(gp_coords, cov_fn, name="GP")]
-        self._par_names = ["Error_term", "GP_var", "GP_range"]
-        self.num_data = len(gp_coords)
-        self._engine = VecchiaGaussianEngine(
-            self.components, self.num_data,
-            num_neighbors=num_neighbors if num_neighbors else 20,
-            vecchia_ordering=vecchia_ordering, seed=seed, dtype=self._dtype,
-            device=self.device)
+        self.components = []
+        self._par_names = ["Error_term"]
+
+        # grouped random effects first (re_model_template.h:7500)
+        self.group_data = None
+        if group_data is not None:
+            group_data = np.asarray(group_data)
+            if group_data.ndim == 1:
+                group_data = group_data[:, None]
+            self.group_data = group_data
+            for ic in range(group_data.shape[1]):
+                name = f"Group_{ic + 1}" if group_data.shape[1] > 1 \
+                    else "Group_1"
+                self.components.append(
+                    GroupedComponent(group_data[:, ic], name=name))
+                self._par_names.append(name)
+        self.group_rand_coef_data = None
+        self.ind_effect_group_rand_coef = None
+        if group_rand_coef_data is not None:
+            if self.group_data is None:
+                raise ValueError("group_rand_coef_data needs group_data")
+            rc = np.asarray(group_rand_coef_data, dtype=np.float64)
+            if rc.ndim == 1:
+                rc = rc[:, None]
+            self.group_rand_coef_data = rc
+            ind = np.atleast_1d(np.asarray(ind_effect_group_rand_coef)) - 1
+            self.ind_effect_group_rand_coef = ind
+            for ic in range(rc.shape[1]):
+                self.components.append(GroupedComponent(
+                    self.group_data[:, int(ind[ic])], z=rc[:, ic],
+                    name=f"Group_rand_coef_{ic + 1}"))
+                self._par_names.append(f"Group_rand_coef_{ic + 1}")
+
+        self.gp_coords = None
+        if gp_coords is not None:
+            gp_coords = np.asarray(gp_coords, dtype=np.float64)
+            if gp_coords.ndim == 1:
+                gp_coords = gp_coords[:, None]
+            self.gp_coords = gp_coords
+            cov_fn = CovarianceFunction(cov_function, shape=cov_fct_shape,
+                                        dim=gp_coords.shape[1])
+            self.components.append(GPComponent(gp_coords, cov_fn, name="GP"))
+            self._par_names.extend(["GP_var", "GP_range"])
+
+        self.num_data = len(self.group_data) if self.group_data is not None \
+            else len(self.gp_coords)
+        self.cluster_ids = None if cluster_ids is None \
+            else np.asarray(cluster_ids)
+        self._vecchia = gp_approx == "vecchia"
+        self._use_woodbury = all(c.kind == "grouped" for c in self.components)
+        if self._vecchia:
+            if len(self.components) != 1 or self.components[0].kind != "gp":
+                raise NotImplementedError(
+                    "gp_approx='vecchia' with grouped random effects is not "
+                    "ported yet")
+            self._engine = VecchiaGaussianEngine(
+                self.components, self.num_data,
+                num_neighbors=num_neighbors if num_neighbors else 20,
+                vecchia_ordering=vecchia_ordering, seed=seed,
+                dtype=self._dtype, device=self.device,
+                cluster_ids=self.cluster_ids)
+            self._use_woodbury = False
+        elif self._use_woodbury:
+            if self.cluster_ids is not None:
+                # independence across clusters == each grouping refined by
+                # the cluster id
+                for comp in self.components:
+                    comp.refine_by_cluster(self.cluster_ids)
+            mim = matrix_inversion_method
+            if mim == "auto":
+                q_tot = sum(c.num_groups for c in self.components)
+                mim = "iterative" if q_tot > _WOODBURY_MAX_Q else "cholesky"
+            self._engine = WoodburyGaussianEngine(
+                self.components, self.num_data, dtype=self._dtype,
+                matrix_inversion_method=mim, device=self.device)
+        else:
+            self._engine = DenseGaussianEngine(
+                self.components, self.num_data, dtype=self._dtype,
+                device=self.device, cluster_ids=self.cluster_ids)
         self.num_cov_par = self._engine.num_cov_par
         self.params = OptimConfig()
+        self._coef_override = None
         self._cov_pars_override = None
         self._fit_result = None
         self.y = None
+        self.X = None
         self.model_has_been_fitted = False
 
     # ------------------------------------------------------------------
@@ -107,44 +208,63 @@ class GPModel:
                 raise ValueError(f"Unknown or unported parameter '{k}'")
             if k == "init_cov_pars":
                 v = None if v is None else np.asarray(v, dtype=np.float64)
+                # the model's current parameters until the next fit
+                # (re_model.cpp:302-316 SetOptimConfig)
                 self._cov_pars_override = v
-            setattr(self.params, k, v)
+            if k == "init_coef" and v is not None:
+                self._coef_override = np.asarray(v, dtype=np.float64)
+            if hasattr(self.params, k):
+                setattr(self.params, k, v)
         return self
 
     def _default_init_cov_pars(self, y):
         """Data-driven initial values (re_model_template.h:4814
-        FindInitCovPar): half the response variance each to the nugget and
-        the GP, and the median-distance range rule."""
+        FindInitCovPar): half the response variance to the nugget, the
+        other half shared by the components; median-distance ranges."""
         var = float(np.var(np.asarray(y, dtype=np.float64), ddof=1))
-        return np.asarray([var / 2.0, var / 2.0]
-                          + _init_ranges(self.components[0]))
+        pars = [var / 2.0]
+        for comp in self.components:
+            pars.append(var / 2.0 / len(self.components))
+            if comp.kind == "gp":
+                pars.extend(_init_ranges(comp))
+        return np.asarray(pars)
 
     def reset_fit(self):
         """Discard the fitted state so the next `fit` starts fresh."""
         self._fit_result = None
         self.y = None
+        self.X = None
         self.model_has_been_fitted = False
         return self
 
     def fit(self, y, X=None, params=None):
-        """Estimate the covariance parameters for response y (numpy array or
+        """Estimate the covariance parameters (and the coefficients of the
+        linear covariates X, if given) for the response y (numpy array or
         tensor, data order)."""
-        if X is not None:
-            raise NotImplementedError("linear covariates are not ported yet")
         self.set_optim_params(params)
         y_t = torch.as_tensor(y, device=self.device).to(torch.float64)
         self.y = y_t.cpu().numpy()
+        self.X = None if X is None else np.asarray(X, dtype=np.float64)
+        if self.X is not None and self.X.ndim == 1:
+            self.X = self.X[:, None]
         cfg = self.params
         if cfg.init_cov_pars is None:
             cfg = OptimConfig(**{**cfg.__dict__, "init_cov_pars":
                                  self._default_init_cov_pars(self.y)})
-        self._fit_result = optimize_gaussian(self._engine,
-                                             self._engine.prep_y(y_t), cfg)
+        X_fit = self.X
+        if self._vecchia and X_fit is not None:
+            X_fit = X_fit[self._engine.perm]
+        self._fit_result = optimize_gaussian(
+            self._engine, self._engine.prep_y(y_t), cfg, X=X_fit)
+        self._coef_override = None
         self._cov_pars_override = None
         self.model_has_been_fitted = True
         return self
 
-    def neg_log_likelihood(self, cov_pars, y):
+    def neg_log_likelihood(self, cov_pars, y, fixed_effects=None):
+        y = np.asarray(y, dtype=np.float64)
+        if fixed_effects is not None:
+            y = y - np.asarray(fixed_effects, dtype=np.float64)
         return self._engine.neg_log_likelihood(self._check_cov_pars(cov_pars),
                                                y)
 
@@ -162,43 +282,186 @@ class GPModel:
             raise RuntimeError("Model has not been fitted")
         return self._fit_result
 
-    def get_cov_pars(self):
-        return self._require_fit().cov_pars.copy()
+    def get_cov_pars(self, std_err=None):
+        r = self._require_fit()
+        if (std_err if std_err is not None else self.params.std_dev) \
+                and r.std_dev_cov_pars is not None:
+            return np.vstack([r.cov_pars, r.std_dev_cov_pars])
+        return r.cov_pars.copy()
+
+    def get_coef(self, std_err=None):
+        r = self._require_fit()
+        if std_err and r.std_dev_coef is not None:
+            return np.vstack([r.coef, r.std_dev_coef])
+        return r.coef
+
+    def get_num_optim_iter(self):
+        return self._require_fit().num_it
 
     def get_current_neg_log_likelihood(self):
         return self._require_fit().neg_log_likelihood
 
+    def get_cov_par_names(self):
+        return list(self._par_names)
+
+    def summary(self):
+        """Print and return the estimates (gp_model.py:1139)."""
+        r = self._require_fit()
+        out = ["Covariance parameters (random effects):"]
+        if r.std_dev_cov_pars is not None:
+            for n_, p, s in zip(self._par_names, r.cov_pars,
+                                r.std_dev_cov_pars):
+                out.append(f"  {n_}: {p:.6g} (std dev {s:.4g})")
+        else:
+            for n_, p in zip(self._par_names, r.cov_pars):
+                out.append(f"  {n_}: {p:.6g}")
+        if r.coef is not None:
+            out.append("Linear regression coefficients:")
+            for i, b in enumerate(r.coef):
+                out.append(f"  Covariate_{i + 1}: {b:.6g}")
+        out.append(f"Negative log-likelihood: {r.neg_log_likelihood:.6f}")
+        out.append(f"Number of optimization iterations: {r.num_it}")
+        print("\n".join(out))
+        return self
+
     # ------------------------------------------------------------------
-    def predict(self, y=None, gp_coords_pred=None, predict_var=False,
-                predict_cov_mat=False, cov_pars=None, predict_response=True):
-        """Posterior predictions at gp_coords_pred (basic.py:6187
-        GPModel.predict): {'mu', 'var', 'cov'} as float64 numpy."""
+    def _residual(self, y=None, fixed_effects=None):
+        """y (the fitted response by default) less the fixed effects and
+        the linear term, float64 numpy in data order."""
+        if y is None:
+            if self.y is None:
+                raise ValueError("y not provided and model not fitted with y")
+            y = self.y
+        resid = np.array(y, dtype=np.float64)
+        if fixed_effects is not None:
+            resid = resid - np.asarray(fixed_effects, dtype=np.float64)
+        coef = self._coef_override
+        if coef is None and self._fit_result is not None:
+            coef = self._fit_result.coef
+        if coef is not None and self.X is not None:
+            resid = resid - self.X @ coef
+        return resid, coef
+
+    def predict(self, y=None, group_data_pred=None,
+                group_rand_coef_data_pred=None, gp_coords_pred=None,
+                gp_rand_coef_data_pred=None, cluster_ids_pred=None,
+                X_pred=None, predict_cov_mat=False, predict_var=False,
+                cov_pars=None, predict_response=True, fixed_effects=None,
+                fixed_effects_pred=None):
+        """Posterior predictions (basic.py:6187 GPModel.predict): {'mu',
+        'var', 'cov'} as float64 numpy."""
+        if gp_rand_coef_data_pred is not None:
+            raise NotImplementedError("GP random coefficients are not "
+                                      "ported yet")
         if cov_pars is None:
             cov_pars = self._cov_pars_override \
                 if self._cov_pars_override is not None \
                 else self._require_fit().cov_pars
         cov_pars = self._check_cov_pars(cov_pars)
-        if y is None:
-            if self.y is None:
-                raise ValueError("y not provided and model not fitted with y")
-            y = self.y
-        if gp_coords_pred is None:
-            raise ValueError("gp_coords_pred not provided")
-        pred_data = {"comps": [{"coords_pred": gp_coords_pred}]}
+        resid, coef = self._residual(y, fixed_effects)
+        pred_data = self._build_pred_data(group_data_pred,
+                                          group_rand_coef_data_pred,
+                                          gp_coords_pred, cluster_ids_pred)
+        extra = {}
+        if self._vecchia:
+            extra = dict(vecchia_pred_type=self.vecchia_pred_type,
+                         num_neighbors_pred=self.num_neighbors_pred)
         out = self._engine.predict(
-            cov_pars, y, pred_data, predict_var=predict_var,
+            cov_pars, resid, pred_data, predict_var=predict_var,
             predict_cov_mat=predict_cov_mat,
-            predict_response=predict_response,
-            vecchia_pred_type=self.vecchia_pred_type,
-            num_neighbors_pred=self.num_neighbors_pred)
+            predict_response=predict_response, **extra)
+        if coef is not None and X_pred is not None:
+            out["mu"] = out["mu"] + np.asarray(X_pred, dtype=np.float64) @ coef
+        if fixed_effects_pred is not None:
+            out["mu"] = out["mu"] + np.asarray(fixed_effects_pred,
+                                               dtype=np.float64)
         for k in ("cov", "var"):
             out.setdefault(k, None)
         return out
 
+    def _build_pred_data(self, group_data_pred, group_rand_coef_data_pred,
+                         gp_coords_pred, cluster_ids_pred):
+        """Per-component prediction inputs (gp_model.py:1058): level codes
+        for the Woodbury engine, cross and prediction incidence matrices
+        for the dense one, coordinates for a GP."""
+        comps = []
+        n_pred = None
+        ig = igrc = 0
+        for comp in self.components:
+            pd = {}
+            if comp.kind == "grouped":
+                if group_data_pred is None:
+                    raise ValueError("group_data_pred not provided")
+                gdp = np.asarray(group_data_pred)
+                if gdp.ndim == 1:
+                    gdp = gdp[:, None]
+                if comp.z is None:
+                    col = gdp[:, ig]
+                    ig += 1
+                    z_pred = None
+                else:
+                    col = gdp[:, int(self.ind_effect_group_rand_coef[igrc])]
+                    z_pred = np.asarray(group_rand_coef_data_pred,
+                                        dtype=np.float64)
+                    if z_pred.ndim == 2:
+                        z_pred = z_pred[:, igrc]
+                    igrc += 1
+                codes_pred = comp.codes_for_prediction(col, cluster_ids_pred)
+                n_pred = len(codes_pred)
+                if self._use_woodbury:
+                    pd["codes_pred"] = codes_pred
+                    pd["z_pred"] = z_pred
+                else:
+                    cross = (comp.group_codes[:, None]
+                             == codes_pred[None, :]).astype(float)
+                    predW = (codes_pred[:, None]
+                             == codes_pred[None, :]).astype(float)
+                    if z_pred is not None:
+                        cross = cross * np.outer(comp.z, z_pred)
+                        predW = predW * np.outer(z_pred, z_pred)
+                    pd["cross_W"] = cross
+                    pd["pred_W"] = predW
+            else:
+                if gp_coords_pred is None:
+                    raise ValueError("gp_coords_pred not provided")
+                cp = np.asarray(gp_coords_pred, dtype=np.float64)
+                if cp.ndim == 1:
+                    cp = cp[:, None]
+                pd["coords_pred"] = cp
+                n_pred = len(cp)
+            comps.append(pd)
+        return {"comps": comps, "n_pred": n_pred}
+
+    def predict_training_data_random_effects(self, predict_var=False):
+        """The random effects at the training points, one column per
+        component (basic.py:6780; re_model_template.h:4420): a dict of
+        float64 numpy columns named like the reference's DataFrame columns,
+        with '<name>_var' columns when predict_var=True. A random slope
+        reports the latent coefficient."""
+        r = self._require_fit()
+        if self._vecchia:
+            raise NotImplementedError(
+                "predict_training_data_random_effects is not ported yet for "
+                "gp_approx='vecchia'")
+        resid, _ = self._residual()
+        means, vs = self._engine.training_re(r.cov_pars, resid,
+                                             predict_var=predict_var)
+        out = {}
+        names = []
+        for i, comp in enumerate(self.components):
+            kind = "Group" if comp.kind == "grouped" else "GP"
+            tag = "_rand_coef" if comp.z is not None else ""
+            names.append(f"{kind}_{i + 1}{tag}")
+        for j, nm in enumerate(names):
+            out[nm] = means[:, j]
+        if predict_var and vs is not None:
+            for j, nm in enumerate(names):
+                out[nm + "_var"] = vs[:, j]
+        return out
+
     # ------------------------------------------------------------------
     def model_to_dict(self, include_response_data=True):
-        """The reference's state dict (gp_model.py:1166 model_to_dict) for
-        the Gaussian Vecchia model."""
+        """The reference's state dict (gp_model.py:1166 model_to_dict)."""
         r = self._require_fit()
         d = {
             "likelihood": self.likelihood,
@@ -213,14 +476,30 @@ class GPModel:
             "seed": self.seed,
             "vecchia_ordering": self.vecchia_ordering,
             "vecchia_pred_type": self.vecchia_pred_type,
-            "gp_coords": self.gp_coords.tolist(),
         }
         if self.num_neighbors is not None:
             d["num_neighbors"] = self.num_neighbors
         if self.num_neighbors_pred is not None:
             d["num_neighbors_pred"] = self.num_neighbors_pred
+        for key, val in (("coefs", r.coef),
+                         ("std_dev_cov_pars", r.std_dev_cov_pars),
+                         ("std_dev_coef", r.std_dev_coef)):
+            if val is not None:
+                d[key] = np.asarray(val).tolist()
         if include_response_data and self.y is not None:
             d["y"] = np.asarray(self.y).tolist()
+        if self.X is not None:
+            d["X"] = self.X.tolist()
+        if self.gp_coords is not None:
+            d["gp_coords"] = self.gp_coords.tolist()
+        if self.group_data is not None:
+            d["group_data"] = self.group_data.tolist()
+        if self.group_rand_coef_data is not None:
+            d["group_rand_coef_data"] = self.group_rand_coef_data.tolist()
+            d["ind_effect_group_rand_coef"] = (
+                np.asarray(self.ind_effect_group_rand_coef) + 1).tolist()
+        if self.cluster_ids is not None:
+            d["cluster_ids"] = self.cluster_ids.tolist()
         return d
 
     def _init_from_dict(self, model_file, model_dict):
@@ -229,24 +508,32 @@ class GPModel:
             with open(model_file) as f:
                 model_dict = json.load(f)
         d = model_dict
-        unsupported = [k for k in ("group_data", "gp_rand_coef_data",
-                                   "cluster_ids", "weights", "X", "coefs",
+        unsupported = [k for k in ("gp_rand_coef_data", "weights",
                                    "aux_pars") if d.get(k) is not None]
         if unsupported:
             raise NotImplementedError(
                 "model dict holds parts that are not ported yet: "
                 + ", ".join(unsupported))
-        kw = dict(likelihood=d["likelihood"],
-                  gp_coords=np.asarray(d["gp_coords"]),
+
+        def arr(key):
+            return None if d.get(key) is None else np.asarray(d[key])
+
+        kw = dict(likelihood=d["likelihood"], gp_coords=arr("gp_coords"),
+                  group_data=arr("group_data"),
+                  cluster_ids=arr("cluster_ids"),
                   cov_function=d["cov_function"],
                   cov_fct_shape=d["cov_fct_shape"],
                   gp_approx=d.get("gp_approx", "none"),
                   matrix_inversion_method=d.get("matrix_inversion_method",
-                                                "auto"),
+                                                "cholesky"),
                   seed=d.get("seed", 0), device=self.device)
         for attr in ("num_neighbors", "vecchia_ordering"):
             if d.get(attr) is not None:
                 kw[attr] = d[attr]
+        if d.get("group_rand_coef_data") is not None:
+            kw["group_rand_coef_data"] = arr("group_rand_coef_data")
+            kw["ind_effect_group_rand_coef"] = arr(
+                "ind_effect_group_rand_coef")
         self.__init__(**kw)
         if d.get("vecchia_pred_type"):
             self.vecchia_pred_type = d["vecchia_pred_type"]
@@ -256,10 +543,14 @@ class GPModel:
             cov_pars=np.asarray(d["cov_pars"], dtype=np.float64),
             num_it=d.get("num_optim_iter", 0),
             neg_log_likelihood=d.get("neg_log_likelihood", np.nan),
-            converged=True)
+            converged=True,
+            coef=arr("coefs"), std_dev_cov_pars=arr("std_dev_cov_pars"),
+            std_dev_coef=arr("std_dev_coef"))
         self.model_has_been_fitted = d.get("model_has_been_fitted", True)
         if d.get("y") is not None:
             self.y = np.asarray(d["y"], dtype=np.float64)
+        if d.get("X") is not None:
+            self.X = np.asarray(d["X"], dtype=np.float64)
 
 
 def _init_ranges(comp):

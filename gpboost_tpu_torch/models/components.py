@@ -1,7 +1,9 @@
 """Random-effect components (counterpart of gpboost_tpu/models/components.py).
 
-Only the Gaussian-process component is ported; grouped random effects and
-random coefficients come with later engines.
+A model's random part is a sum of components (re_comp.h:34 RECompBase):
+grouped random effects (intercepts, or slopes with a covariate z) over a
+categorical variable, and Gaussian processes. Both keep their data on the
+host as numpy; the engines move what they need to their device.
 """
 
 import numpy as np
@@ -36,3 +38,95 @@ class GPComponent:
     @property
     def num_range_par(self):
         return self.cov_fn.num_range_par
+
+
+class GroupedComponent:
+    """Grouped random effect (re_comp.h:227 RECompGroup).
+
+    group: (n,) categorical labels. z: optional (n,) random-slope covariate.
+    Sigma_j[i, l] = v_j * 1{group_i == group_l} (* z_i z_l).
+    """
+
+    kind = "grouped"
+
+    def __init__(self, group, z=None, name="Group_1"):
+        codes, self.group_levels = _factorize(group)
+        self.group_codes = codes.astype(np.int32)
+        self.z = None if z is None else np.asarray(z, dtype=np.float64)
+        self.name = name
+
+    @property
+    def num_cov_par(self):
+        return 1
+
+    @property
+    def num_range_par(self):
+        return 0
+
+    @property
+    def num_groups(self):
+        return len(self.group_levels)
+
+    def same_group_mask(self, codes_other=None):
+        a = self.group_codes
+        b = a if codes_other is None else codes_other
+        return (a[:, None] == b[None, :]).astype(np.float64)
+
+    def refine_by_cluster(self, cluster_ids):
+        """Split levels by cluster id: the same group label in two clusters
+        becomes two independent effects (re_model_template.h:6775
+        SetUpClusterIds)."""
+        ccodes, self._cluster_levels = _factorize(cluster_ids)
+        self._base_levels = self.group_levels
+        mult = len(self.group_levels)
+        combo = ccodes.astype(np.int64) * mult + self.group_codes
+        new_codes, combo_levels = _factorize(combo)
+        self.group_codes = new_codes.astype(np.int32)
+        self.group_levels = combo_levels
+        self._refined_mult = mult
+
+    def codes_for_prediction(self, group_values_pred, cluster_ids_pred=None):
+        """Map prediction labels to training level codes: values below
+        num_groups are training levels, values from num_groups up are fresh
+        codes shared among equal new labels (new groups are correlated with
+        each other, independent of the training data; re_comp.h:494
+        AddPredCovMatrices)."""
+        vals = np.asarray(group_values_pred)
+        if hasattr(self, "_refined_mult"):
+            if cluster_ids_pred is None:
+                raise ValueError("cluster_ids_pred not provided")
+            gcodes, gseen = _match_levels(self._base_levels, vals)
+            ccodes, cseen = _match_levels(self._cluster_levels,
+                                          np.asarray(cluster_ids_pred))
+            combo = ccodes.astype(np.int64) * self._refined_mult + gcodes
+            codes, seen = _match_levels(self.group_levels, combo)
+            seen = seen & gseen & cseen
+            key = combo + (~cseen) * 10**9  # unseen clusters: distinct keys
+        else:
+            codes, seen = _match_levels(self.group_levels, vals)
+            key = vals
+        un = ~seen
+        out = codes.astype(np.int64)
+        if np.any(un):
+            _, fresh = np.unique(np.asarray(key)[un], return_inverse=True)
+            out[un] = self.num_groups + fresh
+        return out
+
+
+def _factorize(values):
+    """(codes, sorted unique levels)."""
+    values = np.asarray(values)
+    uniques, codes = np.unique(values, return_inverse=True)
+    return codes, uniques
+
+
+def _match_levels(levels, values):
+    """Map values onto the sorted unique `levels`: (codes, seen). Unseen
+    values get an arbitrary in-range code and seen=False."""
+    values = np.asarray(values)
+    sorter = np.argsort(levels)
+    pos = np.searchsorted(levels, values, sorter=sorter)
+    pos = np.clip(pos, 0, len(levels) - 1)
+    codes = sorter[pos]
+    seen = levels[codes] == values
+    return codes.astype(np.int64), seen

@@ -1,0 +1,335 @@
+"""Woodbury-identity engine for Gaussian models whose random effects are all
+grouped (counterpart of gpboost_tpu/models/grouped_re.py, Cholesky branch).
+
+Reference semantics: re_model_template.h:7129
+InitializeMatricesForUseWoodburyIdentity, :9691 CalcYAux, :9837 CalcYtilde.
+With q the total number of levels over all components,
+
+    Psi~  = I_n + Z Sigma Z',   Sigma = blockdiag(v~_j I_{m_j}),
+    A     = Sigma^-1 + Z'Z      (q x q),
+    y' Psi~^-1 y = y'y - (Z'y)' A^-1 (Z'y),
+    log|Psi~|    = log|A| + sum_j m_j log v~_j,
+
+so every evaluation is one dense q x q Cholesky (cuSOLVER on the card).
+
+Device layout: Z'Z is built once on the host (its entries summed in row
+order) and kept on the device as a dense (q, q) matrix. The data-sized
+statistics Z'v, v'v, Z'X and X'X are computed on the device, because in
+GPBoost the residual changes every round and is a device tensor: Z'v is a
+deterministic segment sum (`SegmentSum`: rows sorted by level once, then
+two padded gathers and row sums, no atomics), so two runs give the same
+bits. The statistics of the last response and the last X are cached by
+tensor identity. Gradients come from torch.autograd through the q x q
+Cholesky; the Fisher information is the reference's closed form.
+
+Ported: NLL, profiled NLL and gradients, the Fisher information on the
+transformed and the original scale, GLS and gradient coefficient steps,
+`training_re`, `predict`, and `psi_tilde_inv_mat` on the device (the
+Woodbury branch of gbdt.py:2405-2419, which the reference runs in host
+scipy). matrix_inversion_method="iterative" (CG and stochastic Lanczos,
+ops/iterative.py) and weights raise NotImplementedError.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from .gaussian_base import GaussianEngineBase, chol
+
+
+class SegmentSum:
+    """out[g] = sum of v[r] over the rows r with codes[r] == g, for g < q,
+    without atomics: rows sorted by code once; level 1 sums chunks of up to
+    W1 = ceil(sqrt(max count)) consecutive rows of one group, level 2 sums
+    each group's chunks. Both are gathers into zero-padded matrices and a
+    row sum, so the order of every sum is fixed."""
+
+    def __init__(self, codes, q, device):
+        codes = np.asarray(codes, dtype=np.int64)
+        n = len(codes)
+        order = np.argsort(codes, kind="stable")
+        counts = np.bincount(codes, minlength=q)
+        w1 = max(1, int(math.ceil(math.sqrt(max(int(counts.max(initial=0)),
+                                                 1)))))
+        nchunk = -(-counts // w1)
+        chunk_start = np.concatenate([[0], np.cumsum(nchunk)])
+        group_start = np.concatenate([[0], np.cumsum(counts)])
+        sorted_codes = codes[order]
+        pos = np.arange(n) - group_start[sorted_codes]
+        idx1 = np.full((int(chunk_start[-1]), w1), n, dtype=np.int64)
+        idx1[chunk_start[sorted_codes] + pos // w1, pos % w1] = order
+        w2 = max(1, int(nchunk.max(initial=0)))
+        idx2 = np.full((q, w2), int(chunk_start[-1]), dtype=np.int64)
+        g_of_chunk = np.repeat(np.arange(q), nchunk)
+        k_of_chunk = np.arange(int(chunk_start[-1])) - chunk_start[g_of_chunk]
+        idx2[g_of_chunk, k_of_chunk] = np.arange(int(chunk_start[-1]))
+        self._idx1 = torch.as_tensor(idx1, device=device)
+        self._idx2 = torch.as_tensor(idx2, device=device)
+
+    def __call__(self, v):
+        pad = v.new_zeros((1,) + tuple(v.shape[1:]))
+        s1 = torch.cat([v, pad])[self._idx1].sum(1)
+        return torch.cat([s1, pad])[self._idx2].sum(1)
+
+
+class WoodburyGaussianEngine(GaussianEngineBase):
+    """Marginal NLL, gradients, Fisher information and prediction for
+    models with grouped random effects only. Tensor arguments named y, X,
+    resid or M are device tensors in data order."""
+
+    def __init__(self, components, num_data, dtype=torch.float64,
+                 matrix_inversion_method="cholesky", *, device,
+                 weights=None):
+        if matrix_inversion_method == "iterative":
+            raise NotImplementedError(
+                "matrix_inversion_method='iterative' for grouped random "
+                "effects needs ops/iterative.py, which is not ported yet")
+        if weights is not None:
+            raise NotImplementedError("weights are not ported yet")
+        self.components = list(components)
+        if not all(c.kind == "grouped" for c in self.components):
+            raise ValueError("the Woodbury engine takes grouped random "
+                             "effects only")
+        self.n = int(num_data)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.matrix_inversion_method = matrix_inversion_method
+        self.num_theta = len(self.components)
+        self.num_cov_par = self.num_theta + 1
+        self.par_offsets = list(range(self.num_theta))
+
+        # flat level indexing: component j holds [level_off[j], level_off[j+1])
+        self.block_sizes = [c.num_groups for c in self.components]
+        self.level_off = np.concatenate([[0], np.cumsum(self.block_sizes)])
+        self.q = int(self.level_off[-1])
+        self._idx = np.stack([c.group_codes.astype(np.int64)
+                              + self.level_off[j]
+                              for j, c in enumerate(self.components)])
+        self._w = np.stack([np.ones(self.n) if c.z is None else c.z
+                            for c in self.components])
+        # Z'Z, each entry summed over the rows in row order
+        q = self.q
+        G = np.zeros(q * q)
+        for j in range(self.num_theta):
+            for k in range(self.num_theta):
+                G += np.bincount(self._idx[j] * q + self._idx[k],
+                                 weights=self._w[j] * self._w[k],
+                                 minlength=q * q)
+        dev = self.device
+        self._G = torch.as_tensor(G.reshape(q, q), device=dev).to(dtype)
+        block_id = np.repeat(np.arange(self.num_theta), self.block_sizes)
+        oneh = np.zeros((q, self.num_theta))
+        oneh[np.arange(q), block_id] = 1.0
+        self._oneh = torch.as_tensor(oneh, device=dev).to(dtype)
+        self._m_sizes = self._t(np.asarray(self.block_sizes, dtype=float))
+        self._idx_d = torch.as_tensor(self._idx, device=dev)
+        self._w_d = [None if c.z is None else self._t(c.z)
+                     for c in self.components]
+        self._seg = [SegmentSum(c.group_codes, c.num_groups, dev)
+                     for c in self.components]
+        self._y_cache = (None, None)
+        self._X_cache = (None, None)
+
+    # ------------------------------------------------------------------
+    # device-side sufficient statistics
+    def _zt(self, v):
+        """Z' v for v (n,) or (n, L) on the device: (q,) or (q, L)."""
+        parts = []
+        for w, seg in zip(self._w_d, self._seg):
+            wv = v if w is None else (w * v if v.ndim == 1
+                                      else w[:, None] * v)
+            parts.append(seg(wv))
+        return torch.cat(parts)
+
+    def _stats_y(self, y):
+        """(Z'y, y'y), cached for the last y tensor."""
+        ref, val = self._y_cache
+        if ref is y:
+            return val
+        val = (self._zt(y), y @ y)
+        self._y_cache = (y, val)
+        return val
+
+    def _stats_X(self, X):
+        """(Z'X, X'X), cached for the last X tensor."""
+        ref, val = self._X_cache
+        if ref is X:
+            return val
+        val = (self._zt(X), X.T @ X)
+        self._X_cache = (X, val)
+        return val
+
+    # ------------------------------------------------------------------
+    def _A(self, theta_log):
+        return self._G + torch.diag(self._oneh @ (1.0 / torch.exp(theta_log)))
+
+    def _cho_solve(self, L, b):
+        if b.ndim == 1:
+            return torch.cholesky_solve(b[:, None], L)[:, 0]
+        return torch.cholesky_solve(b, L)
+
+    def _core(self, theta_log, y):
+        Zty, yty = self._stats_y(y)
+        L = chol(self._A(theta_log))
+        quad = yty - Zty @ self._cho_solve(L, Zty)
+        logdet = (2.0 * torch.sum(torch.log(torch.diagonal(L)))
+                  + torch.sum(self._m_sizes * theta_log))
+        return quad, logdet
+
+    def _nll_parts(self, theta_log, sigma2, y):
+        quad, logdet = self._core(theta_log, y)
+        n = self.n
+        nll = 0.5 * (quad / sigma2 + logdet + n * torch.log(sigma2)
+                     + n * math.log(2.0 * math.pi))
+        return nll, quad
+
+    def _nll_profiled(self, theta_log, y):
+        quad, logdet = self._core(theta_log, y)
+        n = self.n
+        return 0.5 * (logdet + n * torch.log(quad / n) + n
+                      + n * math.log(2.0 * math.pi)), quad
+
+    def _wls(self, theta_log, y, X):
+        """GLS coefficients in q-space: (X'P X) beta = X'P y with
+        X'P X = X'X - (Z'X)' A^-1 (Z'X)."""
+        ZtX, XtX = self._stats_X(X)
+        Zty, _ = self._stats_y(y)
+        L = chol(self._A(theta_log))
+        AinvZtX = self._cho_solve(L, ZtX)
+        XtPX = XtX - ZtX.T @ AinvZtX
+        XtPy = X.T @ y - AinvZtX.T @ Zty
+        return self._cho_solve(chol(XtPX), XtPy)
+
+    def _coef_grad(self, theta_log, sigma2, resid, X):
+        ZtX, _ = self._stats_X(X)
+        L = chol(self._A(theta_log))
+        AinvZtr = self._cho_solve(L, self._zt(resid))
+        return -(X.T @ resid - ZtX.T @ AinvZtr) / sigma2
+
+    # ------------------------------------------------------------------
+    def _blocks(self, M):
+        """Per-(component j, component k) block sums of a (q, q) matrix."""
+        return self._oneh.T @ M @ self._oneh
+
+    def fisher_transformed(self, u, include_error_var=True):
+        """Fisher information on the transformed (log) scale by q x q trace
+        identities; with P = Psi~^-1 and C = Z'PZ:
+        tr(P dPsi_j) = v_j sum(diag(C)[block j]),
+        tr(P dPsi_j P dPsi_k) = v_j v_k ||C[b_j, b_k]||_F^2."""
+        with torch.no_grad():
+            theta_log = self._t(u)[1:]
+            vt = torch.exp(theta_log)
+            L = chol(self._A(theta_log))
+            C = self._G - self._G @ self._cho_solve(L, self._G)
+            tr = vt * (self._oneh.T @ torch.diagonal(C))
+            FI_cc = 0.5 * (vt[:, None] * vt[None, :]) * self._blocks(C * C)
+            if not include_error_var:
+                return self._host(FI_cc)[0]
+            p = self.num_theta
+            FI = FI_cc.new_zeros((p + 1, p + 1))
+            FI[0, 0] = self.n / 2.0
+            FI[0, 1:] = 0.5 * tr
+            FI[1:, 0] = 0.5 * tr
+            FI[1:, 1:] = FI_cc
+            return self._host(FI)[0]
+
+    def fisher_original(self, pars_orig):
+        """Fisher information wrt the original [sigma2, v_j], in q-space."""
+        with torch.no_grad():
+            pars = self._t(pars_orig)
+            sigma2 = pars[0]
+            theta_log = torch.log(pars[1:] / sigma2)
+            L = chol(self._A(theta_log))
+            G = self._G
+            AinvG = self._cho_solve(L, G)
+            C = G - G @ AinvG
+            C2 = G - 2.0 * G @ AinvG + AinvG.T @ (G @ AinvG)
+            tr_psi2 = (self.n - 2.0 * torch.trace(AinvG)
+                       + torch.sum(AinvG * AinvG.T))
+            diag_C2 = self._oneh.T @ torch.diagonal(C2)
+            p = self.num_theta
+            FI = G.new_zeros((p + 1, p + 1))
+            FI[0, 0] = tr_psi2
+            FI[0, 1:] = diag_C2
+            FI[1:, 0] = diag_C2
+            FI[1:, 1:] = self._blocks(C * C)
+            return self._host(0.5 * FI / (sigma2 * sigma2))[0]
+
+    # ------------------------------------------------------------------
+    def _posterior(self, pars_orig, y_resid):
+        """(Cholesky factor of A, posterior mean A^-1 Z' resid) on the
+        device."""
+        t = self.transform_pars(pars_orig)
+        L = chol(self._A(self._t(np.log(t[1:]))))
+        r = self.prep_y(y_resid)
+        return L, self._cho_solve(L, self._zt(r))
+
+    def training_re(self, pars_orig, y_resid, predict_var=False):
+        """Per-component posterior means (and variances) of the random
+        effects at the training points: column j = bhat_j[codes_j], with
+        bhat = A^-1 Z' resid and Var(b | y) = sigma2 A^-1
+        (re_model_template.h:4420; random coefficients report the latent
+        slope)."""
+        with torch.no_grad():
+            L, bhat = self._posterior(pars_orig, y_resid)
+            means = bhat[self._idx_d].T
+            if not predict_var:
+                return self._host(means)[0], None
+            sigma2 = float(pars_orig[0])
+            Ainv_diag = torch.diagonal(torch.cholesky_inverse(L))
+            return tuple(self._host(means,
+                                    sigma2 * Ainv_diag[self._idx_d].T))
+
+    def predict(self, pars_orig, y_resid, pred_data, predict_var=False,
+                predict_cov_mat=False, predict_response=False):
+        """Posterior mean and covariance at prediction incidences;
+        pred_data["comps"][j] holds "codes_pred" (codes >= m_j are unseen
+        levels) and an optional "z_pred"."""
+        pars_orig = np.asarray(pars_orig, dtype=np.float64)
+        sigma2 = pars_orig[0]
+        n_pred = pred_data["n_pred"]
+        Zp = np.zeros((n_pred, self.q))
+        prior_var = np.zeros((n_pred, n_pred))
+        for j, pd in enumerate(pred_data["comps"]):
+            codes = pd["codes_pred"]
+            zp = pd.get("z_pred")
+            zp = np.ones(n_pred) if zp is None \
+                else np.asarray(zp, dtype=np.float64)
+            rows = np.where(codes < self.block_sizes[j])[0]
+            Zp[rows, self.level_off[j] + codes[rows]] += zp[rows]
+            # unseen levels: prior variance v_j, shared among equal codes
+            un = np.where(codes >= self.block_sizes[j])[0]
+            if len(un):
+                same = codes[un][:, None] == codes[un][None, :]
+                prior_var[np.ix_(un, un)] += pars_orig[1 + j] * same * \
+                    np.outer(zp[un], zp[un])
+        with torch.no_grad():
+            L, bhat = self._posterior(pars_orig, y_resid)
+            Zp_d = self._t(Zp)
+            out = {"mu": self._host(Zp_d @ bhat)[0]}
+            if predict_var or predict_cov_mat:
+                cov = sigma2 * (Zp_d @ self._cho_solve(L, Zp_d.T)) \
+                    + self._t(prior_var)
+                if predict_response:
+                    cov = cov + sigma2 * torch.eye(
+                        n_pred, dtype=cov.dtype, device=cov.device)
+                cov = self._host(cov)[0]
+                if predict_cov_mat:
+                    out["cov"] = cov
+                if predict_var:
+                    out["var"] = np.diagonal(cov).copy()
+        return out
+
+    def psi_tilde_inv_mat(self, pars_internal, M):
+        """Psi~^-1 M for M (n, L) on the device: M - Z A^-1 Z' M
+        (gbdt.py:2405-2419 Woodbury branch)."""
+        theta_log = self._t(np.log(np.asarray(pars_internal)[1:]))
+        with torch.no_grad():
+            Mt = M.to(self.dtype)
+            w = self._cho_solve(chol(self._A(theta_log)), self._zt(Mt))
+            out = Mt
+            for j, wz in enumerate(self._w_d):
+                g = w[self._idx_d[j]]
+                out = out - (g if wz is None else wz[:, None] * g)
+        return out.to(M.dtype)

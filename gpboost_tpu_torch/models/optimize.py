@@ -1,33 +1,81 @@
-"""Covariance-parameter estimation (counterpart of
-gpboost_tpu/models/optimize.py).
+"""Covariance-parameter estimation for Gaussian models (counterpart of
+gpboost_tpu/models/optimize.py, REModelTemplate::OptimLinRegrCoefCovPar,
+re_model_template.h:969).
 
-Ported: `OptimConfig`, `OptimResult` and `optimize_gaussian` through the
-host scipy L-BFGS-B branch of the reference's `_optimize_external`
-(optimize.py:1077-1206) on the nugget-profiled objective. That branch is
-the reference's default `lbfgs` below n = 20,000; the port takes it at every
-n, since the on-device L-BFGS (ops/lbfgs.py) is not ported yet. Each
-objective evaluation is one value-and-gradient pass on the engine's device
-and one host sync. The internal optimizers, Nelder-Mead, Adam, linear
-covariates, fixed parameters and standard errors raise NotImplementedError.
+  * internal optimizers (`_optimize_internal`): gradient descent with
+    Nesterov acceleration and Armijo backtracking with permanent learning-
+    rate halving (re_model_template.h:8621 UpdateCovAuxPars), the nugget
+    profiled out (:2605 ProfileOutSigma2); Fisher scoring and Newton with
+    the step clipped at log(100) (:8661-8669); all on the log-transformed
+    parameters, as host loops with one host read per evaluation;
+  * linear covariates X on every path: GLS coefficients (`wls`) or a
+    gradient step with the reference's covariate scaling and learning-rate
+    cap (`gradient_descent`, :9106 UpdateLinCoef);
+  * external optimizers (`_optimize_external`) on the nugget-profiled
+    objective (optim_utils.h:243, :562 OptimExternal): scipy L-BFGS-B and
+    Nelder-Mead on the host, one value-and-gradient pass on the device per
+    evaluation;
+  * the device L-BFGS (`_optimize_external_device`, ops/lbfgs.py), taken,
+    as in the reference (optimize.py:1077-1090), for an lbfgs-family
+    optimizer other than lbfgs_not_profile_out_nugget with the nugget
+    estimated, when the engine exposes a raw profiled objective (dense and
+    Vecchia) and `use_device_optimizer` is True, or None and n >= 20,000;
+  * fixed parameters (estimate_cov_par_index) and standard errors from the
+    inverse Fisher information (std_dev=True).
+
+y enters as a device tensor in the engine's ordering and dtype; X, when
+given, as float64 numpy in the same row order. optimizer_cov="adam" raises
+NotImplementedError.
+
+Constants are the reference's (re_model_template.h:5682-5796).
 """
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
+
+LR_SHRINKAGE_FACTOR = 0.5
+C_ARMIJO = 1e-4
+C_ARMIJO_MOM = 1e-4
+MAX_NUM_LR_SHRINKAGE_STEPS = 30
+MAX_GRADIENT_UPDATE_LOG_SCALE = math.log(100.0)
+C_MAX_CHANGE_COEF = 10.0
+DEVICE_OPTIMIZER_MIN_N = 20000
 
 
 @dataclass
 class OptimConfig:
-    """The fields of the reference's OptimConfig that its host L-BFGS-B
-    branch reads; the others come with the optimizers that read them."""
     optimizer_cov: str = "lbfgs"
+    optimizer_coef: str = "wls"
+    lr_cov: float = -999.0          # -999 -> default (0.1 gd, 1.0 otherwise)
+    lr_coef: float = 0.1
+    use_nesterov_acc: bool = True
+    acc_rate_cov: float = 0.5
+    acc_rate_coef: float = 0.5
+    momentum_offset: int = 2
+    nesterov_schedule_version: int = 0
+    delta_rel_conv: float = -999.0  # -999 -> 1e-6 (1e-8 for nelder_mead)
+    convergence_criterion: str = "relative_change_in_log_likelihood"
     max_iter: int = 1000
-    maxit: Optional[int] = None     # alias used by reference tests for lbfgs
     init_cov_pars: Optional[np.ndarray] = None
     estimate_cov_par_index: Optional[list] = None
     std_dev: bool = False
+    maxit: Optional[int] = None     # alias used by reference tests for lbfgs
+    # None -> the device L-BFGS from n = 20,000; True / False force it
     use_device_optimizer: Optional[bool] = None
+
+    def resolved_lr_cov(self):
+        if self.lr_cov < 0:
+            return 0.1 if self.optimizer_cov == "gradient_descent" else 1.0
+        return self.lr_cov
+
+    def resolved_delta_rel_conv(self):
+        if self.delta_rel_conv < 0:
+            return 1e-8 if self.optimizer_cov == "nelder_mead" else 1e-6
+        return self.delta_rel_conv
 
 
 @dataclass
@@ -35,62 +83,503 @@ class OptimResult:
     cov_pars: np.ndarray = None          # original scale
     num_it: int = 0
     neg_log_likelihood: float = np.nan
+    std_dev_cov_pars: Optional[np.ndarray] = None
+    coef: Optional[np.ndarray] = None
+    std_dev_coef: Optional[np.ndarray] = None
     converged: bool = False
+    optimizer: str = ""                  # which loop ran: internal,
+                                         # scipy or device_lbfgs
 
 
-_LBFGS_NAMES = ("lbfgs", "lbfgs_linesearch_nocedal_wright", "bfgs_optim_lib")
+def nesterov_mu(it, version, acc_rate, momentum_offset):
+    """re_model_template.h:6098 NesterovSchedule."""
+    if it < momentum_offset:
+        return 0.0
+    if version == 0:
+        return acc_rate
+    if version == 1:
+        return 1.0 - (3.0 / (6.0 + it))
+    raise ValueError(f"nesterov_schedule_version {version}")
+
+
+_INTERNAL = ("gradient_descent", "fisher_scoring", "newton")
+_EXTERNAL = ("lbfgs", "lbfgs_linesearch_nocedal_wright",
+             "lbfgs_not_profile_out_nugget", "nelder_mead", "bfgs_optim_lib")
 
 
 def optimize_gaussian(engine, y, config: OptimConfig, X=None) -> OptimResult:
-    """Estimate covariance parameters for Gaussian y, given as a tensor in
-    the engine's ordering, dtype and device."""
-    unsupported = []
-    if config.optimizer_cov not in _LBFGS_NAMES:
-        unsupported.append(f"optimizer_cov='{config.optimizer_cov}'")
-    if X is not None:
-        unsupported.append("linear covariates X")
-    if config.estimate_cov_par_index is not None:
-        unsupported.append("estimate_cov_par_index")
+    """Estimate the covariance parameters (and, with X, the linear
+    coefficients) for Gaussian y, a device tensor in the engine's
+    ordering."""
+    opt = config.optimizer_cov
+    if opt in _INTERNAL:
+        res = _optimize_internal(engine, y, config, X)
+    elif opt in _EXTERNAL:
+        res = _optimize_external(engine, y, config, X)
+    elif opt == "adam":
+        raise NotImplementedError("optimizer_cov='adam' is not ported yet")
+    else:
+        raise ValueError(f"optimizer_cov '{opt}' is not supported")
     if config.std_dev:
-        unsupported.append("std_dev=True")
-    if config.use_device_optimizer:
-        unsupported.append("use_device_optimizer=True")
-    if unsupported:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(unsupported)
-            + " (the port runs the host L-BFGS-B on the profiled NLL)")
-    return _optimize_external(engine, y, config)
+        FI = engine.fisher_original(res.cov_pars)
+        std = np.full(len(res.cov_pars), np.nan)
+        try:
+            d = np.diagonal(np.linalg.inv(FI))
+            ok = np.isfinite(d) & (d >= 0)
+            std[ok] = np.sqrt(d[ok])
+        except np.linalg.LinAlgError:
+            pass
+        res.std_dev_cov_pars = std
+        if X is not None and res.coef is not None \
+                and hasattr(engine, "psi_tilde"):
+            # CalcStdDevCoef (re_model_template.h:10753):
+            # sqrt diag (X' Psi^-1 X)^-1
+            t = engine.transform_pars(res.cov_pars)
+            with torch.no_grad():
+                Xd = engine._t(X)
+                L = torch.linalg.cholesky(
+                    engine.psi_tilde(engine._t(np.log(t[1:]))))
+                XtPX = engine._host(Xd.T @ torch.cholesky_solve(Xd, L))[0] \
+                    / t[0]
+            res.std_dev_coef = np.sqrt(np.diagonal(np.linalg.inv(XtPX)))
+    return res
 
 
-def _optimize_external(engine, y, config: OptimConfig) -> OptimResult:
-    """L-BFGS-B on the nugget-profiled objective (optim_utils.h:562)."""
-    from scipy import optimize as sopt
+def _est_mask(engine, config):
+    m = np.ones(engine.num_cov_par, dtype=bool)
+    if config.estimate_cov_par_index is not None:
+        m = np.asarray(config.estimate_cov_par_index) > 0
+    return m
+
+
+class CovariateHandler:
+    """Covariate scaling, intercept detection and initialisation, and the
+    coefficient learning-rate cap (re_model_template.h:1206-1278, :5393
+    MaximalLearningRateCoef)."""
+
+    def __init__(self, X, scale):
+        self.X_orig = np.asarray(X, dtype=np.float64)
+        n, k = self.X_orig.shape
+        self.k = k
+        self.intercept_col = None
+        for icol in range(k):
+            if np.all(self.X_orig[:, icol] == self.X_orig[0, icol]):
+                self.intercept_col = icol
+                break
+        self.scale = scale and not (self.intercept_col is not None and k == 1)
+        if self.scale:
+            self.loc = np.zeros(k)
+            self.sd = np.ones(k)
+            self.X = self.X_orig.copy()
+            for icol in range(k):
+                if icol == self.intercept_col:
+                    continue
+                self.loc[icol] = self.X_orig[:, icol].mean()
+                centered = self.X_orig[:, icol] - self.loc[icol]
+                self.sd[icol] = np.sqrt(np.mean(centered ** 2))
+                self.X[:, icol] = centered / self.sd[icol]
+        else:
+            self.X = self.X_orig
+
+    def init_beta(self, y):
+        beta = np.zeros(self.k)
+        if self.intercept_col is not None:
+            beta[self.intercept_col] = float(np.mean(y)) \
+                / self.X_orig[0, self.intercept_col]
+        return beta
+
+    def back_transform(self, beta):
+        """Scaled-X coefficients -> original-X coefficients."""
+        if not self.scale:
+            return beta
+        out = beta.copy()
+        shift = 0.0
+        for icol in range(self.k):
+            if icol == self.intercept_col:
+                continue
+            out[icol] = beta[icol] / self.sd[icol]
+            shift += self.loc[icol] * out[icol]
+        if self.intercept_col is not None:
+            out[self.intercept_col] = beta[self.intercept_col] \
+                - shift / self.X_orig[0, self.intercept_col]
+        return out
+
+    def max_lr(self, beta, neg_step, C_mu, C_sigma2):
+        lp_change = self.X @ neg_step
+        lp_lag1 = self.X @ beta
+        mean_c = lp_change.mean()
+        var_c = np.mean(lp_change ** 2) - mean_c ** 2
+        cov_lc = np.mean(lp_change * lp_lag1) - mean_c * lp_lag1.mean()
+        out = np.inf
+        if abs(mean_c) > 0:
+            out = C_mu * C_MAX_CHANGE_COEF / abs(mean_c)
+        if var_c > 0:
+            max_lr_var = (abs(cov_lc) + np.sqrt(
+                cov_lc * cov_lc + 4 * var_c * C_sigma2 * C_MAX_CHANGE_COEF)) \
+                / 2.0 / var_c
+            out = min(out, max_lr_var)
+        return out
+
+
+def _max_iter(config):
+    return config.maxit if config.maxit else config.max_iter
+
+
+def _optimize_internal(engine, y, config: OptimConfig, X=None) -> OptimResult:
+    n = engine.n
+    opt = config.optimizer_cov
+    profile_out = opt == "gradient_descent"
+    est = _est_mask(engine, config)
+    est_theta = est[1:]
+    use_nesterov = config.use_nesterov_acc and opt == "gradient_descent"
+    delta_rel_conv = config.resolved_delta_rel_conv()
+    has_covariates = X is not None
+    handler = None
+    C_mu = C_sigma2 = 1.0
+    beta = beta_after_grad = beta_after_grad_lag1 = None
+    Xd = None
+    if has_covariates:
+        y_host = y.detach().to(torch.float64).cpu().numpy()
+        handler = CovariateHandler(
+            X, scale=(config.optimizer_coef == "gradient_descent"))
+        Xd = engine._t(handler.X)
+        C_mu = abs(float(np.mean(y_host)))
+        C_sigma2 = float(np.var(y_host))
+        beta = (handler.init_beta(y_host)
+                if config.optimizer_coef == "gradient_descent"
+                else np.zeros(handler.k))
+        beta_after_grad = beta.copy()
+        beta_after_grad_lag1 = beta.copy()
+    lr_coef = config.lr_coef
+
+    t = engine.transform_pars(np.asarray(config.init_cov_pars,
+                                         dtype=np.float64))
+    u = np.log(t)                   # [log s2, log v~, log alpha ...]
+    resid = y - Xd @ engine._t(beta) if has_covariates else y
+    nll, quad = engine.nll_parts(u[1:], math.exp(u[0]), resid)
+
+    lr_cov = config.resolved_lr_cov()
+    theta_after_grad = np.exp(u[1:]).copy()
+    theta_after_grad_lag1 = np.exp(u[1:]).copy()
+    max_iter = _max_iter(config)
+    num_it = max_iter
+    converged = False
+
+    for it in range(max_iter):
+        nll_lag1 = nll
+        u_lag1 = u.copy()
+
+        # ---- regression coefficients ----------------------------------
+        if has_covariates:
+            if config.optimizer_coef == "wls":
+                beta = engine.wls_coef(u[1:], y, Xd)
+                resid = y - Xd @ engine._t(beta)
+                nll_after_coef, quad = engine.nll_parts(
+                    u[1:], math.exp(u[0]), resid)
+            elif config.optimizer_coef == "gradient_descent":
+                beta, resid, nll_after_coef, quad, lr_coef, beta_after_grad, \
+                    beta_after_grad_lag1 = _update_coef_gd(
+                        engine, y, Xd, beta, u, lr_coef, it, config,
+                        nll_lag1, beta_after_grad, beta_after_grad_lag1,
+                        handler, C_mu, C_sigma2)
+            else:
+                raise ValueError(f"optimizer_coef '{config.optimizer_coef}'")
+        else:
+            nll_after_coef = nll_lag1
+
+        # ---- profile out the nugget (gradient_descent): quad is
+        # sigma2-free, so sigma2_hat = quad / n
+        if profile_out and est[0]:
+            u[0] = np.log(quad / n)
+            u = np.log(engine.apply_nugget_lower_bound(np.exp(u)))
+        sigma2 = np.exp(u[0])
+
+        # ---- gradient / step direction ---------------------------------
+        if opt == "gradient_descent":
+            _, g = engine.grad_profiled(u[1:], sigma2, resid)
+            g = np.array(g)
+            g[~est_theta] = 0.0
+            neg_step = g
+            # AvoidTooLargeLearningRatesCovAuxPars (permanent cap)
+            max_abs = np.max(np.abs(neg_step)) if neg_step.size else 0.0
+            if max_abs > 0:
+                lr_cov = min(lr_cov, MAX_GRADIENT_UPDATE_LOG_SCALE / max_abs)
+            grad_for_armijo = g
+        elif opt == "fisher_scoring":
+            _, g_full = engine.vag_full(u, resid)
+            FI = engine.fisher_transformed(u, True)
+            neg_step = np.linalg.solve(FI, g_full)
+            grad_for_armijo = g_full
+        else:   # newton
+            _, g_full = engine.vag_full(u, resid)
+            H = engine.hess_full(u, resid)
+            try:
+                neg_step = np.linalg.solve(H, g_full)
+            except np.linalg.LinAlgError:
+                neg_step = g_full
+            grad_for_armijo = g_full
+
+        dir_deriv = -float(grad_for_armijo @ neg_step)
+        if use_nesterov:
+            mom_dir_deriv = float(grad_for_armijo
+                                  @ (u[1:] - np.log(theta_after_grad)))
+        else:
+            mom_dir_deriv = 0.0
+
+        # ---- update with learning-rate backtracking --------------------
+        lr = lr_cov
+        acc_rate = config.acc_rate_cov
+        halving_done = False
+        for _ in range(MAX_NUM_LR_SHRINKAGE_STEPS):
+            step = lr * neg_step
+            if opt in ("fisher_scoring", "newton"):
+                step = np.clip(step, -MAX_GRADIENT_UPDATE_LOG_SCALE,
+                               MAX_GRADIENT_UPDATE_LOG_SCALE)
+                u_cand = u - np.where(est, step, 0.0)
+                theta_grad_cand = np.exp(u_cand[1:])
+                theta_cand = theta_grad_cand
+                u0_cand = u_cand[0]
+            else:
+                theta_grad_cand = np.exp(u[1:] - np.where(est_theta, step,
+                                                          0.0))
+                u0_cand = u[0]
+                if use_nesterov:
+                    mu = nesterov_mu(it, config.nesterov_schedule_version,
+                                     acc_rate, config.momentum_offset)
+                    theta_cand = np.exp(
+                        (1.0 + mu) * np.log(theta_grad_cand)
+                        - mu * np.log(theta_after_grad_lag1))
+                else:
+                    theta_cand = theta_grad_cand
+            cand_full = engine.apply_nugget_lower_bound(
+                np.concatenate([[np.exp(u0_cand)], theta_cand]))
+            nll_new, quad_new = engine.nll_parts(
+                np.log(cand_full[1:]), cand_full[0], resid)
+            mu = (nesterov_mu(it, config.nesterov_schedule_version, acc_rate,
+                              config.momentum_offset) if use_nesterov
+                  else 0.0)
+            bound = (nll_after_coef + C_ARMIJO * lr * dir_deriv
+                     + C_ARMIJO_MOM * mu * mom_dir_deriv)
+            if nll_new <= bound:
+                break
+            halving_done = True
+            lr *= LR_SHRINKAGE_FACTOR
+            acc_rate *= 0.5
+        if halving_done and opt == "gradient_descent":
+            lr_cov = lr             # permanent decrease (:8757)
+
+        theta_after_grad_lag1 = theta_grad_cand.copy()
+        theta_after_grad = theta_grad_cand.copy()
+        u = np.log(cand_full)
+        nll = nll_new
+        quad = quad_new
+
+        # ---- convergence check -----------------------------------------
+        if config.convergence_criterion == "relative_change_in_log_likelihood":
+            if (nll_lag1 - nll) <= delta_rel_conv * max(abs(nll_lag1), 1.0):
+                converged = True
+        elif config.convergence_criterion == "relative_change_in_parameters":
+            t_now, t_lag = np.exp(u), np.exp(u_lag1)
+            if np.linalg.norm(t_now - t_lag) \
+                    <= delta_rel_conv * np.linalg.norm(t_lag):
+                converged = True
+        else:
+            raise ValueError(config.convergence_criterion)
+        if not np.all(np.isfinite(u)) or not np.isfinite(nll):
+            converged = True        # NA/Inf guard: stop
+        if converged:
+            num_it = it + 1
+            break
+
+    result = OptimResult(
+        cov_pars=engine.back_transform_pars(np.exp(u)), num_it=num_it,
+        neg_log_likelihood=nll, converged=converged, optimizer="internal")
+    if has_covariates:
+        result.coef = handler.back_transform(beta)
+    return result
+
+
+def _update_coef_gd(engine, y, Xd, beta, u, lr_coef, it, config,
+                    nll_lag1, beta_after_grad, beta_after_grad_lag1,
+                    handler, C_mu, C_sigma2):
+    """One gradient-descent step for the linear coefficients
+    (re_model_template.h:9106 UpdateLinCoef)."""
+    sigma2 = np.exp(u[0])
+    resid = y - Xd @ engine._t(beta)
+    g_beta = engine.coef_grad(u[1:], sigma2, resid, Xd)
+    # AvoidTooLargeLearningRateCoef (re_model_template.h:5393)
+    lr_coef = min(lr_coef, handler.max_lr(beta, g_beta, C_mu, C_sigma2))
+    dir_deriv = -float(g_beta @ g_beta)
+    use_acc = config.use_nesterov_acc \
+        and config.optimizer_coef == "gradient_descent"
+    mom_dir_deriv = float(g_beta @ (beta - beta_after_grad)) if use_acc \
+        else 0.0
+
+    lr = lr_coef
+    acc_rate = config.acc_rate_coef
+    halving_done = False
+    for _ in range(MAX_NUM_LR_SHRINKAGE_STEPS):
+        beta_grad_new = beta - lr * g_beta
+        if use_acc:
+            mu = nesterov_mu(it, config.nesterov_schedule_version, acc_rate,
+                             config.momentum_offset)
+            beta_new = (1.0 + mu) * beta_grad_new - mu * beta_after_grad_lag1
+        else:
+            mu = 0.0
+            beta_new = beta_grad_new
+        resid_new = y - Xd @ engine._t(beta_new)
+        nll_new, quad_new = engine.nll_parts(u[1:], sigma2, resid_new)
+        bound = (nll_lag1 + C_ARMIJO * lr * dir_deriv
+                 + C_ARMIJO_MOM * mu * mom_dir_deriv)
+        if nll_new <= bound:
+            break
+        halving_done = True
+        lr *= LR_SHRINKAGE_FACTOR
+        acc_rate *= 0.5
+    if halving_done:
+        lr_coef = lr
+    return (beta_new, resid_new, nll_new, quad_new, lr_coef,
+            beta_grad_new, beta_grad_new.copy())
+
+
+# ----------------------------------------------------------------------
+def _use_device_lbfgs(engine, config, est, X):
+    """The reference's dispatch (optimize.py:1077-1090)."""
+    use_device = config.use_device_optimizer
+    if use_device is None:
+        use_device = engine.n >= DEVICE_OPTIMIZER_MIN_N
+    return bool(use_device and config.optimizer_cov.startswith("lbfgs")
+                and config.optimizer_cov != "lbfgs_not_profile_out_nugget"
+                and est[0] and hasattr(engine, "nll_profiled_raw")
+                and (X is None or hasattr(engine, "wls_coef_raw")))
+
+
+def _optimize_external_device(engine, y, config: OptimConfig, X, est):
+    """The whole L-BFGS fit on the device (ops/lbfgs.py): the profiled
+    objective, with the closed-form GLS coefficients when X is given, and
+    one host read per line-search trial."""
+    from ..ops.lbfgs import lbfgs_run
 
     n = engine.n
+    est_theta = est[1:]
+    Xd = None if X is None else engine._t(X)
     t0 = engine.transform_pars(np.asarray(config.init_cov_pars,
                                           dtype=np.float64))
     theta0 = np.log(t0[1:])
+    free_idx = np.where(est_theta)[0]
+    theta0_d = engine._t(theta0)
+    free_d = torch.as_tensor(free_idx, device=engine.device)
+    partial = len(free_idx) < len(theta0)
 
-    def obj_and_grad(theta):
-        (val, _quad), grad = engine.nll_profiled_vag(theta, y)
-        return val, grad
+    def vag(x):
+        x = x.detach().requires_grad_(True)
+        theta = theta0_d.index_put((free_d,), x) if partial else x
+        if Xd is not None:
+            beta = engine.wls_coef_raw(theta, y, Xd)
+            resid = y - Xd @ beta
+        else:
+            beta = y.new_zeros((0,))
+            resid = y
+        val, quad = engine.nll_profiled_raw(theta, resid)
+        (g,) = torch.autograd.grad(val, x)
+        # quad and beta ride along as aux: the final state needs no extra
+        # evaluation after the run
+        return val.detach(), g, (quad.detach(), beta.detach())
 
-    max_iter = config.maxit if config.maxit else config.max_iter
-    if theta0.size == 0:
-        theta, nit = theta0, 0
+    max_iter = config.maxit if config.maxit else min(config.max_iter, 1000)
+    # stop at the configured relative change of the objective (LBFGSpp's
+    # delta = delta_rel_conv, optim_utils.h:653-674)
+    ftol = config.resolved_delta_rel_conv()
+    x, nll, (quad, beta), k, _ = lbfgs_run(vag, theta0_d[free_d], max_iter,
+                                           ftol=ftol, has_aux=True)
+    x, nll, quad, beta = engine._host(x, nll, quad, beta)
+    theta = theta0.copy()
+    theta[free_idx] = x
+    internal = engine.apply_nugget_lower_bound(
+        np.concatenate([[float(quad) / n], np.exp(theta)]))
+    return OptimResult(
+        cov_pars=engine.back_transform_pars(internal), num_it=int(k),
+        neg_log_likelihood=float(nll), converged=True,
+        coef=beta if X is not None else None, optimizer="device_lbfgs")
+
+
+def _optimize_external(engine, y, config: OptimConfig, X=None) -> OptimResult:
+    """L-BFGS-B or Nelder-Mead on the profiled objective (optim_utils.h:562),
+    or the device L-BFGS where the reference takes it."""
+    from scipy import optimize as sopt
+
+    n = engine.n
+    est = _est_mask(engine, config)
+    if _use_device_lbfgs(engine, config, est, X):
+        return _optimize_external_device(engine, y, config, X, est)
+    est_theta = est[1:]
+    has_covariates = X is not None
+    Xd = engine._t(X) if has_covariates else None
+
+    t0 = engine.transform_pars(np.asarray(config.init_cov_pars,
+                                          dtype=np.float64))
+    theta0 = np.log(t0[1:])
+    s2_fixed = math.exp(math.log(t0[0]))
+    profile_sigma2 = bool(est[0])
+
+    def resid_at(theta):
+        if not has_covariates:
+            return y, None
+        beta = engine.wls_coef(theta, y, Xd)
+        return y - Xd @ engine._t(beta), beta
+
+    def obj_and_grad(theta_free):
+        theta = theta0.copy()
+        theta[est_theta] = theta_free
+        r, _ = resid_at(theta)
+        if profile_sigma2:
+            (val, _), grad = engine.nll_profiled_vag(theta, r)
+        else:
+            val, grad = engine.grad_profiled(theta, s2_fixed, r)
+        return float(val), np.asarray(grad)[est_theta]
+
+    x0 = theta0[est_theta]
+    opt = config.optimizer_cov
+    max_iter = _max_iter(config)
+    if x0.size == 0:
+        res_x, nit = x0, 0
+    elif opt == "nelder_mead":
+        drc = config.resolved_delta_rel_conv()
+        f0 = obj_and_grad(x0)[0]
+        r = sopt.minimize(lambda x: obj_and_grad(x)[0], x0,
+                          method="Nelder-Mead",
+                          options={"maxiter": max_iter * 10,
+                                   "fatol": drc * max(abs(f0), 1.0),
+                                   "xatol": 1e-12})
+        res_x, nit = r.x, r.nit
     else:
-        r = sopt.minimize(obj_and_grad, theta0, jac=True, method="L-BFGS-B",
+        r = sopt.minimize(obj_and_grad, x0, jac=True, method="L-BFGS-B",
                           options={"maxiter": max_iter, "ftol": 1e-16,
                                    "gtol": 1e-12, "maxcor": 20})
-        theta, nit = r.x, r.nit
-    # the profiled objective returns quad: sigma2_hat = quad / n, and the
-    # NLL at (theta, sigma2_hat) equals the profiled value
-    (nll, quad), _ = engine.nll_profiled_vag(theta, y)
-    internal = np.concatenate([[quad / n], np.exp(theta)])
-    internal = engine.apply_nugget_lower_bound(internal)
+        res_x, nit = r.x, r.nit
+
+    theta = theta0.copy()
+    theta[est_theta] = res_x
+    r, beta = resid_at(theta)
+    if profile_sigma2:
+        # the profiled objective returns quad: sigma2_hat = quad / n, and
+        # the NLL at (theta, sigma2_hat) equals the profiled value
+        (nll, quad), _ = engine.nll_profiled_vag(theta, r)
+        sigma2 = quad / n
+    else:
+        nll, _ = engine.grad_profiled(theta, s2_fixed, r)
+        sigma2 = s2_fixed
+    internal = engine.apply_nugget_lower_bound(
+        np.concatenate([[sigma2], np.exp(theta)]))
+    cov_pars_out = engine.back_transform_pars(internal)
+    # fixed variances are reported at their original-scale values although
+    # the nugget-scaled coordinate was held fixed (re_model_template.h:7836
+    # MaybeKeepVarianceConstant)
+    if config.estimate_cov_par_index is not None and est[0]:
+        variance_idx = np.asarray([1 + off for off in engine.par_offsets])
+        fixed_var = variance_idx[~est[variance_idx]]
+        init_orig = np.asarray(config.init_cov_pars, dtype=np.float64)
+        cov_pars_out[fixed_var] = init_orig[fixed_var]
     return OptimResult(
-        cov_pars=engine.back_transform_pars(internal),
-        num_it=int(nit),
-        neg_log_likelihood=float(nll),
-        converged=True,
-    )
+        cov_pars=cov_pars_out, num_it=int(nit), neg_log_likelihood=float(nll),
+        converged=True, coef=beta, optimizer="scipy")

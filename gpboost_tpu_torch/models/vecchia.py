@@ -14,10 +14,13 @@ reductions, differentiated by torch.autograd through the custom-VJP solve of
 ops/batched_chol.py.
 
 Ported: the ordering, neighbour search, `_bd`, the NLL with and without the
-profiled nugget (value and gradient), the parameter transforms, and
-prediction with vecchia_pred_type='order_obs_first_cond_obs_only'. Weights,
-cluster_ids, a device mesh, neighbour re-determination and the other
-prediction orderings raise NotImplementedError.
+profiled nugget (value and gradient, the host wrappers of
+models/gaussian_base.py), GLS and gradient coefficient steps for linear
+covariates, the raw closures of the device L-BFGS, and prediction with
+vecchia_pred_type='order_obs_first_cond_obs_only'. As in the reference,
+Fisher scoring and Newton raise here. Weights, cluster_ids, a device mesh,
+neighbour re-determination and the other prediction orderings raise
+NotImplementedError.
 """
 
 import math
@@ -25,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from .gaussian_base import GaussianEngineBase, chol
 from ..ops.batched_chol import cho_solve_batched
 from ..ops.cov_fcts import _safe_sqrt
 
@@ -80,7 +84,7 @@ def nearest_preceding_neighbors(coords, m):
     return idx, mask
 
 
-class VecchiaGaussianEngine:
+class VecchiaGaussianEngine(GaussianEngineBase):
     """Vecchia-approximated Gaussian marginal NLL, gradients and prediction.
 
     Parameters enter as float64 numpy on the host; the engine casts them to
@@ -100,6 +104,8 @@ class VecchiaGaussianEngine:
                              "component")
         comp = components[0]
         self.comp = comp
+        self.components = [comp]
+        self.par_offsets = [0]
         self.n = int(num_data)
         self.dtype = dtype
         self.device = torch.device(device)
@@ -142,11 +148,6 @@ class VecchiaGaussianEngine:
         self._d_ni = torch.as_tensor(d_ni, dtype=dtype, device=dev)
 
     # ------------------------------------------------------------------
-    def _t(self, a):
-        """Host array or scalar -> engine dtype on the engine's device."""
-        return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                               device=self.device).to(self.dtype)
-
     def prep_y(self, y):
         """y in data order (numpy or tensor) -> engine ordering, dtype and
         device."""
@@ -169,6 +170,10 @@ class VecchiaGaussianEngine:
         D = v + 1.0 - torch.sum(A * k_ni, dim=1)
         return A, D
 
+    def _B_apply(self, A, V):
+        """B V for V (n, k): a gather, no scatter."""
+        return V - torch.einsum("nm,nmk->nk", A, V[self._nn_idx])
+
     def _quad_logdet(self, theta_log, y):
         A, D = self._bd(theta_log)
         z = y - torch.sum(A * y[self._nn_idx], dim=1)          # (B y)_i
@@ -187,85 +192,44 @@ class VecchiaGaussianEngine:
         return 0.5 * (logdet + n * torch.log(quad / n) + n
                       + n * math.log(2.0 * math.pi)), quad
 
-    def nll_parts(self, theta_log, sigma2, y):
-        """(nll, quad) as host floats; one host sync."""
-        with torch.no_grad():
-            nll, quad = self._nll_parts(self._t(theta_log), self._t(sigma2), y)
-            nll, quad = torch.stack([nll, quad]).tolist()
-        return nll, quad
+    def _wls(self, theta_log, y, X):
+        """GLS coefficients by X' Psi~^-1 X = (BX)' D^-1 (BX)."""
+        A, D = self._bd(theta_log)
+        U = self._B_apply(A, X)
+        By = self._B_apply(A, y[:, None])[:, 0]
+        Lc = chol(U.T @ (U / D[:, None]))
+        return torch.cholesky_solve((U.T @ (By / D))[:, None], Lc)[:, 0]
 
-    def nll_grad(self, theta_log, sigma2, y):
-        """Gradient of the NLL at fixed sigma2 wrt theta_log, float64 numpy."""
-        th = self._t(theta_log).requires_grad_(True)
-        nll, _ = self._nll_parts(th, self._t(sigma2), y)
-        (g,) = torch.autograd.grad(nll, th)
-        return g.detach().cpu().numpy().astype(np.float64)
+    def _coef_grad(self, theta_log, sigma2, resid, X):
+        A, D = self._bd(theta_log)
+        U = self._B_apply(A, X)
+        Br = self._B_apply(A, resid[:, None])[:, 0]
+        return -(U.T @ (Br / D)) / sigma2
 
-    def nll_profiled_vag(self, theta_log, y):
-        """((nll, quad), grad) of the nugget-profiled NLL: host floats and a
-        float64 numpy gradient wrt theta_log; one host sync."""
-        th = self._t(theta_log).requires_grad_(True)
-        nll, quad = self._nll_profiled(th, y)
-        (g,) = torch.autograd.grad(nll, th)
-        out = torch.cat([torch.stack([nll.detach(), quad.detach()]),
-                         g]).to(torch.float64).cpu().numpy()
-        return (float(out[0]), float(out[1])), out[2:]
+    # the raw differentiable closures for the device L-BFGS (ops/lbfgs.py)
+    nll_profiled_raw = _nll_profiled
+    wls_coef_raw = _wls
 
-    def _orig_to_internal(self, pars_orig):
-        """Differentiable original-scale [sigma2, var, range] ->
-        (theta_log, sigma2) on the nugget-scaled transformed scale."""
-        sigma2 = pars_orig[0]
-        v = pars_orig[1]
-        alpha = self.comp.cov_fn.range_to_transformed_torch(
-            pars_orig[2: 1 + self.num_theta], var=v)
-        return torch.cat([torch.log(v / sigma2)[None], torch.log(alpha)]), \
-            sigma2
+    def hess_full(self, u, y):
+        raise NotImplementedError(
+            "newton is not supported with gp_approx='vecchia' (the batched "
+            "solve has a first-order custom gradient only); use "
+            "gradient_descent or lbfgs")
 
-    def nll_orig_vag(self, log_pars_orig, y):
-        """(nll, grad) wrt log original-scale parameters, host values."""
-        lp = self._t(log_pars_orig).requires_grad_(True)
-        theta_log, sigma2 = self._orig_to_internal(torch.exp(lp))
-        nll, _ = self._nll_parts(theta_log, sigma2, y)
-        (g,) = torch.autograd.grad(nll, lp)
-        return float(nll.detach()), g.cpu().numpy().astype(np.float64)
+    def fisher_transformed(self, u, include_error_var=True):
+        raise NotImplementedError(
+            "fisher_scoring is not supported with gp_approx='vecchia'; use "
+            "gradient_descent or lbfgs")
 
-    # ------------------------------------------------------------------
-    # transforms (host numpy), as in the reference
-    def transform_pars(self, pars_orig):
-        pars_orig = np.asarray(pars_orig, dtype=np.float64)
-        sigma2 = pars_orig[0]
-        out = [sigma2, pars_orig[1] / sigma2]
-        if self.num_theta > 1:
-            out.extend(np.atleast_1d(
-                self.comp.cov_fn.range_to_transformed(pars_orig[2:],
-                                                      var=pars_orig[1])))
-        return np.asarray(out)
-
-    def back_transform_pars(self, pars_internal):
-        t = np.asarray(pars_internal, dtype=np.float64)
-        out = [t[0], t[1] * t[0]]
-        if self.num_theta > 1:
-            out.extend(np.atleast_1d(
-                self.comp.cov_fn.range_from_transformed(t[2:],
-                                                        var=t[1] * t[0])))
-        return np.asarray(out)
-
-    def apply_nugget_lower_bound(self, pars_internal):
-        r = 1e-10
-        orig = self.back_transform_pars(pars_internal)
-        other_var = float(orig[1])                  # the GP variance
-        if not np.isfinite(other_var) or other_var <= 0:
-            return pars_internal
-        nugget_min = r / (1.0 - r) * other_var
-        if np.isfinite(nugget_min) and orig[0] < nugget_min:
-            orig[0] = nugget_min
-            return self.transform_pars(orig)
-        return pars_internal
-
-    def neg_log_likelihood(self, pars_orig, y):
-        """NLL at original-scale parameters for y in data order."""
-        t = self.transform_pars(pars_orig)
-        return self.nll_parts(np.log(t[1:]), t[0], self.prep_y(y))[0]
+    def fisher_original(self, pars_orig):
+        """Standard-error Fisher information: the exact dense one as a
+        proxy up to n = 4,000, NaN above (as the reference)."""
+        if self.n > 4000:
+            return np.full((self.num_cov_par, self.num_cov_par), np.nan)
+        from .gaussian_gp import DenseGaussianEngine
+        return DenseGaussianEngine([self.comp], self.n, dtype=self.dtype,
+                                   device=self.device).fisher_original(
+                                       pars_orig)
 
     # ------------------------------------------------------------------
     def psi_tilde_inv_mat(self, pars_internal, M):
