@@ -71,7 +71,33 @@ Phases; any failure exits non-zero and prints no result line:
      CPU, rtol 1e-4) and n = 5,000;
  14. the headline Vecchia fit (bench.py:231-245, n = 100,000, m = 20,
      float32, lbfgs, maxit 30): it must take the device L-BFGS; iterations,
-     seconds and host syncs, beside the forced scipy path's.
+     seconds and host syncs, beside the forced scipy path's;
+ 15. the binary GLMM at full width: bench.py's grouped_glmm (sim_glmm,
+     n = 100,000, q = 1,000, seed 5, bernoulli_logit, maxit 50) on the
+     grouped Laplace engine's padded mode finder; it must take the device
+     L-BFGS. First fit, then a second after reset_fit: seconds, iterations,
+     host syncs, device busy share (a third fit under torch.profiler) and
+     the variance, held to a CPU fit of the port (variance to rtol 1e-4,
+     iterations equal); the reference library's time from
+     BASELINE_MEASURED.json beside it;
+ 16. a crossed Poisson GLMM at full width (n = 100,000, groupings of 1,000
+     and 100 levels, seed 5): the rows mode finder with a 1,100 x 1,100
+     Cholesky per Newton step; the numbers of phase 15;
+ 17. LaGaBoost at full width: examples/04_non_gaussian.py:40-49 scaled to
+     n = 100,000, q = 1,000 (p = 5, bernoulli_logit, 15 leaves, learning
+     rate 0.1) for 10 rounds, then predict the response for 1,000 new
+     rows, half in unseen groups, whose latent mean must be exactly 0;
+     init-score and first-fit seconds, seconds per round, host syncs of one
+     steady round, device busy share of two more, hist_segment launches
+     (must be positive);
+ 18. the goldens of tests/test_lagaboost_golden.py TestBinaryGrouped
+     (ntrain 1,000, crossed groupings, bernoulli_probit, 30 rounds) at
+     that file's tolerances;
+ 19. card vs CPU: phase 17 at n = 2,000, q = 50 in float64 (trees under
+     phase 5's near-tie rule, covariance parameters to rtol 1e-4,
+     predictions to 1e-4); the dense Laplace engine on a bernoulli_probit
+     exponential GP at n = 500 (card against CPU, rtol 1e-4) and at
+     n = 5,000, timed.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -102,6 +128,13 @@ GROUPED = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
            "min_data_in_leaf": 20, "verbose": 0}
 # the headline Vecchia fit (bench.py:231-245)
 N_VECCHIA, MAXIT_VECCHIA = 100_000, 30
+# the Laplace slice: bench.py's grouped_glmm (bench.py:131-138, :260-276)
+# and examples/04_non_gaussian.py's LaGaBoost at the same scale
+N_GLMM, Q_GLMM, SEED_GLMM, MAXIT_GLMM = 100_000, 1_000, 5, 50
+Q_GLMM2 = 100
+N_LAGA, Q_LAGA, P_LAGA, SEED_LAGA, N_LAGA_CPU, Q_LAGA_CPU = \
+    100_000, 1_000, 5, 10, 2_000, 50
+LAGA = {"learning_rate": 0.1, "num_leaves": 15, "verbose": 0}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
@@ -685,11 +718,13 @@ def _device_busy_s(torch, fn, kernel="hist_"):
     return (busy + hi - lo) * 1e-6, wall, mine
 
 
-def _busy_txt(busy, wall, hist_s):
+def _busy_txt(busy, wall, hist_s=None):
     if busy is None:
         return "not measured (no device events)"
-    return (f"{busy:.4f} s of {wall:.4f} s ({busy / wall:.1%}), of which "
-            f"histogram kernels {hist_s:.4f} s")
+    txt = f"{busy:.4f} s of {wall:.4f} s ({busy / wall:.1%})"
+    if hist_s is None:
+        return txt
+    return txt + f", of which histogram kernels {hist_s:.4f} s"
 
 
 def phase_parallel(torch, gpt, histogram, ds, X, y):
@@ -1151,6 +1186,396 @@ def phase_vecchia_headline(torch, gpt):
           f"{rs.cov_pars.tolist()}", flush=True)
 
 
+def sim_glmm(n, q, seed=SEED_GLMM):
+    """bench.py sim_glmm: a binary response with a random intercept."""
+    rng = np.random.RandomState(seed)
+    g = rng.randint(0, q, n)
+    b = 0.8 * rng.normal(size=q)
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-b[g]))).astype(float)
+    return g, y
+
+
+def sim_crossed_poisson(n, q1, q2, seed=SEED_GLMM):
+    """Counts with two crossed random intercepts."""
+    rng = np.random.RandomState(seed)
+    g = np.column_stack([rng.randint(0, q1, n), rng.randint(0, q2, n)])
+    b1, b2 = 0.6 * rng.normal(size=q1), 0.4 * rng.normal(size=q2)
+    y = rng.poisson(np.exp(0.3 + b1[g[:, 0]] + b2[g[:, 1]])).astype(float)
+    return g, y
+
+
+def sim_lagaboost(n, q, seed=SEED_LAGA):
+    """examples/04_non_gaussian.py:13-16, 40-43 at n rows and q groups."""
+    rng = np.random.RandomState(seed)
+    group = rng.randint(0, q, n)
+    b = rng.randn(q)
+    X = rng.rand(n, P_LAGA)
+    F_true = 2.0 * np.sin(7 * X[:, 0]) + X[:, 1]
+    y = (rng.rand(n) < 1 / (1 + np.exp(-(F_true - 1 + b[group])))).astype(
+        float)
+    return X, group, y
+
+
+def _reference_time(key):
+    """(seconds, iterations, threads) of the reference C++ library from
+    BASELINE_MEASURED.json (bench_reference.py), or None."""
+    try:
+        with open("BASELINE_MEASURED.json") as f:
+            d = json.load(f)
+        w = d["workloads"][key]
+        return w["seconds"], w.get("num_it"), d.get("threads")
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+def _glmm_fits(torch, gpt, what, group, y, likelihood, cpu_check):
+    """A Laplace GLMM on the card: a first fit, a timed second fit after
+    reset_fit with its host syncs, a third under the profiler; optionally
+    the same fit on the CPU. Returns the card's model."""
+    model = gpt.GPModel(group_data=group, likelihood=likelihood,
+                        device="cuda")
+    params = {"maxit": MAXIT_GLMM}
+    t0 = time.perf_counter()
+    model.fit(y=y, params=params)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    model.reset_fit()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(torch, lambda: model.fit(y=y, params=params))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = model._fit_result
+    if r.optimizer != "device_lbfgs":
+        raise AssertionError(f"{what}: the fit took the {r.optimizer} path")
+    cov = model.get_cov_pars()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+        raise AssertionError(f"{what}: cov pars {cov}")
+    model.reset_fit()
+    busy, wall, _ = _device_busy_s(torch, lambda: model.fit(y=y,
+                                                            params=params))
+    steps = model._engine.total_num_mode_it
+    txt = ""
+    if cpu_check:
+        mc = gpt.GPModel(group_data=group, likelihood=likelihood,
+                         device="cpu")
+        t0 = time.perf_counter()
+        mc.fit(y=y, params=params)
+        cpu_s = time.perf_counter() - t0
+        rel = float(np.max(np.abs(cov / mc.get_cov_pars() - 1.0)))
+        if not (rel < 1e-4
+                and mc.get_num_optim_iter() == model.get_num_optim_iter()):
+            raise AssertionError(
+                f"{what}: card {cov} ({model.get_num_optim_iter()} its), "
+                f"cpu {mc.get_cov_pars()} ({mc.get_num_optim_iter()} its)")
+        txt = (f"; CPU fit of the port {cpu_s:.3f} s, "
+               f"{mc.get_num_optim_iter()} iterations, variance max rel "
+               f"diff {rel:.3g}")
+    print(f"[{what}] {likelihood}, first fit {first_s:.3f} s; after "
+          f"reset_fit {secs:.4f} s, {r.num_it} device L-BFGS iterations, "
+          f"{syncs} host syncs; device busy over a third fit: "
+          f"{_busy_txt(busy, wall)} ({steps} Newton steps over the "
+          f"engine's fits); nll {r.neg_log_likelihood:.4f}, cov pars "
+          f"{cov.tolist()}{txt}", flush=True)
+    return model
+
+
+def phase_glmm(torch, gpt):
+    """bench.py's grouped_glmm on the card (the padded mode finder), then
+    a crossed Poisson GLMM (the rows mode finder)."""
+    g, y = sim_glmm(N_GLMM, Q_GLMM)
+    model = _glmm_fits(torch, gpt, f"glmm n={N_GLMM} q={Q_GLMM}", g, y,
+                       "bernoulli_logit", cpu_check=True)
+    if model._engine._padded is None:
+        raise AssertionError("glmm: the padded mode finder did not run")
+    ref = _reference_time("grouped_glmm_bernoulli_n100k_q1k_fit")
+    if ref is not None:
+        print(f"[glmm] the reference C++ library (BASELINE_MEASURED.json, "
+              f"bench_reference.py, {ref[2]} CPU thread(s)): {ref[0]} s, "
+              f"{ref[1]} iterations", flush=True)
+    g2, y2 = sim_crossed_poisson(N_GLMM, Q_GLMM, Q_GLMM2)
+    model = _glmm_fits(torch, gpt, f"glmm crossed n={N_GLMM} "
+                       f"q={Q_GLMM}+{Q_GLMM2}", g2, y2, "poisson",
+                       cpu_check=False)
+    if model._engine._padded is not None \
+            or model._engine.q != Q_GLMM + Q_GLMM2:
+        raise AssertionError("crossed glmm: not the rows mode finder")
+
+
+def _train_lagaboost(torch, gpt, n, q, device, rounds=ROUNDS,
+                     dtype="float64"):
+    """(booster, gp, construction s incl. the init score, first-fit s,
+    per-round s)."""
+    X, group, y = sim_lagaboost(n, q)
+    gp = gpt.GPModel(group_data=group, likelihood="bernoulli_logit",
+                     device=device, dtype=dtype)
+    fit_secs = []
+    fit = gp.fit
+
+    def timed_fit(*args, **kwargs):
+        t = time.perf_counter()
+        out = fit(*args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        fit_secs.append(time.perf_counter() - t)
+        return out
+
+    gp.fit = timed_fit
+    t0 = time.perf_counter()
+    bst = gpt.Booster(LAGA, gpt.Dataset(X, label=y), gp_model=gp,
+                      device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        bst.update()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    secs[0] -= fit_secs[0]
+    return bst, gp, init_s, fit_secs[0], secs
+
+
+def phase_lagaboost(torch, gpt, histogram):
+    """LaGaBoost at full width (n = 100,000, q = 1,000, p = 5) for 10
+    rounds, then the response for 1,000 new rows, half in unseen groups.
+    Returns hist_segment's launches over the 10 rounds."""
+    _reset_launches(histogram)
+    bst, gp, init_s, fit_s, secs = _train_lagaboost(torch, gpt, N_LAGA,
+                                                    Q_LAGA, "cuda")
+    launches = histogram.hist_segment.launches
+    from collections import Counter
+    tree_syncs, sites = [], Counter()
+    train = bst.learner.train
+
+    def counted_train(*args):
+        out, s = _count_syncs(torch, lambda: train(*args), sites)
+        tree_syncs.append(s)
+        return out
+
+    bst.learner.train = counted_train
+    _, syncs = _count_syncs(torch, bst.update, sites)
+    bst.learner.train = train
+    print("[lagaboost] host syncs of round 11 by Python line: " + ", ".join(
+        f"{k} x{v}" for k, v in sites.most_common(12)), flush=True)
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)])
+    Xn, gn = _grouped_new_rows(Q_LAGA, N_PRED)
+    Xn = Xn[:, :P_LAGA]
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, group_data_pred=gn, predict_var=True)
+    latent = bst.predict(Xn, group_data_pred=gn, predict_var=True,
+                         pred_latent=True)
+    pred_s = time.perf_counter() - t0
+    half = N_PRED // 2
+    if not np.array_equal(latent["random_effect_mean"][half:],
+                          np.zeros(N_PRED - half)):
+        raise AssertionError("lagaboost: unseen groups' latent means are "
+                             "not exactly 0")
+    for k in ("response_mean", "response_var"):
+        if pred[k].shape != (N_PRED,) or not np.all(np.isfinite(pred[k])):
+            raise AssertionError(f"lagaboost: prediction {k}")
+    if not (np.all(pred["response_mean"] > 0)
+            and np.all(pred["response_mean"] < 1)):
+        raise AssertionError("lagaboost: probabilities outside (0, 1)")
+    cov = gp.get_cov_pars()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+        raise AssertionError(f"lagaboost: covariance parameters {cov}")
+    if launches <= 0:
+        raise AssertionError(f"lagaboost: {launches} hist_segment launches")
+    print(f"[lagaboost] n={N_LAGA} q={Q_LAGA} p={P_LAGA} bernoulli_logit "
+          f"float64, {ROUNDS} rounds: booster with init score "
+          f"{init_s:.3f} s (init score {bst.init_score:.5f}); first GP fit "
+          f"{fit_s:.3f} s ({gp._fit_result.optimizer}); mean per round "
+          f"{np.mean(secs):.4f} s (min {np.min(secs):.4f}, max "
+          f"{np.max(secs):.4f}); host syncs in round {ROUNDS + 1}: "
+          f"{syncs + tree_syncs[0]} ({tree_syncs[0]} in the tree, {syncs} "
+          f"in the rest); device busy over rounds {ROUNDS + 2}-"
+          f"{ROUNDS + 3}: {_busy_txt(busy, wall, hist_s)}; predict "
+          f"{N_PRED} rows twice {pred_s:.3f} s; cov pars {cov.tolist()}; "
+          f"hist_segment launches over the {ROUNDS} rounds {launches}",
+          flush=True)
+    return launches
+
+
+def phase_lagaboost_goldens(torch, gpt):
+    """tests/test_lagaboost_golden.py TestBinaryGrouped on the card, at
+    that file's tolerances."""
+    from scipy.stats import norm
+    ntrain, n_new, m = 1000, 3, 40
+    n = 2 * ntrain
+    X = np.reshape(lcg_unif(4 * n, 0.2644234), (4, n)).T.copy()
+    X[:, 0] *= 100
+    X[:, 1] = X[:, 1] * np.pi * (560 - 40) + 40 * np.pi
+    X[:, 3] = X[:, 3] * 10 + 1
+    f = np.sqrt(10) * np.arctan(
+        (X[:, 1] * X[:, 2] - 1 / (X[:, 1] * X[:, 3])) / X[:, 0])
+    X = np.column_stack([np.ones(n), X,
+                         np.reshape(lcg_unif(5 * n, 0.6543), (5, n)).T])
+    f = f - f.mean()
+    g1 = np.repeat(np.arange(1, m + 1), ntrain // m).astype(float)
+    g1 = np.concatenate([g1, g1])
+    g1[-n_new:] = 99999
+    g2 = np.tile(np.arange(1, ntrain // m + 1), m).astype(float)
+    g2 = np.concatenate([g2, g2])
+    g2[-n_new:] = 99999
+    _, i1 = np.unique(g1, return_inverse=True)
+    _, i2 = np.unique(g2, return_inverse=True)
+    b1 = np.sqrt(0.6) * norm.ppf(lcg_unif(len(np.unique(g1)), 0.5542))
+    b2 = np.sqrt(0.4) * norm.ppf(lcg_unif(len(np.unique(g2)), 0.82354))
+    eps = b1[i1] + b2[i2]
+    eps = eps - eps.mean()
+    gd = np.column_stack([g1, g2])
+    y = (lcg_unif(n, 0.574) < norm.cdf(f + eps)).astype(float)
+    boost = {"learning_rate": 0.1, "max_depth": 6, "min_data_in_leaf": 5,
+             "verbose": 0}
+    opt = {"optimizer_cov": "gradient_descent", "use_nesterov_acc": False,
+           "delta_rel_conv": 1e-6, "lr_cov": 0.01, "lr_coef": 0.1,
+           "init_cov_pars": [1.0, 1.0],
+           "init_coef_aux_pars_from_iid_model": False}
+
+    def run(params):
+        gp = gpt.GPModel(group_data=gd[:ntrain],
+                         likelihood="bernoulli_probit", device="cuda")
+        gp.set_optim_params(params=opt)
+        bst = gpt.train(params, gpt.Dataset(X[:ntrain], label=y[:ntrain]),
+                        num_boost_round=30, gp_model=gp, device="cuda")
+        return gp, bst
+
+    t0 = time.perf_counter()
+    gp, bst = run({**boost, "objective": "binary"})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cp = np.asarray(gp.get_cov_pars()).ravel()
+    nll = gp.get_current_neg_log_likelihood()
+    errs = []
+    if not np.sum(np.abs(cp - [0.4578282, 0.3456973])) < 0.05:
+        errs.append(f"cov pars {cp}")
+    if not abs(nll - 372.1352713) < 10:
+        errs.append(f"nll {nll}")
+    pred = bst.predict(X[ntrain:], group_data_pred=gd[ntrain:],
+                       predict_var=True, pred_latent=True)
+    d_fe = np.sum(np.abs(pred["fixed_effect"][:4] - [
+        0.51189335, -0.05534681, 1.01832308, 0.82839003]))
+    d_re = np.sum(np.abs(pred["random_effect_mean"][-6:] - [
+        -1.122524, -1.070761, -1.239508, 0, 0, 0]))
+    d_rv = np.sum(np.abs(pred["random_effect_cov"][-6:] - [
+        0.1291345, 0.1285406, 0.1291397, 0.8035255, 0.8035255, 0.8035255]))
+    if not (d_fe < 0.5 and d_re < 0.12 and d_rv < 0.05):
+        errs.append(f"latent prediction {d_fe}, {d_re}, {d_rv}")
+    if not np.array_equal(pred["random_effect_mean"][-3:], np.zeros(3)):
+        errs.append("new groups' latent means not exactly 0")
+    pred = bst.predict(X[ntrain:], group_data_pred=gd[ntrain:],
+                       predict_var=True, pred_latent=False)
+    d_m = np.sum(np.abs(pred["response_mean"][-4:] - [
+        0.01602001, 0.63412570, 0.20171037, 0.62036433]))
+    d_v = np.sum(np.abs(pred["response_var"][-4:] - [
+        0.01576337, 0.23201030, 0.16102330, 0.23551243]))
+    if not (d_m < 0.12 and d_v < 0.06):
+        errs.append(f"response prediction {d_m}, {d_v}")
+    gp2, bst2 = run(dict(boost))         # the objective from the GP model
+    cp2 = np.asarray(gp2.get_cov_pars()).ravel()
+    if not (np.sum(np.abs(cp2 - [0.4578282, 0.3456973])) < 0.05
+            and bst2.objective_name == "bernoulli_probit"):
+        errs.append(f"inferred objective: {bst2.objective_name}, {cp2}")
+    gp3 = gpt.GPModel(group_data=gd[:ntrain], likelihood="bernoulli_probit",
+                      device="cuda")
+    gp3.set_optim_params(params={"maxit": 2,
+                                 "optimizer_cov": "fisher_scoring"})
+    try:
+        gpt.train({**boost, "objective": "binary"},
+                  gpt.Dataset(X[:ntrain], label=y[:ntrain]),
+                  num_boost_round=1, gp_model=gp3, device="cuda")
+        errs.append("fisher_scoring was not rejected")
+    except ValueError:
+        pass
+    if errs:
+        raise AssertionError("lagaboost goldens: " + "; ".join(errs))
+    print(f"[lagaboost-goldens] ntrain={ntrain}, 30 rounds in {secs:.2f} s: "
+          f"cov pars {cp.tolist()} (golden [0.4578282, 0.3456973]), nll "
+          f"{nll:.4f} (golden 372.1352713); latent |diff| sums fe {d_fe:.3g}"
+          f", re {d_re:.3g}, var {d_rv:.3g}; response {d_m:.3g}, {d_v:.3g}; "
+          "objective inferred, fisher_scoring rejected", flush=True)
+
+
+def phase_laplace_card_vs_cpu(torch, gpt):
+    """LaGaBoost at n = 2,000, q = 50 in float64, card against CPU; the
+    dense Laplace engine on a bernoulli_probit exponential GP at n = 500
+    (card against CPU) and n = 5,000."""
+    runs = {dev: _train_lagaboost(torch, gpt, N_LAGA_CPU, Q_LAGA_CPU, dev)
+            for dev in ("cuda", "cpu")}
+    (bg, gg, _, _, sg), (bc, gc, _, _, sc) = runs["cuda"], runs["cpu"]
+    res = _compare_models("lagaboost card-vs-cpu", bc, bg)
+    cg, cc = gg.get_cov_pars(), gc.get_cov_pars()
+    cov_rel = float(np.max(np.abs(cg / cc - 1.0)))
+    if not cov_rel < 1e-4:
+        raise AssertionError(f"lagaboost cov pars card {cg} cpu {cc}")
+    k = next((t for t, (a, b) in enumerate(zip(bc.trees, bg.trees))
+              if [r[:3] for r in _split_records(a)]
+              != [r[:3] for r in _split_records(b)]), len(bc.trees))
+    Xn, gn = _grouped_new_rows(Q_LAGA_CPU, 200)
+    Xn = Xn[:, :P_LAGA]
+    # a near tie moves the fixed effect of new rows from that tree on, so
+    # the response is compared only when every split agrees
+    checks = [(True, ("random_effect_mean", "random_effect_var"))]
+    if k == len(bc.trees):
+        checks.append((False, ("response_mean", "response_var")))
+    errs = {}
+    for latent, keys in checks:
+        pg = bg.predict(Xn, group_data_pred=gn, predict_var=True,
+                        pred_latent=latent)
+        pc = bc.predict(Xn, group_data_pred=gn, predict_var=True,
+                        pred_latent=latent)
+        for key in keys:
+            errs[key] = float(np.max(np.abs(pg[key] - pc[key])))
+    errs["training score"] = float((bg.F.cpu() - bc.F).abs().max())
+    if not max(errs.values()) < 1e-4:
+        raise AssertionError(f"lagaboost card vs CPU: max |diff| {errs}")
+    print(f"[lagaboost card-vs-cpu] n={N_LAGA_CPU} q={Q_LAGA_CPU} float64 "
+          f"{ROUNDS} rounds: trees {res}; cov pars max rel diff "
+          f"{cov_rel:.3g}; max |diff| "
+          + ", ".join(f"{key} {v:.3g}" for key, v in errs.items())
+          + f"; rounds card {sum(sg):.3f} s, cpu {sum(sc):.3f} s",
+          flush=True)
+    from scipy.stats import norm
+    for ng in (500, 5_000):
+        coords, f = sim_vecchia(ng, seed=SEED)
+        rng = np.random.RandomState(SEED)
+        y = (rng.rand(ng) < norm.cdf(f)).astype(float)
+        fits = {}
+        for dev in ("cuda", "cpu") if ng == 500 else ("cuda",):
+            gm = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                             likelihood="bernoulli_probit", device=dev)
+            t0 = time.perf_counter()
+            gm.fit(y=y)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            fits[dev] = (gm, time.perf_counter() - t0)
+        gm, secs = fits["cuda"]
+        cov = gm.get_cov_pars()
+        if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+            raise AssertionError(f"dense Laplace n={ng}: cov pars {cov}")
+        txt = ""
+        if "cpu" in fits:
+            gc_ = fits["cpu"][0]
+            rel = float(np.max(np.abs(cov / gc_.get_cov_pars() - 1.0)))
+            if not rel < 1e-4:
+                raise AssertionError(f"dense Laplace n={ng}: card {cov} "
+                                     f"cpu {gc_.get_cov_pars()}")
+            txt = (f"; against the CPU max rel diff {rel:.3g} "
+                   f"({gc_.get_num_optim_iter()} iterations there)")
+        pred = gm.predict(gp_coords_pred=coords[:50] + 0.005,
+                          predict_var=True)
+        if not (np.all(pred["mu"] > 0) and np.all(pred["mu"] < 1)):
+            raise AssertionError(f"dense Laplace n={ng}: predictions")
+        print(f"[dense-laplace] n={ng} bernoulli_probit exponential float64:"
+              f" fit {secs:.3f} s, {gm.get_num_optim_iter()} iterations "
+              f"({gm._fit_result.optimizer}), "
+              f"{gm._engine.total_num_mode_it} Newton steps; cov "
+              f"pars {cov.tolist()}{txt}", flush=True)
+
+
 def main():
     import torch
     import gpboost_tpu_torch as gpt
@@ -1184,6 +1609,14 @@ def main():
     phase_grouped_card_vs_cpu(torch, gpt)
     phase_gaussian_fits(torch, gpt)
     phase_vecchia_headline(torch, gpt)
+    t_laplace = time.perf_counter()
+    phase_glmm(torch, gpt)
+    segment["launches_lagaboost_n100k"] = phase_lagaboost(torch, gpt,
+                                                          histogram)
+    phase_lagaboost_goldens(torch, gpt)
+    phase_laplace_card_vs_cpu(torch, gpt)
+    print(f"[laplace] phases 15-19 in {time.perf_counter() - t_laplace:.1f} "
+          "s", flush=True)
     print(json.dumps({"kernels": [segment, masked, block]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

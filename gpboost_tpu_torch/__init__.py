@@ -15,6 +15,16 @@ GPBoost algorithm:
                     gpt.Dataset(X, label=y), num_boost_round=100, gp_model=gp)
     pred = bst.predict(X_new, gp_coords_pred=coords_new)
 
+Non-Gaussian likelihoods (binary, counts, positive and bounded responses,
+Student-t, quantile; likelihoods/base.py) fit by the Laplace approximation
+with grouped random effects or one exact GP, alone and inside boosting
+(LaGaBoost, the objective taken from the GP model):
+
+    glmm = gpt.GPModel(group_data=group, likelihood="bernoulli_logit")
+    bst = gpt.train({"num_leaves": 15}, gpt.Dataset(X, label=y),
+                    num_boost_round=100, gp_model=glmm)
+    prob = bst.predict(X_new, group_data_pred=group_new)["response_mean"]
+
 Plain Gaussian regression boosting (gp_model=None) also trains over a
 torch.distributed group with the data-, feature- and voting-parallel tree
 learners; `spawn_train` starts the local ranks from one process:

@@ -1,20 +1,28 @@
-"""Booster for Gaussian regression boosting, alone or with a Gaussian GP
-model (the GPBoost algorithm); counterpart of gpboost_tpu/boosting/gbdt.py,
-host-loop path.
+"""Booster for Gaussian regression boosting, alone or with a GP model (the
+GPBoost algorithm), and for non-Gaussian likelihoods with a GP model
+(LaGaBoost); counterpart of gpboost_tpu/boosting/gbdt.py, host-loop path.
 
 One boosting round (gbdt.cpp:412 TrainOneIter with the GP hooks):
 
   1. gradients at the current score F: without a GP model grad = F - y
-     (gbdt.py:954-960); with one, those of the Gaussian marginal NLL,
+     (gbdt.py:954-960); with a Gaussian one, those of the marginal NLL,
      grad = Psi~^-1 (F - y) / sigma2 through the GP model's engine (dense,
-     Woodbury or Vecchia); hess = 1;
+     Woodbury or Vecchia); with a non-Gaussian one, the gradient in F of
+     the Laplace-approximated NLL at the current mode (gbdt.py:1127-1139);
+     hess = 1;
   2. one leaf-wise tree on them (tree_learner.py, histogram kernels);
      with leaves_newton_update the leaf values are re-solved by GLS, with
      line_search_step_length the tree is scaled by the 1-D GLS optimum;
   3. F += learning_rate * tree output;
   4. with a GP model, the covariance parameters are refitted on the new
-     residuals: a full fit with the GP model's optimizer settings in the
-     first round, warm-started Nesterov GD after.
+     residuals (Gaussian) or at the new F (non-Gaussian): a full fit with
+     the GP model's optimizer settings in the first round, warm-started
+     Nesterov GD after.
+
+The objective of LaGaBoost is the GP model's likelihood, whatever the
+`objective` parameter says (gbdt.py:647); its init score is the
+intercept-only Laplace fit at the initial covariance parameters
+(gbdt.py:857-887, FindInitialValueBoosting).
 
 Boosting without a GP model can grow its trees over a torch.distributed
 group (num_parallel_devices = the group's size, tree_learner data, feature
@@ -27,8 +35,8 @@ The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is each engine's
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
 `train` always runs the host loop. Nesterov-accelerated boosting,
 DART/GOSS/RF, sampling, a GP model together with a parallel tree learner,
-and every objective other than Gaussian regression raise
-NotImplementedError.
+and every objective other than Gaussian regression without a non-Gaussian
+GP model raise NotImplementedError.
 """
 
 import numpy as np
@@ -36,7 +44,7 @@ import torch
 
 from .tree import Tree
 from .tree_learner import SerialTreeLearner
-from ..models.jit_gd import gd_fit_engine
+from ..models.jit_gd import gd_fit_engine, gd_fit_laplace_engine
 from ..parallel.group import default_group
 from ..utils.device import resolve_device
 
@@ -91,7 +99,9 @@ _PARAM_ALIASES = {
 }
 
 
-def _parse_params(raw):
+def _parse_params(raw, laplace=False):
+    """The booster's parameters; laplace: a non-Gaussian GP model sets the
+    objective, so any `objective` passes."""
     p = dict(_BOOST_PARAM_DEFAULTS)
     for k, v in (raw or {}).items():
         p[_PARAM_ALIASES.get(k, k)] = v
@@ -100,7 +110,7 @@ def _parse_params(raw):
     if changed:
         raise NotImplementedError("not ported yet: " + ", ".join(
             f"{k}={p[k]!r}" for k in changed))
-    if _OBJ_ALIASES.get(p["objective"]) != "gaussian":
+    if not laplace and _OBJ_ALIASES.get(p["objective"]) != "gaussian":
         raise NotImplementedError(
             f"objective '{p['objective']}' is not ported yet (Gaussian "
             "regression only)")
@@ -111,17 +121,16 @@ def _parse_params(raw):
 
 class Booster:
     """Tree-boosting model for Gaussian regression, alone or combined with
-    a Gaussian GPModel (basic.py:2315 Booster)."""
+    a GPModel, and for a non-Gaussian GPModel's likelihood (basic.py:2315
+    Booster)."""
 
     def __init__(self, params=None, train_set=None, gp_model=None,
                  model_dict=None, device=None):
         if model_dict is not None:
             self._load(model_dict, device)
             return
-        if gp_model is not None and gp_model.likelihood != "gaussian":
-            raise NotImplementedError(
-                "the port boosts with a Gaussian GPModel only")
-        self.params = _parse_params(params)
+        laplace = gp_model is not None and gp_model.likelihood != "gaussian"
+        self.params = _parse_params(params, laplace)
         p = self.params
         if gp_model is not None:
             if int(p["num_parallel_devices"] or 1) > 1:
@@ -140,7 +149,7 @@ class Booster:
         y = train_set.get_label()
         if y is None:
             raise ValueError("train_set has no label")
-        self.objective_name = "gaussian"
+        self.objective_name = gp_model.likelihood if laplace else "gaussian"
         self.learner = SerialTreeLearner(
             train_set, num_leaves=int(p["num_leaves"]),
             max_depth=int(p["max_depth"]),
@@ -152,10 +161,17 @@ class Booster:
             parallel_mode=_TREE_LEARNERS[str(p["tree_learner"])],
             top_k=int(p["top_k"]), group=group)
         self.trees = []
-        # BoostFromScore for Gaussian regression, with or without a GP
-        # model: the response mean over all rows (regression_objective.hpp:
-        # 239-283)
-        self.init_score = float(np.mean(y))
+        if laplace:
+            # the intercept-only Laplace fit, from the closed-form
+            # intercept (FindInitialValueBoosting, re_model.cpp:634-690)
+            c0 = gp_model._likelihood_obj.init_intercept(
+                np.asarray(y, dtype=np.float64), self._gp_total_re_var(y))
+            self.init_score = self._find_init_score_gp(y, c0)
+        else:
+            # BoostFromScore for Gaussian regression, with or without a
+            # GP model: the response mean over all rows
+            # (regression_objective.hpp:239-283)
+            self.init_score = float(np.mean(y))
         # the score and labels of the rows this rank's learner holds
         self.y = torch.as_tensor(
             np.asarray(y, dtype=np.float64)[self.learner.rows],
@@ -168,6 +184,48 @@ class Booster:
         self.current_iteration_ = 0
 
     # ------------------------------------------------------------------
+    def _gp_init_cov_pars(self, y):
+        gp = self.gp_model
+        init = gp.params.init_cov_pars
+        if init is None:
+            init = gp._default_init_cov_pars(y)
+        return np.asarray(init, dtype=np.float64)
+
+    def _gp_total_re_var(self, y):
+        """Total variance of the random effects at the GP model's initial
+        covariance parameters (GetTotalVarComps, re_model_template.h:1240):
+        the rand_eff_var of the closed-form initial intercept."""
+        pars = self._gp_init_cov_pars(y)
+        tot = sum(float(pars[off]) for off in self.gp_model._engine.par_offsets)
+        return max(tot, 1e-10)
+
+    def _find_init_score_gp(self, y, c0):
+        """The intercept-only ML fit of the Laplace marginal likelihood at
+        the initial covariance and aux parameters (gbdt.py:857-887):
+        L-BFGS-B over one intercept, the mode warm-started."""
+        from scipy.optimize import minimize
+        from ..models.optimize import OptimConfig, _laplace_u0
+        gp = self.gp_model
+        eng = gp._engine
+        cfg = OptimConfig(**{**gp.params.__dict__,
+                             "init_cov_pars": self._gp_init_cov_pars(y)})
+        u = _laplace_u0(eng, y, cfg)
+        yd = eng.prep_y(gp._likelihood_obj.check_y(y))
+        state = {"a": eng.zero_mode()}
+        n = len(y)
+
+        def fun(c):
+            nll, _, gF, a = eng.laplace_vag_F(u, yd, np.full(n, float(c[0])),
+                                              state["a"])
+            state["a"] = a
+            if not np.isfinite(nll):
+                return 1e30, np.zeros(1)
+            return float(nll), np.asarray([gF.sum()])
+
+        r = minimize(fun, np.asarray([c0], dtype=np.float64), jac=True,
+                     method="L-BFGS-B", options={"maxiter": 50})
+        return float(r.x[0]) if np.all(np.isfinite(r.x)) else float(c0)
+
     def _gradients(self):
         """(grad, hess) at the current score F, as device tensors."""
         if self.gp_model is None:
@@ -178,6 +236,14 @@ class Booster:
             self._refit_gp_cov()
         gp = self.gp_model
         eng = gp._engine
+        if gp._likelihood_obj is not None:
+            # LaGaBoost: the gradient in F of the Laplace marginal NLL
+            r = gp._fit_result
+            u = eng._u_from_pars(r.cov_pars, r.aux_pars, gp.y)
+            a = r.mode_state if r.mode_state is not None \
+                else eng.zero_mode()
+            _, _, gF, _ = eng.vag_F_device(u, self.y, self.F, a)
+            return gF, torch.ones_like(gF)
         # grad = Sigma^-1 (F - y) = Psi~^-1 resid / sigma2 on the
         # nugget-scaled parameterization (re_model_template.h:9691)
         t = eng.transform_pars(gp._fit_result.cov_pars)
@@ -191,6 +257,10 @@ class Booster:
         the warm-started GD from the previous optimum
         (reuse_learning_rates_gp_model, config.h:181)."""
         gp = self.gp_model
+        if gp._likelihood_obj is not None:
+            self._refit_laplace()
+            self._gp_refit_iter = self.current_iteration_
+            return
         resid = self.F - self.y
         if self.params["train_gp_model_cov_pars"]:
             if self._gp_init_pars is None:
@@ -211,6 +281,41 @@ class Booster:
             gp.fit(y=resid)
             self._gp_init_pars = gp._fit_result.cov_pars
         self._gp_refit_iter = self.current_iteration_
+
+    def _refit_laplace(self):
+        """The non-Gaussian refit at the current F (gbdt.py:1181-1227): a
+        full fit with the GP model's own settings the first time (or
+        whenever the fast path does not apply), then the warm-started GD
+        refit of the parameters and the mode, with the learning rate
+        restarted at its default each round."""
+        gp = self.gp_model
+        if not (self.params["train_gp_model_cov_pars"]
+                or not gp.model_has_been_fitted):
+            return
+        eng = gp._engine
+        if gp.model_has_been_fitted and gp.X is None:
+            r = gp._fit_result
+            a0 = r.mode_state if r.mode_state is not None \
+                else eng.zero_mode()
+            lr0 = float(gp.params.lr_cov) if gp.params.lr_cov > 0 else 0.1
+            pars, aux, nll, _, _, a = gd_fit_laplace_engine(
+                eng, r.cov_pars, r.aux_pars if eng.num_aux else None,
+                self.y, self.F, a0, lr0=lr0,
+                max_iter=int(self.params["maxit_gp"]),
+                est_aux=bool(gp.params.estimate_aux_pars))
+            r.cov_pars = pars
+            if aux is not None:
+                r.aux_pars = aux
+            r.neg_log_likelihood = nll
+            r.mode_state = a
+            self._gp_init_pars = pars
+        else:
+            fp = {}
+            if self._gp_init_pars is not None:
+                fp["init_cov_pars"] = self._gp_init_pars
+            gp.fit(y=self.y.cpu().numpy(), offset=self.F.cpu().numpy(),
+                   params=fp)
+            self._gp_init_pars = gp._fit_result.cov_pars
 
     def _newton_leaf_values(self, tree, slot_of_row, leaf_value_of_slot):
         """Joint GLS re-solve of the leaf values given the tree's
@@ -252,7 +357,8 @@ class Booster:
         """One boosting iteration (gbdt.cpp:412 TrainOneIter)."""
         grad, hess = self._gradients()
         tree, slot_of_row, leaf_value_of_slot = self.learner.train(grad, hess)
-        if self.gp_model is not None:
+        if self.gp_model is not None \
+                and self.gp_model._likelihood_obj is None:
             if self.params["leaves_newton_update"]:
                 self._newton_leaf_values(tree, slot_of_row,
                                          leaf_value_of_slot)
@@ -289,6 +395,11 @@ class Booster:
         F_pred = F_pred + self.init_score
         if self.gp_model is None:
             return F_pred
+        if self.gp_model._likelihood_obj is not None:
+            return self._predict_laplace(
+                F_pred, group_data_pred, group_rand_coef_data_pred,
+                gp_coords_pred, cluster_ids_pred, predict_var,
+                predict_cov_mat, pred_latent, cov_pars)
         resid = (self.y - self.F).cpu().numpy()
         pred = self.gp_model.predict(
             y=resid, group_data_pred=group_data_pred,
@@ -305,12 +416,39 @@ class Booster:
             out["response_var"] = pred["var"]
         return out
 
+    def _predict_laplace(self, F_pred, group_data_pred,
+                         group_rand_coef_data_pred, gp_coords_pred,
+                         cluster_ids_pred, predict_var, predict_cov_mat,
+                         pred_latent, cov_pars):
+        """LaGaBoost predictions (gbdt.py:2126-2150): random_effect_mean is
+        the latent random effect without the trees; the ensemble enters
+        the response predictions as fixed_effects_pred."""
+        pred = self.gp_model.predict(
+            y=self.y.cpu().numpy(), offset=self.F.cpu().numpy(),
+            group_data_pred=group_data_pred,
+            group_rand_coef_data_pred=group_rand_coef_data_pred,
+            gp_coords_pred=gp_coords_pred, cluster_ids_pred=cluster_ids_pred,
+            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
+            predict_response=not pred_latent, cov_pars=cov_pars,
+            fixed_effects_pred=None if pred_latent else F_pred)
+        out = {"fixed_effect": F_pred, "random_effect_mean": pred["mu"],
+               "random_effect_cov": pred["cov"] if predict_cov_mat
+               else pred["var"],
+               "random_effect_var": pred["var"]}
+        if not pred_latent:
+            out["response_mean"] = pred["mu"]
+            out["response_var"] = pred["var"]
+        return out
+
     def predict_training_data_random_effects(self, predict_var=False):
         """The random effects at the training points with the current
         ensemble as fixed effects (basic.py:3407; gbdt.py:2155)."""
         if self.gp_model is None:
             raise ValueError("predict_training_data_random_effects: "
                              "Booster has no gp_model")
+        if self.gp_model._likelihood_obj is not None:
+            return self.gp_model.predict_training_data_random_effects(
+                predict_var=predict_var, offset=self.F.cpu().numpy())
         # the Gaussian hook works on residuals: refresh them to the current
         # ensemble
         self.gp_model.y = (self.y - self.F).cpu().numpy()
@@ -332,7 +470,9 @@ class Booster:
         }
         if self.gp_model is not None and self.gp_model.model_has_been_fitted:
             d["gp_model"] = self.gp_model.model_to_dict()
-            d["residual_or_y"] = (self.y - self.F).cpu().numpy().tolist()
+            d["residual_or_y"] = (
+                self.y if self.gp_model._likelihood_obj is not None
+                else self.y - self.F).cpu().numpy().tolist()
             d["fixed_effect_train"] = self.F.cpu().numpy().tolist()
         return d
 
@@ -344,7 +484,9 @@ class Booster:
                                    "binary_label_weights") if d.get(k)]
         if int(d.get("num_sets", 1)) != 1:
             unsupported.append("num_sets")
-        if d["objective"] != "gaussian":
+        laplace = bool(d.get("has_gp_model")) \
+            and d["gp_model"]["likelihood"] not in ("gaussian", "regression")
+        if d["objective"] != "gaussian" and not laplace:
             unsupported.append(f"objective '{d['objective']}'")
         if unsupported:
             raise NotImplementedError(
@@ -363,7 +505,9 @@ class Booster:
             return
         self.gp_model = GPModel(model_dict=d["gp_model"], device=self.device)
         F = np.asarray(d["fixed_effect_train"], dtype=np.float64)
-        y = F + np.asarray(d["residual_or_y"], dtype=np.float64)
+        y = np.asarray(d["residual_or_y"], dtype=np.float64)
+        if not laplace:
+            y = F + y
         self.F = torch.as_tensor(F, device=self.device)
         self.y = torch.as_tensor(y, device=self.device)
         self.n = len(F)

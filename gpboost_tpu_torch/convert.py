@@ -1,11 +1,12 @@
 """Carry a model trained by the JAX package over to the port.
 
 The JAX package's `GPModel.model_to_dict()` and `Booster.model_to_dict()`
-return plain numpy/JSON values: the covariance parameters and coefficients,
-the model-defining data (grouping variables, slopes, coordinates, cluster
-ids, covariates, the Vecchia ordering seed and neighbour count), the
-response, and for a booster the trees, the init score and the training
-residuals. The port reads the same schema, so no array crosses between the
+return plain numpy/JSON values: the likelihood with its additional
+parameter, the covariance, aux and coefficient estimates, the
+model-defining data (grouping variables, slopes, coordinates, cluster ids,
+observation weights, covariates, the Vecchia ordering seed and neighbour
+count), the response, and for a booster the trees, the init score, the
+training score and the training residuals (the labels for LaGaBoost). The port reads the same schema, so no array crosses between the
 frameworks: the port rebuilds every engine from that data, as the reference
 did. The port's own dicts load in the JAX package the same way.
 """
@@ -18,8 +19,9 @@ def gp_model_from_jax_dict(d, device=None):
     """The port's GPModel from a JAX `GPModel.model_to_dict()`, ready to
     `predict` on `device` (default: the first CUDA card). Gaussian models
     with grouped random effects, an exact GP (alone or with grouped random
-    effects) or a Vecchia GP are ported; any other model raises
-    NotImplementedError."""
+    effects) or a Vecchia GP, and models of the 16 likelihoods of
+    likelihoods/base.py with grouped random effects or one exact GP, are
+    ported; any other model raises NotImplementedError."""
     return GPModel(model_dict=d, device=device)
 
 
@@ -28,6 +30,7 @@ def booster_from_jax_dict(d, device=None):
     ready to `predict` on `device` (default: the first CUDA card). The
     GPModel is None for a booster trained without one. Gaussian regression
     boosting, alone or with a GP model that `gp_model_from_jax_dict`
-    loads, is ported so far; any other model raises NotImplementedError."""
+    loads, and LaGaBoost with such a non-Gaussian GP model are ported so
+    far; any other model raises NotImplementedError."""
     booster = Booster(model_dict=d, device=device)
     return booster, booster.gp_model

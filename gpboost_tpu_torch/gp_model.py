@@ -1,5 +1,5 @@
-"""GPModel — the Gaussian mixed-effects and Gaussian-process façade of the
-PyTorch port (counterpart of gpboost_tpu/gp_model.py).
+"""GPModel — the mixed-effects and Gaussian-process façade of the PyTorch
+port (counterpart of gpboost_tpu/gp_model.py).
 
 Ported, for the Gaussian likelihood, with the engine the reference picks
 (gp_model.py:497-519):
@@ -13,16 +13,31 @@ Ported, for the Gaussian likelihood, with the engine the reference picks
   * gp_approx="vecchia" with one isotropic GP: the Vecchia engine
     (models/vecchia.py).
 
+For the 16 likelihoods of likelihoods/base.py (bernoulli_probit /
+_logit, binomial, poisson, gamma, negative_binomial(_1), beta, t,
+t_fix_df, lognormal, tweedie(_fixed_p), asymmetric_laplace,
+gaussian_latent; gp_model.py:468-495), by the Laplace approximation:
+
+  * grouped random effects only: models/grouped_laplace.py, with slopes,
+    crossed groupings, cluster_ids and observation weights;
+  * one GP, gp_approx="none": the dense engine of models/laplace.py,
+    with observation weights.
+
 GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
 every optimizer of models/optimize.py (gradient descent, Fisher scoring,
-Newton, L-BFGS on the host or on the device, Nelder-Mead), with linear
-covariates `fit(y, X)`, fixed parameters and standard errors. Prediction
-takes group_data_pred, group_rand_coef_data_pred, gp_coords_pred, X_pred
-and cluster_ids_pred; `model_to_dict` writes the reference's state dict and
-a dict of either package loads here. Other likelihoods and approximations,
-GP random coefficients, weights, the dense engine's cluster_ids, the
-iterative Woodbury branch (chosen automatically from q > 20,000) and
-posterior sampling raise NotImplementedError.
+Newton, L-BFGS on the host or on the device, Nelder-Mead; for the Laplace
+engines gradient descent, L-BFGS and Nelder-Mead), with linear covariates
+`fit(y, X)`, fixed parameters, standard errors (Gaussian) and aux
+parameters. Prediction takes group_data_pred, group_rand_coef_data_pred,
+gp_coords_pred, X_pred and cluster_ids_pred, with the response's mean and
+variance (predict_response) for the non-Gaussian likelihoods;
+`model_to_dict` writes the reference's state dict and a dict of either
+package loads here. The likelihoods of likelihoods/families.py, other
+approximations, a GP combined with grouped effects for a non-Gaussian
+likelihood, GP random coefficients, weights with the Gaussian likelihood,
+the dense engines' cluster_ids, the iterative Woodbury branch (chosen
+automatically from q > 20,000) and posterior sampling raise
+NotImplementedError.
 
 device: where the engine's tensors live (default: the first CUDA card; it
 raises without one, and the CPU runs only when device="cpu" is passed).
@@ -33,10 +48,14 @@ dtype: the engine's float type, "float64" (default, as the reference) or
 import numpy as np
 import torch
 
+from .likelihoods.base import _ALIASES as _LIK_ALIASES, get_likelihood
 from .models.components import GPComponent, GroupedComponent
 from .models.gaussian_gp import DenseGaussianEngine
+from .models.grouped_laplace import GroupedRELaplaceEngine
 from .models.grouped_re import WoodburyGaussianEngine
-from .models.optimize import OptimConfig, OptimResult, optimize_gaussian
+from .models.laplace import LaplaceDenseEngine
+from .models.optimize import (OptimConfig, OptimResult, optimize_gaussian,
+                              optimize_laplace)
 from .models.vecchia import VecchiaGaussianEngine
 from .ops.cov_fcts import CovarianceFunction
 from .ops.distances import pairwise_dist
@@ -45,7 +64,7 @@ from .utils.device import resolve_device, resolve_dtype
 _OPTIM_PARAM_KEYS = set(OptimConfig.__dataclass_fields__) | {
     "init_coef",
     # accepted, without effect, as in the reference
-    "trace", "init_aux_pars", "estimate_aux_pars", "cg_max_num_it",
+    "trace", "cg_max_num_it",
     "cg_max_num_it_tridiag", "cg_delta_conv", "cg_preconditioner_type",
     "num_rand_vec_trace", "reuse_rand_vec_trace", "seed_rand_vec_trace",
     "piv_chol_rank", "init_coef_aux_pars_from_iid_model", "nsim_var_pred",
@@ -54,8 +73,9 @@ _WOODBURY_MAX_Q = 20000
 
 
 class GPModel:
-    """Gaussian mixed-effects / Gaussian-process model y = F + Zb + xi
-    (basic.py:4172 GPModel, Gaussian branches)."""
+    """Mixed-effects / Gaussian-process model, y = F + Zb + xi for the
+    Gaussian likelihood, y ~ p(y | F + Zb) otherwise (basic.py:4172
+    GPModel)."""
 
     def __init__(self,
                  likelihood="gaussian",
@@ -78,21 +98,33 @@ class GPModel:
                  model_file=None,
                  model_dict=None,
                  dtype="float64",
-                 device=None):
+                 device=None,
+                 likelihood_additional_param=None):
         self.device = resolve_device(device)
         if model_file is not None or model_dict is not None:
             self._init_from_dict(model_file, model_dict)
             return
-        if likelihood not in ("gaussian", "regression"):
-            raise NotImplementedError(
-                f"likelihood '{likelihood}' is not ported yet (gaussian only)")
+        # pure-name aliases first, so that e.g. "regression" selects the
+        # Gaussian engines (ParseLikelihoodAlias, likelihoods.h:10210)
+        likelihood = _LIK_ALIASES.get(likelihood, likelihood)
+        self._likelihood_obj = None
+        if likelihood != "gaussian":
+            self._likelihood_obj = get_likelihood(
+                likelihood, likelihood_additional_param)
+            if gp_approx != "none":
+                raise NotImplementedError(
+                    f"gp_approx '{gp_approx}' with likelihood "
+                    f"'{likelihood}' (Vecchia- and FITC-Laplace) is not "
+                    "ported yet")
         if gp_approx not in ("none", "vecchia"):
             raise NotImplementedError(
                 f"gp_approx '{gp_approx}' is not ported yet ('none', "
                 "'vecchia')")
         unsupported = [nm for nm, v in (
-            ("gp_rand_coef_data", gp_rand_coef_data), ("weights", weights),
+            ("gp_rand_coef_data", gp_rand_coef_data),
             ("num_parallel_devices", num_parallel_devices)) if v is not None]
+        if weights is not None and likelihood == "gaussian":
+            unsupported.append("weights (Gaussian likelihood)")
         if drop_intercept_group_rand_effect is not None \
                 and np.any(drop_intercept_group_rand_effect):
             unsupported.append("drop_intercept_group_rand_effect")
@@ -103,7 +135,11 @@ class GPModel:
             raise ValueError("Both group_data and gp_coords are None. "
                              "Provide at least one random effect.")
         self._dtype = resolve_dtype(dtype)
-        self.likelihood = "gaussian"
+        self.likelihood = likelihood
+        self.likelihood_additional_param = likelihood_additional_param
+        self.weights = None if weights is None \
+            else np.asarray(weights, dtype=np.float64)
+        self._aux_override = None
         self.gp_approx = gp_approx
         self.cov_function_name = cov_function
         self.cov_fct_shape = cov_fct_shape
@@ -114,7 +150,7 @@ class GPModel:
         self.vecchia_pred_type = "order_obs_first_cond_obs_only"
         self.num_neighbors_pred = None
         self.components = []
-        self._par_names = ["Error_term"]
+        self._par_names = ["Error_term"] if likelihood == "gaussian" else []
 
         # grouped random effects first (re_model_template.h:7500)
         self.group_data = None
@@ -163,7 +199,24 @@ class GPModel:
             else np.asarray(cluster_ids)
         self._vecchia = gp_approx == "vecchia"
         self._use_woodbury = all(c.kind == "grouped" for c in self.components)
-        if self._vecchia:
+        if self._likelihood_obj is not None:
+            if self._use_woodbury:
+                # the q-dimensional Laplace engine (likelihoods.h:2959 /
+                # :3223)
+                self._engine = GroupedRELaplaceEngine(
+                    self.components, self.num_data, self._likelihood_obj,
+                    cluster_ids=self.cluster_ids, dtype=self._dtype,
+                    weights=self.weights, device=self.device)
+            elif len(self.components) > 1:
+                raise NotImplementedError(
+                    "a GP combined with grouped random effects for a "
+                    "non-Gaussian likelihood is not ported yet")
+            else:
+                self._engine = LaplaceDenseEngine(
+                    self.components, self.num_data, self._likelihood_obj,
+                    cluster_ids=self.cluster_ids, dtype=self._dtype,
+                    weights=self.weights, device=self.device)
+        elif self._vecchia:
             if len(self.components) != 1 or self.components[0].kind != "gp":
                 raise NotImplementedError(
                     "gp_approx='vecchia' with grouped random effects is not "
@@ -213,18 +266,29 @@ class GPModel:
                 self._cov_pars_override = v
             if k == "init_coef" and v is not None:
                 self._coef_override = np.asarray(v, dtype=np.float64)
+            if k == "init_aux_pars" and v is not None:
+                v = np.asarray(v, dtype=np.float64)
+                self._aux_override = v
             if hasattr(self.params, k):
                 setattr(self.params, k, v)
         return self
 
-    def _default_init_cov_pars(self, y):
+    def _default_init_cov_pars(self, y, optimizer_cov="lbfgs"):
         """Data-driven initial values (re_model_template.h:4814
         FindInitCovPar): half the response variance to the nugget, the
-        other half shared by the components; median-distance ranges."""
-        var = float(np.var(np.asarray(y, dtype=np.float64), ddof=1))
-        pars = [var / 2.0]
+        other half shared by the components (a non-Gaussian likelihood: a
+        total variance of 1, 0.1 for Nelder-Mead); median-distance
+        ranges."""
+        if self.likelihood == "gaussian":
+            var = float(np.var(np.asarray(y, dtype=np.float64), ddof=1))
+            pars = [var / 2.0]
+            marg_var = var / 2.0 / len(self.components)
+        else:
+            pars = []
+            marg_var = (0.1 if optimizer_cov == "nelder_mead" else 1.0) \
+                / len(self.components)
         for comp in self.components:
-            pars.append(var / 2.0 / len(self.components))
+            pars.append(marg_var)
             if comp.kind == "gp":
                 pars.extend(_init_ranges(comp))
         return np.asarray(pars)
@@ -237,11 +301,17 @@ class GPModel:
         self.model_has_been_fitted = False
         return self
 
-    def fit(self, y, X=None, params=None):
+    def fit(self, y, X=None, params=None, offset=None):
         """Estimate the covariance parameters (and the coefficients of the
         linear covariates X, if given) for the response y (numpy array or
-        tensor, data order)."""
+        tensor, data order); offset: fixed effects F added to the linear
+        predictor (a non-Gaussian likelihood) or subtracted from y."""
         self.set_optim_params(params)
+        if self._likelihood_obj is not None:
+            return self._fit_laplace(y, X, offset)
+        if offset is not None:
+            y = np.asarray(y, dtype=np.float64) \
+                - np.asarray(offset, dtype=np.float64)
         y_t = torch.as_tensor(y, device=self.device).to(torch.float64)
         self.y = y_t.cpu().numpy()
         self.X = None if X is None else np.asarray(X, dtype=np.float64)
@@ -261,7 +331,40 @@ class GPModel:
         self.model_has_been_fitted = True
         return self
 
-    def neg_log_likelihood(self, cov_pars, y, fixed_effects=None):
+    def _fit_laplace(self, y, X, offset):
+        """The non-Gaussian branch of fit (gp_model.py:664-670)."""
+        if torch.is_tensor(y):
+            y = y.detach().cpu().numpy()
+        self.y = self._likelihood_obj.check_y(y)
+        self.X = None if X is None else np.asarray(X, dtype=np.float64)
+        if self.X is not None and self.X.ndim == 1:
+            self.X = self.X[:, None]
+        if torch.is_tensor(offset):
+            offset = offset.detach().cpu().numpy()
+        cfg = self.params
+        if cfg.init_cov_pars is None:
+            cfg = OptimConfig(**{**cfg.__dict__, "init_cov_pars":
+                                 self._default_init_cov_pars(
+                                     self.y, cfg.optimizer_cov)})
+        self._fit_result = optimize_laplace(self._engine, self.y, cfg,
+                                            X=self.X, offset=offset)
+        self._coef_override = None
+        self._cov_pars_override = None
+        self._aux_override = None
+        self.model_has_been_fitted = True
+        return self
+
+    def neg_log_likelihood(self, cov_pars, y, fixed_effects=None,
+                           aux_pars=None):
+        if self._likelihood_obj is not None:
+            y = self._likelihood_obj.check_y(y)
+            if aux_pars is None:
+                aux_pars = self._aux_override
+            if aux_pars is None and self._fit_result is not None:
+                aux_pars = self._fit_result.aux_pars
+            return self._engine.neg_log_likelihood(
+                self._check_cov_pars(cov_pars), y, aux_pars=aux_pars,
+                fixed_effects=fixed_effects)
         y = np.asarray(y, dtype=np.float64)
         if fixed_effects is not None:
             y = y - np.asarray(fixed_effects, dtype=np.float64)
@@ -298,6 +401,11 @@ class GPModel:
     def get_num_optim_iter(self):
         return self._require_fit().num_it
 
+    def get_aux_pars(self):
+        r = self._require_fit()
+        return None if r.aux_pars is None else np.array(r.aux_pars)
+
+
     def get_current_neg_log_likelihood(self):
         return self._require_fit().neg_log_likelihood
 
@@ -314,6 +422,11 @@ class GPModel:
                 out.append(f"  {n_}: {p:.6g} (std dev {s:.4g})")
         else:
             for n_, p in zip(self._par_names, r.cov_pars):
+                out.append(f"  {n_}: {p:.6g}")
+        if r.aux_pars is not None and self._likelihood_obj is not None \
+                and self._likelihood_obj.num_aux:
+            out.append("Additional parameters (likelihood):")
+            for n_, p in zip(self._likelihood_obj.aux_names, r.aux_pars):
                 out.append(f"  {n_}: {p:.6g}")
         if r.coef is not None:
             out.append("Linear regression coefficients:")
@@ -347,9 +460,13 @@ class GPModel:
                 gp_rand_coef_data_pred=None, cluster_ids_pred=None,
                 X_pred=None, predict_cov_mat=False, predict_var=False,
                 cov_pars=None, predict_response=True, fixed_effects=None,
-                fixed_effects_pred=None):
+                fixed_effects_pred=None, offset=None, offset_pred=None):
         """Posterior predictions (basic.py:6187 GPModel.predict): {'mu',
-        'var', 'cov'} as float64 numpy."""
+        'var', 'cov'} as float64 numpy. For a non-Gaussian likelihood the
+        latent predictions include the fixed effects (offset,
+        fixed_effects and X for the training data; offset_pred,
+        fixed_effects_pred and X_pred for the new points), and
+        predict_response gives the response's mean and variance."""
         if gp_rand_coef_data_pred is not None:
             raise NotImplementedError("GP random coefficients are not "
                                       "ported yet")
@@ -358,6 +475,18 @@ class GPModel:
                 if self._cov_pars_override is not None \
                 else self._require_fit().cov_pars
         cov_pars = self._check_cov_pars(cov_pars)
+        if self._likelihood_obj is not None:
+            return self._predict_laplace(
+                y, group_data_pred, group_rand_coef_data_pred,
+                gp_coords_pred, cluster_ids_pred, X_pred, predict_cov_mat,
+                predict_var, cov_pars, predict_response, offset,
+                offset_pred, fixed_effects, fixed_effects_pred)
+        if offset is not None:
+            fixed_effects = np.asarray(offset, dtype=np.float64) + (
+                0.0 if fixed_effects is None else fixed_effects)
+        if offset_pred is not None:
+            fixed_effects_pred = np.asarray(offset_pred, dtype=np.float64) \
+                + (0.0 if fixed_effects_pred is None else fixed_effects_pred)
         resid, coef = self._residual(y, fixed_effects)
         pred_data = self._build_pred_data(group_data_pred,
                                           group_rand_coef_data_pred,
@@ -375,6 +504,52 @@ class GPModel:
         if fixed_effects_pred is not None:
             out["mu"] = out["mu"] + np.asarray(fixed_effects_pred,
                                                dtype=np.float64)
+        for k in ("cov", "var"):
+            out.setdefault(k, None)
+        return out
+
+    def _predict_laplace(self, y, group_data_pred, group_rand_coef_data_pred,
+                         gp_coords_pred, cluster_ids_pred, X_pred,
+                         predict_cov_mat, predict_var, cov_pars,
+                         predict_response, offset, offset_pred,
+                         fixed_effects, fixed_effects_pred):
+        """The non-Gaussian branch of predict (gp_model.py:887-1010)."""
+        if y is None:
+            if self.y is None:
+                raise ValueError("y not provided and model not fitted with y")
+            y = self.y
+        y = np.asarray(y, dtype=np.float64)
+        n = self.num_data
+        F = np.zeros(n)
+        for part in (offset, fixed_effects):
+            if part is not None:
+                F += np.asarray(part, dtype=np.float64)
+        coef, aux_pars = self._coef_override, self._aux_override
+        a_init = None
+        if self._fit_result is not None:
+            if coef is None:
+                coef = self._fit_result.coef
+            if aux_pars is None:
+                aux_pars = self._fit_result.aux_pars
+            a_init = self._fit_result.mode_state
+        if coef is not None and self.X is not None:
+            F += self.X @ coef
+        pred_data = self._build_pred_data(group_data_pred,
+                                          group_rand_coef_data_pred,
+                                          gp_coords_pred, cluster_ids_pred)
+        n_pred = pred_data["n_pred"]
+        F_pred = np.zeros(n_pred)
+        for part in (offset_pred, fixed_effects_pred):
+            if part is not None:
+                F_pred += np.asarray(part, dtype=np.float64)
+        if coef is not None and X_pred is not None:
+            F_pred += np.asarray(X_pred, dtype=np.float64) @ coef
+        if a_init is not None and a_init.shape != (self._engine.dim_mode,):
+            a_init = None
+        out = self._engine.predict(
+            cov_pars, aux_pars, y, F, pred_data, a_init=a_init,
+            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
+            predict_response=predict_response, F_pred=F_pred)
         for k in ("cov", "var"):
             out.setdefault(k, None)
         return out
@@ -432,20 +607,26 @@ class GPModel:
             comps.append(pd)
         return {"comps": comps, "n_pred": n_pred}
 
-    def predict_training_data_random_effects(self, predict_var=False):
+    def predict_training_data_random_effects(self, predict_var=False,
+                                              offset=None):
         """The random effects at the training points, one column per
         component (basic.py:6780; re_model_template.h:4420): a dict of
         float64 numpy columns named like the reference's DataFrame columns,
         with '<name>_var' columns when predict_var=True. A random slope
-        reports the latent coefficient."""
+        reports the latent coefficient. offset: the fixed effects of the
+        training data for a non-Gaussian likelihood (the Booster passes
+        its ensemble)."""
         r = self._require_fit()
         if self._vecchia:
             raise NotImplementedError(
                 "predict_training_data_random_effects is not ported yet for "
                 "gp_approx='vecchia'")
-        resid, _ = self._residual()
-        means, vs = self._engine.training_re(r.cov_pars, resid,
-                                             predict_var=predict_var)
+        if self._likelihood_obj is not None:
+            means, vs = self._training_re_laplace(r, predict_var, offset)
+        else:
+            resid, _ = self._residual()
+            means, vs = self._engine.training_re(r.cov_pars, resid,
+                                                 predict_var=predict_var)
         out = {}
         names = []
         for i, comp in enumerate(self.components):
@@ -458,6 +639,21 @@ class GPModel:
             for j, nm in enumerate(names):
                 out[nm + "_var"] = vs[:, j]
         return out
+
+    def _training_re_laplace(self, r, predict_var, offset):
+        eng = self._engine
+        u = eng._u_from_pars(r.cov_pars, r.aux_pars, self.y)
+        a_state = r.mode_state
+        if offset is not None or a_state is None:
+            F = np.zeros(self.num_data)
+            if offset is not None:
+                F += np.asarray(offset, dtype=np.float64)
+            if r.coef is not None and self.X is not None:
+                F += self.X @ r.coef
+            _, a_state = eng.laplace_nll(
+                u, self.y, F, a_state if a_state is not None
+                else eng.zero_mode())
+        return eng.training_re(u, a_state, predict_var=predict_var)
 
     # ------------------------------------------------------------------
     def model_to_dict(self, include_response_data=True):
@@ -481,9 +677,13 @@ class GPModel:
             d["num_neighbors"] = self.num_neighbors
         if self.num_neighbors_pred is not None:
             d["num_neighbors_pred"] = self.num_neighbors_pred
-        for key, val in (("coefs", r.coef),
+        if self.likelihood_additional_param is not None:
+            d["likelihood_additional_param"] = \
+                self.likelihood_additional_param
+        for key, val in (("coefs", r.coef), ("aux_pars", r.aux_pars),
                          ("std_dev_cov_pars", r.std_dev_cov_pars),
-                         ("std_dev_coef", r.std_dev_coef)):
+                         ("std_dev_coef", r.std_dev_coef),
+                         ("weights", self.weights)):
             if val is not None:
                 d[key] = np.asarray(val).tolist()
         if include_response_data and self.y is not None:
@@ -508,8 +708,8 @@ class GPModel:
             with open(model_file) as f:
                 model_dict = json.load(f)
         d = model_dict
-        unsupported = [k for k in ("gp_rand_coef_data", "weights",
-                                   "aux_pars") if d.get(k) is not None]
+        unsupported = [k for k in ("gp_rand_coef_data",)
+                       if d.get(k) is not None]
         if unsupported:
             raise NotImplementedError(
                 "model dict holds parts that are not ported yet: "
@@ -526,7 +726,10 @@ class GPModel:
                   gp_approx=d.get("gp_approx", "none"),
                   matrix_inversion_method=d.get("matrix_inversion_method",
                                                 "cholesky"),
-                  seed=d.get("seed", 0), device=self.device)
+                  seed=d.get("seed", 0), device=self.device,
+                  weights=arr("weights"),
+                  likelihood_additional_param=d.get(
+                      "likelihood_additional_param"))
         for attr in ("num_neighbors", "vecchia_ordering"):
             if d.get(attr) is not None:
                 kw[attr] = d[attr]
@@ -545,7 +748,7 @@ class GPModel:
             neg_log_likelihood=d.get("neg_log_likelihood", np.nan),
             converged=True,
             coef=arr("coefs"), std_dev_cov_pars=arr("std_dev_cov_pars"),
-            std_dev_coef=arr("std_dev_coef"))
+            std_dev_coef=arr("std_dev_coef"), aux_pars=arr("aux_pars"))
         self.model_has_been_fitted = d.get("model_has_been_fitted", True)
         if d.get("y") is not None:
             self.y = np.asarray(d["y"], dtype=np.float64)

@@ -13,6 +13,8 @@ or gradient evaluation runs on the engine's device:
                          + per GD iteration: 1 (gradient) + 1 per Armijo trial.
 
 Removing them (CUDA graphs, device-side control) is later work.
+`gd_fit_laplace_engine` is the same loop for the Laplace engines' covariance
+and aux parameters at fixed effects F (LaGaBoost's per-round refit).
 """
 
 import math
@@ -76,3 +78,62 @@ def gd_fit(engine, u0, y, lr0, max_iter, delta, momentum_offset=2,
     # final profiling of the nugget (the last update used the lagged one)
     u[0] = math.log(quad / n)
     return u, nll, lr, it
+
+
+def gd_fit_laplace_engine(engine, cov_pars_init, aux_init, y, F, a_init,
+                          lr0=0.1, max_iter=50, delta=1e-6, est_aux=True):
+    """Warm-started Nesterov GD refit of a Laplace engine's covariance and
+    aux parameters at fixed effects F (the reference's
+    gd_fit_laplace_engine, jit_gd.py:118-221, used by every LaGaBoost round;
+    regression_objective.hpp:175-183 OptimCovPar given F). The reference's
+    two nested while_loops are host loops here; every evaluation runs on
+    the engine's device, F and y stay device tensors:
+
+        host syncs per refit = Newton steps of each evaluation
+                               + 1 (initial NLL)
+                               + per GD iteration: 1 (gradient)
+                                 + 1 per Armijo trial.
+
+    Aux coordinates are frozen when est_aux is False. Returns
+    (cov_pars_orig, aux_pars, nll, lr, n_it, mode_state)."""
+    u = np.log(engine.transform_pars(np.asarray(cov_pars_init,
+                                                dtype=np.float64)))
+    if engine.num_aux:
+        aux_int = engine.likelihood.aux_to_internal(
+            np.asarray(aux_init, dtype=np.float64))
+        u = np.concatenate([u, np.log(aux_int)])
+    mask = np.ones(len(u))
+    if not est_aux:
+        mask[engine.num_theta:] = 0.0
+    Fd, yd = engine._F(F), engine.prep_y(y)
+    nll, a = engine.laplace_nll(u, yd, Fd, a_init)
+    lr, u_ag_lag1 = float(lr0), u.copy()
+    it, done = 0, False
+    while not done and it < max_iter:
+        _, g, a_c = engine.laplace_vag(u, yd, Fd, a)
+        g = g * mask
+        lr = min(lr, MAX_LOG_STEP / max(float(np.max(np.abs(g))), 1e-300))
+        dir_deriv = -float(g @ g)
+        mom_dd = float(g @ (u - u_ag_lag1))
+        lr_l, acc_r = lr, 0.5
+        for _ in range(MAX_SHRINK_STEPS):
+            u_grad = u - lr_l * g
+            mu = acc_r if it >= 2 else 0.0
+            u_acc = (1.0 + mu) * u_grad - mu * u_ag_lag1
+            nll_new, a_new = engine.laplace_nll(u_acc, yd, Fd, a_c)
+            bound = nll + C_ARMIJO * lr_l * dir_deriv \
+                + C_ARMIJO_MOM * mu * mom_dd
+            if nll_new <= bound and math.isfinite(nll_new):
+                break
+            lr_l *= LR_SHRINK
+            acc_r *= 0.5
+        conv = (nll - nll_new) <= delta * max(abs(nll), 1.0)
+        done = conv or not math.isfinite(nll_new)
+        u, nll, a, lr, u_ag_lag1 = u_acc, nll_new, a_new, lr_l, u_grad
+        it += 1
+    pars = engine.back_transform_pars(np.exp(u[:engine.num_theta]))
+    aux = None
+    if engine.num_aux:
+        aux = engine.likelihood.aux_from_internal(
+            np.exp(u[engine.num_theta:]))
+    return pars, aux, float(nll), float(lr), it, a

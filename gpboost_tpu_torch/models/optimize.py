@@ -21,7 +21,15 @@ re_model_template.h:969).
     estimated, when the engine exposes a raw profiled objective (dense and
     Vecchia) and `use_device_optimizer` is True, or None and n >= 20,000;
   * fixed parameters (estimate_cov_par_index) and standard errors from the
-    inverse Fisher information (std_dev=True).
+    inverse Fisher information (std_dev=True);
+  * for non-Gaussian likelihoods (`optimize_laplace`, the Laplace engines):
+    gradient descent with and without Nesterov and separate covariance /
+    aux learning rates, coefficient gradient steps with X, scipy L-BFGS-B
+    and Nelder-Mead with the mode warm-started across evaluations, and the
+    state-threaded device L-BFGS (ops/lbfgs.py `lbfgs_run_state`), taken
+    for an lbfgs-family optimizer with use_device_optimizer True, or None
+    and n >= 20,000 on an engine marked device_opt_auto (the grouped one);
+    fisher_scoring and newton raise ValueError, as in the reference.
 
 y enters as a device tensor in the engine's ordering and dtype; X, when
 given, as float64 numpy in the same row order. optimizer_cov="adam" raises
@@ -66,6 +74,9 @@ class OptimConfig:
     maxit: Optional[int] = None     # alias used by reference tests for lbfgs
     # None -> the device L-BFGS from n = 20,000; True / False force it
     use_device_optimizer: Optional[bool] = None
+    # non-Gaussian likelihoods: aux parameters on the user's scale
+    init_aux_pars: Optional[np.ndarray] = None
+    estimate_aux_pars: bool = True
 
     def resolved_lr_cov(self):
         if self.lr_cov < 0:
@@ -89,6 +100,8 @@ class OptimResult:
     converged: bool = False
     optimizer: str = ""                  # which loop ran: internal,
                                          # scipy or device_lbfgs
+    aux_pars: Optional[np.ndarray] = None   # user scale (Laplace engines)
+    mode_state: object = None               # the Laplace mode, a tensor
 
 
 def nesterov_mu(it, version, acc_rate, momentum_offset):
@@ -181,11 +194,15 @@ class CovariateHandler:
         else:
             self.X = self.X_orig
 
-    def init_beta(self, y):
+    def init_beta(self, y, likelihood=None, tot_var=None, F=None):
+        """Zero, but the intercept: the response mean, or for a
+        non-Gaussian likelihood its data-driven intercept
+        (likelihoods.h:1435)."""
         beta = np.zeros(self.k)
         if self.intercept_col is not None:
-            beta[self.intercept_col] = float(np.mean(y)) \
-                / self.X_orig[0, self.intercept_col]
+            c = float(np.mean(y)) if likelihood is None \
+                else likelihood.init_intercept(y, tot_var, F)
+            beta[self.intercept_col] = c / self.X_orig[0, self.intercept_col]
         return beta
 
     def back_transform(self, beta):
@@ -583,3 +600,359 @@ def _optimize_external(engine, y, config: OptimConfig, X=None) -> OptimResult:
     return OptimResult(
         cov_pars=cov_pars_out, num_it=int(nit), neg_log_likelihood=float(nll),
         converged=True, coef=beta, optimizer="scipy")
+
+
+# ----------------------------------------------------------------------
+# non-Gaussian likelihoods: the Laplace engines (optimize.py:467-937 of the
+# reference, OptimLinRegrCoefCovPar's non-Gaussian branch)
+def optimize_laplace(engine, y, config: OptimConfig, X=None,
+                     offset=None) -> OptimResult:
+    """Estimate covariance parameters, aux parameters and, with X, the
+    linear coefficients by the Laplace approximation; y and X float64
+    numpy in data order, offset the fixed effects F."""
+    opt = config.optimizer_cov
+    if opt == "gradient_descent":
+        return _optimize_laplace_gd(engine, y, config, X, offset)
+    if opt in ("lbfgs", "lbfgs_linesearch_nocedal_wright", "nelder_mead",
+               "adam", "bfgs_optim_lib"):
+        use_device = config.use_device_optimizer
+        if use_device is None:
+            # auto-enabled only for engines validated with the device
+            # L-BFGS (device_opt_auto); True forces it for any engine
+            use_device = (engine.n >= DEVICE_OPTIMIZER_MIN_N
+                          and getattr(engine, "device_opt_auto", False))
+        if use_device and opt.startswith("lbfgs"):
+            return _optimize_laplace_device(engine, y, config, X, offset)
+        if opt == "adam":
+            raise NotImplementedError("optimizer_cov='adam' is not ported "
+                                      "yet")
+        return _optimize_laplace_external(engine, y, config, X, offset)
+    if opt in ("fisher_scoring", "newton"):
+        raise ValueError(f"optimizer_cov '{opt}' is not supported for "
+                         "non-Gaussian likelihoods")
+    raise ValueError(f"optimizer_cov '{opt}' is not supported")
+
+
+def _laplace_u0(engine, y, config):
+    """Initial internal vector [log transformed cov pars, log aux]."""
+    t = engine.transform_pars(np.asarray(config.init_cov_pars,
+                                         dtype=np.float64))
+    u = np.log(t)
+    if engine.num_aux:
+        if config.init_aux_pars is not None:
+            aux0 = engine.likelihood.aux_to_internal(
+                np.asarray(config.init_aux_pars, dtype=np.float64))
+        else:
+            aux0 = engine.likelihood.init_aux(np.asarray(y))
+        u = np.concatenate([u, np.log(aux0)])
+    return u
+
+
+def _laplace_est_mask(engine, config):
+    est = np.ones(engine.num_par, dtype=bool)
+    if config.estimate_cov_par_index is not None:
+        idx = np.asarray(config.estimate_cov_par_index)
+        est[:engine.num_theta] = idx > 0
+    if engine.num_aux and not config.estimate_aux_pars:
+        est[engine.num_theta:] = False
+    return est
+
+
+def _laplace_covariates(engine, y, config, X, offs, scale):
+    """(handler, initial beta) for X, or (None, None)."""
+    if X is None:
+        return None, None
+    handler = CovariateHandler(X, scale=scale)
+    tot_var = float(np.sum(np.asarray(config.init_cov_pars)[
+        list(engine.par_offsets)]))
+    return handler, handler.init_beta(np.asarray(y), engine.likelihood,
+                                      tot_var, offs)
+
+
+def _laplace_result(engine, u, nll, num_it, converged, beta, a_state,
+                    optimizer):
+    p_cov = engine.num_theta
+    return OptimResult(
+        cov_pars=engine.back_transform_pars(np.exp(u[:p_cov])),
+        num_it=int(num_it), neg_log_likelihood=float(nll),
+        converged=bool(converged), coef=beta, optimizer=optimizer,
+        aux_pars=(engine.likelihood.aux_from_internal(np.exp(u[p_cov:]))
+                  if engine.num_aux else None),
+        mode_state=a_state)
+
+
+def _optimize_laplace_gd(engine, y, config: OptimConfig, X=None,
+                         offset=None):
+    """Gradient descent, with or without Nesterov acceleration, on the log
+    parameters with separate learning rates for the covariance and aux
+    parameters, and gradient steps for the coefficients (the reference's
+    _optimize_laplace_gd, line for line)."""
+    n = engine.n
+    est = _laplace_est_mask(engine, config)
+    p_cov = engine.num_theta
+    use_nesterov = config.use_nesterov_acc
+    delta_rel_conv = config.resolved_delta_rel_conv()
+    yd = engine.prep_y(y)
+    has_covariates = X is not None
+    offs = np.zeros(n) if offset is None \
+        else np.asarray(offset, dtype=np.float64)
+    u = _laplace_u0(engine, y, config)
+    handler, beta = _laplace_covariates(
+        engine, y, config, X, None if offset is None else offs, True)
+    C_mu = C_sigma2 = 1.0
+    if has_covariates:
+        X = handler.X
+        C_mu, C_sigma2 = engine.likelihood.cap_constants(np.asarray(y), offs)
+    beta_after_grad = beta.copy() if has_covariates else None
+    beta_after_grad_lag1 = beta.copy() if has_covariates else None
+    lr_coef = config.lr_coef
+
+    def F_of(beta_):
+        F = offs.copy()
+        if has_covariates and beta_ is not None:
+            F = F + X @ beta_
+        return engine._t(F)
+
+    a_state = engine.zero_mode()
+    nll, a_state = engine.laplace_nll(u, yd, F_of(beta), a_state)
+    lr_cov = config.resolved_lr_cov()
+    lr_aux = lr_cov
+    pars_after_grad = np.exp(u).copy()
+    pars_after_grad_lag1 = np.exp(u).copy()
+    max_iter = _max_iter(config)
+    num_it = max_iter
+    converged = False
+
+    for it in range(max_iter):
+        nll_lag1 = nll
+        u_lag1 = u.copy()
+
+        # ---- coefficient gradient-descent step --------------------------
+        if has_covariates:
+            _, _, gF, _ = engine.laplace_vag_F(u, yd, F_of(beta), a_state)
+            g_beta = X.T @ gF
+            lr_coef = min(lr_coef, handler.max_lr(beta, g_beta, C_mu,
+                                                  C_sigma2))
+            dird_b = -float(g_beta @ g_beta)
+            mom_b = float(g_beta @ (beta - beta_after_grad)) \
+                if use_nesterov else 0.0
+            lr_b = lr_coef
+            acc_b = config.acc_rate_coef
+            halved = False
+            for _ in range(MAX_NUM_LR_SHRINKAGE_STEPS):
+                beta_grad_new = beta - lr_b * g_beta
+                mu = (nesterov_mu(it, config.nesterov_schedule_version,
+                                  acc_b, config.momentum_offset)
+                      if use_nesterov else 0.0)
+                beta_new = (1.0 + mu) * beta_grad_new \
+                    - mu * beta_after_grad_lag1
+                nll_new_b, a_cand = engine.laplace_nll(
+                    u, yd, F_of(beta_new), a_state)
+                if nll_new_b <= (nll_lag1 + C_ARMIJO * lr_b * dird_b
+                                 + C_ARMIJO_MOM * mu * mom_b):
+                    break
+                halved = True
+                lr_b *= LR_SHRINKAGE_FACTOR
+                acc_b *= 0.5
+            if halved:
+                lr_coef = lr_b
+            beta = beta_new
+            beta_after_grad = beta_grad_new
+            beta_after_grad_lag1 = beta_grad_new.copy()
+            a_state = a_cand
+            nll_after_coef = nll_new_b
+        else:
+            nll_after_coef = nll_lag1
+        Fd = F_of(beta)
+
+        # ---- covariance / aux parameter step ---------------------------
+        _, g, a_state = engine.laplace_vag(u, yd, Fd, a_state)
+        g = np.array(g)
+        g[~est] = 0.0
+        g_cov, g_aux = g[:p_cov], g[p_cov:]
+        if np.max(np.abs(g_cov), initial=0.0) > 0:
+            lr_cov = min(lr_cov, MAX_GRADIENT_UPDATE_LOG_SCALE
+                         / np.max(np.abs(g_cov)))
+        if g_aux.size and np.max(np.abs(g_aux), initial=0.0) > 0:
+            lr_aux = min(lr_aux, MAX_GRADIENT_UPDATE_LOG_SCALE
+                         / np.max(np.abs(g_aux)))
+        dir_cov = -float(g_cov @ g_cov)
+        dir_aux = -float(g_aux @ g_aux) if g_aux.size else 0.0
+        if use_nesterov:
+            delta_log = u - np.log(pars_after_grad)
+            mom_cov = float(g_cov @ delta_log[:p_cov])
+            mom_aux = float(g_aux @ delta_log[p_cov:]) if g_aux.size else 0.0
+        else:
+            mom_cov = mom_aux = 0.0
+
+        lrc, lra = lr_cov, lr_aux
+        acc_rate = config.acc_rate_cov
+        halving_done = False
+        for _ in range(MAX_NUM_LR_SHRINKAGE_STEPS):
+            step = np.concatenate([lrc * g_cov, lra * g_aux])
+            u_grad_new = u - np.where(est, step, 0.0)
+            if use_nesterov:
+                mu = nesterov_mu(it, config.nesterov_schedule_version,
+                                 acc_rate, config.momentum_offset)
+                u_cand = (1.0 + mu) * u_grad_new \
+                    - mu * np.log(pars_after_grad_lag1)
+            else:
+                mu = 0.0
+                u_cand = u_grad_new
+            nll_new, a_cand = engine.laplace_nll(u_cand, yd, Fd, a_state)
+            ok = nll_new <= (nll_after_coef + C_ARMIJO * lrc * dir_cov
+                             + C_ARMIJO_MOM * mu * mom_cov)
+            if g_aux.size:
+                ok = ok and nll_new <= (nll_after_coef
+                                        + C_ARMIJO * lra * dir_aux
+                                        + C_ARMIJO_MOM * mu * mom_aux)
+            if ok:
+                break
+            halving_done = True
+            lrc *= LR_SHRINKAGE_FACTOR
+            lra *= LR_SHRINKAGE_FACTOR
+            acc_rate *= 0.5
+        if halving_done:
+            lr_cov, lr_aux = lrc, lra
+        pars_after_grad_lag1 = np.exp(u_grad_new).copy()
+        pars_after_grad = np.exp(u_grad_new).copy()
+        u = u_cand
+        nll = nll_new
+        a_state = a_cand
+
+        # ---- convergence ------------------------------------------------
+        if config.convergence_criterion == \
+                "relative_change_in_log_likelihood":
+            if (nll_lag1 - nll) <= delta_rel_conv * max(abs(nll_lag1), 1.0):
+                converged = True
+        elif config.convergence_criterion == "relative_change_in_parameters":
+            t_now, t_lag = np.exp(u), np.exp(u_lag1)
+            if np.linalg.norm(t_now - t_lag) \
+                    <= delta_rel_conv * np.linalg.norm(t_lag):
+                converged = True
+        if not np.all(np.isfinite(u)) or not np.isfinite(nll):
+            converged = True
+        if converged:
+            num_it = it + 1
+            break
+
+    beta_out = handler.back_transform(beta) if has_covariates else None
+    return _laplace_result(engine, u, nll, num_it, converged, beta_out,
+                           a_state, "internal")
+
+
+def _optimize_laplace_external(engine, y, config: OptimConfig, X=None,
+                               offset=None):
+    """scipy L-BFGS-B (or Nelder-Mead) on the host, the mode warm-started
+    across evaluations; a non-finite evaluation keeps the previous mode and
+    returns a large value so that the line search backs off
+    (ResetLaplaceApproxModeToPreviousValue, re_model_template.h:2593)."""
+    from scipy import optimize as sopt
+
+    n = engine.n
+    est = _laplace_est_mask(engine, config)
+    yd = engine.prep_y(y)
+    has_covariates = X is not None
+    offs = np.zeros(n) if offset is None \
+        else np.asarray(offset, dtype=np.float64)
+    u0 = _laplace_u0(engine, y, config)
+    handler, beta0 = _laplace_covariates(
+        engine, y, config, X, None if offset is None else offs,
+        config.optimizer_cov in ("lbfgs", "bfgs_optim_lib",
+                                 "lbfgs_linesearch_nocedal_wright"))
+    if has_covariates:
+        X = handler.X
+
+    def F_of(beta):
+        return offs if not has_covariates else offs + X @ beta
+
+    state = {"a": engine.zero_mode()}
+    ne = int(est.sum())
+
+    def unpack(x):
+        u = u0.copy()
+        u[est] = x[:ne]
+        return u, (x[ne:] if has_covariates else None)
+
+    def obj(x):
+        u, beta = unpack(x)
+        F = F_of(beta)
+        if has_covariates:
+            nll, gu, gF, a = engine.laplace_vag_F(u, yd, F, state["a"])
+            g = np.concatenate([gu[est], X.T @ gF])
+        else:
+            nll, gu, a = engine.laplace_vag(u, yd, F, state["a"])
+            g = gu[est]
+        if not (np.isfinite(nll) and np.all(np.isfinite(g))):
+            return 1e12, np.zeros_like(g)
+        state["a"] = a
+        return nll, g
+
+    x0 = u0[est]
+    if has_covariates:
+        x0 = np.concatenate([x0, beta0])
+    max_iter = _max_iter(config)
+    if config.optimizer_cov == "nelder_mead":
+        r = sopt.minimize(lambda x: obj(x)[0], x0, method="Nelder-Mead",
+                          options={"maxiter": max_iter * 10, "xatol": 1e-10,
+                                   "fatol": config.resolved_delta_rel_conv()})
+    else:
+        r = sopt.minimize(obj, x0, jac=True, method="L-BFGS-B",
+                          options={"maxiter": max_iter, "ftol": 1e-16,
+                                   "gtol": 1e-10, "maxcor": 20})
+    u, beta = unpack(r.x)
+    nll, a = engine.laplace_nll(u, yd, F_of(beta), state["a"])
+    beta_out = handler.back_transform(beta) if has_covariates else None
+    return _laplace_result(engine, u, nll, r.nit, True, beta_out, a,
+                           "scipy")
+
+
+def _optimize_laplace_device(engine, y, config: OptimConfig, X=None,
+                             offset=None):
+    """The Laplace L-BFGS fit with its state on the device
+    (ops/lbfgs.py `lbfgs_run_state`): the implicit-function NLL with its
+    Newton mode finder inside the state-threaded L-BFGS, the mode
+    warm-started across every evaluation, stopping at the relative change
+    delta_rel_conv (LBFGSpp's delta, optim_utils.h:653-674)."""
+    from ..ops.lbfgs import lbfgs_run_state
+
+    n = engine.n
+    est = _laplace_est_mask(engine, config)
+    yd = engine.prep_y(y)
+    has_covariates = X is not None
+    offs = np.zeros(n) if offset is None \
+        else np.asarray(offset, dtype=np.float64)
+    u0 = _laplace_u0(engine, y, config)
+    handler, beta0 = _laplace_covariates(
+        engine, y, config, X, None if offset is None else offs, True)
+    est_idx = np.where(est)[0]
+    ne = len(est_idx)
+    u0_d = engine._t(u0)
+    est_d = torch.as_tensor(est_idx, device=engine.device)
+    offs_d = engine._t(offs)
+    Xd = engine._t(handler.X) if has_covariates else None
+
+    def vag(x, st):
+        x = x.detach().requires_grad_(True)
+        u = u0_d.index_put((est_d,), x[:ne])
+        F = offs_d + Xd @ x[ne:] if has_covariates else offs_d
+        nll, (b, _) = engine._nll_raw(u, F, yd, st)
+        (g,) = torch.autograd.grad(nll, x)
+        return nll.detach(), g, b
+
+    x0 = u0[est_idx]
+    if has_covariates:
+        x0 = np.concatenate([x0, beta0])
+    max_iter = config.maxit if config.maxit else min(config.max_iter, 1000)
+    x, _, b_state, nit, conv = lbfgs_run_state(
+        vag, engine._t(x0), engine.zero_mode(), max_iter,
+        ftol=config.resolved_delta_rel_conv())
+    x = engine._host(x)[0]
+    u = u0.copy()
+    u[est_idx] = x[:ne]
+    beta = x[ne:] if has_covariates else None
+    F = offs if not has_covariates else offs + handler.X @ beta
+    nll, a = engine.laplace_nll(u, yd, F, b_state)
+    beta_out = handler.back_transform(beta) if has_covariates else None
+    return _laplace_result(engine, u, nll, nit, conv, beta_out, a,
+                           "device_lbfgs")

@@ -1,5 +1,7 @@
 """L-BFGS with the iterate, its history and the objective on the device
-(counterpart of gpboost_tpu/ops/lbfgs.py `lbfgs_run`).
+(counterpart of gpboost_tpu/ops/lbfgs.py `lbfgs_run` and, for the Laplace
+engines, `lbfgs_run_state`, which threads the mode through every
+evaluation).
 
 The reference runs the whole loop as one jitted lax.while_loop. Here the
 loop is Python on the host while every vector and scalar of the state stays
@@ -114,3 +116,76 @@ def lbfgs_run(vag, x0, max_iter, m=20, ftol=1e-16, gtol=1e-12, c1=1e-4,
     if has_aux:
         return x, f, aux, k, done
     return x, f, k, done
+
+
+def lbfgs_run_state(vag, x0, st0, max_iter, m=20, ftol=1e-16, gtol=1e-12,
+                    c1=1e-4, max_ls=30, max_step=5.0):
+    """L-BFGS with a warm-start state threaded through every evaluation
+    (counterpart of gpboost_tpu/ops/lbfgs.py `lbfgs_run_state`): the Laplace
+    mode carried from one objective evaluation to the next.
+
+    vag: (x, st) -> (f, g, st_new) on device tensors. Every line-search
+    trial warm-starts from the state of the last accepted iterate, and a
+    non-finite trial keeps it (the reference's
+    ResetLaplaceApproxModeToPreviousValue guard). Safeguards of
+    the reference: the direction's largest coordinate is capped at
+    max_step, the first step is scaled to unit length, and the relative
+    objective test arms from the second iteration. One host read per
+    line-search trial. Returns (x, f, st, num_iter, converged); num_iter and
+    converged are host values."""
+    d = x0.shape[0]
+    dtype, dev = x0.dtype, x0.device
+    f, g, st1 = vag(x0, st0)
+    st = torch.where(torch.isfinite(f), st1, st0)
+    x = x0
+    S = torch.zeros((m, d), dtype=dtype, device=dev)
+    Y = torch.zeros((m, d), dtype=dtype, device=dev)
+    rho = torch.zeros((m,), dtype=dtype, device=dev)
+    gamma = torch.ones((), dtype=dtype, device=dev)
+    k, done = 0, False
+    while not done and k < max_iter:
+        p = -_two_loop(g, S, Y, rho, gamma, k, m)
+        pn = torch.max(torch.abs(p))
+        p = p * torch.clamp(max_step / torch.clamp(pn, min=1e-300), max=1.0)
+        t0 = 1.0 / torch.clamp(torch.linalg.norm(p), min=1.0) if k == 0 \
+            else torch.ones((), dtype=dtype, device=dev)
+        gp = torch.dot(g, p)
+        bad = gp >= 0
+        p = torch.where(bad, -g, p)
+        gp = torch.where(bad, -torch.dot(g, g), gp)
+        ls_ok, t = False, t0
+        fn, xn, gn, stn = f, x, g, st
+        ftol_f = ftol * torch.clamp(torch.abs(f), min=1.0)
+        for _ in range(max_ls):
+            x_try = x + t * p
+            f_try, g_try, st_try = vag(x_try, st)
+            ok = (f_try <= f + c1 * t * gp) & torch.isfinite(f_try)
+            conv = (torch.max(torch.abs(g_try)) <= gtol)
+            if k >= 1:
+                conv = conv | ((f - f_try) <= ftol_f)
+            ok_h, conv_h = torch.stack([ok, conv]).tolist()
+            if ok_h:
+                fn, xn, gn, stn = f_try, x_try, g_try, st_try
+                ls_ok = True
+                break
+            t = t * 0.5
+        j = k % m
+        if ls_ok:
+            s = xn - x
+            yv = gn - g
+            sy = torch.dot(s, yv)
+            good = sy > 1e-10 * torch.linalg.norm(s) * torch.linalg.norm(yv)
+            S[j] = torch.where(good, s, torch.zeros_like(s))
+            Y[j] = torch.where(good, yv, torch.zeros_like(yv))
+            rho[j] = torch.where(good, 1.0 / torch.where(
+                good, sy, torch.ones_like(sy)), torch.zeros_like(sy))
+            gamma = torch.where(good, sy / torch.dot(yv, yv), gamma)
+            done = bool(conv_h)
+        else:
+            S[j] = 0.0
+            Y[j] = 0.0
+            rho[j] = 0.0
+            done = True
+        x, f, g, st = xn, fn, gn, stn
+        k += 1
+    return x, f, st, k, done
