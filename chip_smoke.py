@@ -97,7 +97,27 @@ Phases; any failure exits non-zero and prints no result line:
      phase 5's near-tie rule, covariance parameters to rtol 1e-4,
      predictions to 1e-4); the dense Laplace engine on a bernoulli_probit
      exponential GP at n = 500 (card against CPU, rtol 1e-4) and at
-     n = 5,000, timed.
+     n = 5,000, timed;
+ 20. bench.py's vecchia_laplace_n20k at full width (sim_vl, n = 20,000,
+     seed 3, bernoulli_probit, exponential, 20 neighbours, the dense
+     precision path, float32, maxit 20, init_cov_pars [1.0, 0.1]): a first
+     fit, a second after reset_fit (seconds, iterations, Newton steps,
+     host syncs, peak device memory), a third under torch.profiler (device
+     busy share); the reference library's time beside it; one float64 fit
+     of the same data with its covariance parameters beside float32's;
+ 21. hist_segment at its shapes (n = 20,000, p = 5, uint8: phase 3's
+     checks and times), then binary Vecchia LaGaBoost at n = 20,000
+     (sim_lagab, p = 5, seed 4; the GP model of phase 20 with its default
+     initial values; 31 leaves, learning rate 0.1) for 10 rounds,
+     then the response on 1,000 new points: init-score and first-fit
+     seconds, seconds per round, host syncs of one steady round, device
+     busy share of two more; hist_segment launches (must be positive);
+ 22. card vs CPU at n = 2,000 in float64 (random ordering): the engine's
+     NLL, g_u and g_F to rtol 1e-8 with equal Newton steps, a fit (rtol
+     1e-4, equal iterations), 3 LaGaBoost rounds (phase 5's near-tie rule,
+     predictions to 1e-4); then the R goldens of
+     tests/test_vecchia_laplace_golden.py on the card at that file's
+     tolerances.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -135,6 +155,17 @@ Q_GLMM2 = 100
 N_LAGA, Q_LAGA, P_LAGA, SEED_LAGA, N_LAGA_CPU, Q_LAGA_CPU = \
     100_000, 1_000, 5, 10, 2_000, 50
 LAGA = {"learning_rate": 0.1, "num_leaves": 15, "verbose": 0}
+# the Vecchia-Laplace slice: bench.py's vecchia_laplace_n20k (bench.py:
+# 278-300) and its binary Vecchia LaGaBoost at the JAX bench's n = 20,000
+# (bench.py:329-361)
+N_VL, M_VL, SEED_VL, MAXIT_VL, N_VL_CPU = 20_000, 20, 3, 20, 2_000
+P_VLB, SEED_VLB = 5, 4
+VL_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
+            "num_neighbors": M_VL, "likelihood": "bernoulli_probit",
+            "matrix_inversion_method": "cholesky"}
+VL_FIT = {"maxit": MAXIT_VL, "init_cov_pars": [1.0, 0.1]}
+VLB = {"objective": "binary", "learning_rate": 0.1, "num_leaves": 31,
+       "verbose": 0}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
@@ -691,10 +722,12 @@ def _compare_models(what, ref, other, X=None):
     return "all splits equal"
 
 
-def _device_busy_s(torch, fn, kernel="hist_"):
+def _device_busy_s(torch, fn, kernel="hist_", by_name=None):
     """(device busy seconds, wall seconds, seconds in device kernels whose
     name holds `kernel`) of fn() under torch.profiler: busy is the union of
-    the device events' time spans, None when the profiler saw none."""
+    the device events' time spans, None when the profiler saw none. A
+    given dict `by_name` gets the summed seconds of each device event
+    name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -706,6 +739,10 @@ def _device_busy_s(torch, fn, kernel="hist_"):
               if str(e.device_type).endswith("CUDA")]
     if not events:
         return None, wall, None
+    if by_name is not None:
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + (e.time_range.end - e.time_range.start) * 1e-6
     mine = sum(e.time_range.end - e.time_range.start for e in events
                if kernel in e.name) * 1e-6
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -732,7 +769,8 @@ def phase_parallel(torch, gpt, histogram, ds, X, y):
     rounds (the path's run), the feature and voting learners for 5, the
     serial positional learner for 1; then the one-rank reference of phase
     8 at n = 20,000. Returns the launches of hist_masked and hist_block
-    over the data learner's 20 rounds, and the reference booster."""
+    over the data learner's 20 rounds, hist_segment's over the serial
+    round, and the reference booster."""
     import torch.distributed as dist
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(
@@ -786,11 +824,14 @@ def phase_parallel(torch, gpt, histogram, ds, X, y):
                 print(f"[parallel] {mode} learner, 1 rank, {ROUNDS_MODE} "
                       f"rounds in {time.perf_counter() - t0:.3f} s against "
                       f"the data learner: {res}", flush=True)
+            histogram.hist_segment.launches = 0
             serial = gpt.train(BOOST, ds, num_boost_round=1, device="cuda")
+            segment_launches = histogram.hist_segment.launches
             if serial.learner.group is not None:
                 raise AssertionError("serial learner ran on the group")
-            print("[parallel] serial positional learner (hist_segment), "
-                  "first tree against the data learner's: "
+            print("[parallel] serial positional learner (hist_segment, "
+                  f"{segment_launches} launches in its round), first tree "
+                  "against the data learner's: "
                   + _compare_models("masked-vs-positional", bst, serial),
                   flush=True)
             X2, y2 = X[:N_TWO_RANKS], y[:N_TWO_RANKS]
@@ -799,7 +840,7 @@ def phase_parallel(torch, gpt, histogram, ds, X, y):
                             num_boost_round=ROUNDS_MODE, device="cuda")
         finally:
             dist.destroy_process_group()
-    return launches, block_launches, ref
+    return launches, block_launches, segment_launches, ref
 
 
 def phase_two_ranks(torch, gpt, X, y, ref):
@@ -1576,6 +1617,340 @@ def phase_laplace_card_vs_cpu(torch, gpt):
               f"pars {cov.tolist()}{txt}", flush=True)
 
 
+def sim_vl(n, seed=SEED_VL):
+    """bench.py sim_vl: a binary response with a spatial probit field."""
+    from scipy.stats import norm
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2)
+    f = np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1])
+    y = (rng.rand(n) < norm.cdf(f)).astype(float)
+    return coords, y
+
+
+def sim_lagab(n, p=P_VLB, seed=SEED_VLB):
+    """bench.py sim_lagab: trees' signal plus a spatial field, probit."""
+    from scipy.stats import norm
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2)
+    X = rng.rand(n, p)
+    lat = (np.sin(3 * X[:, 0]) + X[:, 1] ** 2 - 1.0
+           + 0.8 * np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1]))
+    y = (rng.rand(n) < norm.cdf(lat)).astype(float)
+    return coords, X, y
+
+
+def _vl_fit(torch, gpt, coords, y, dtype, device="cuda"):
+    """(model, seconds) of one Vecchia-Laplace fit with VL_FIT."""
+    model = gpt.GPModel(gp_coords=coords, dtype=dtype, device=device,
+                        **VL_MODEL)
+    t0 = time.perf_counter()
+    model.fit(y=y, params=VL_FIT)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def phase_vecchia_laplace(torch, gpt):
+    """bench.py's vecchia_laplace_n20k at full width: sim_vl n = 20,000,
+    seed 3, bernoulli_probit, exponential, 20 neighbours, the dense
+    precision path (cholesky), float32, maxit 20, init_cov_pars
+    [1.0, 0.1]. A first fit, a second after reset_fit (seconds,
+    iterations, Newton steps, host syncs, peak device memory), a third
+    under torch.profiler (device busy share); then one float64 fit."""
+    coords, y = sim_vl(N_VL)
+    torch.cuda.reset_peak_memory_stats()
+    model, first_s = _vl_fit(torch, gpt, coords, y, "float32")
+    eng = model._engine
+    model.reset_fit()
+    eng.total_num_mode_it = 0
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(torch, lambda: model.fit(y=y, params=VL_FIT))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = eng.total_num_mode_it
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = model._fit_result
+    cov = model.get_cov_pars()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)
+            and 0 < r.num_it <= MAXIT_VL):
+        raise AssertionError(f"vecchia-laplace: cov pars {cov}, "
+                             f"{r.num_it} iterations")
+    model.reset_fit()
+    kernels = {}
+    busy, wall, _ = _device_busy_s(torch, lambda: model.fit(
+        y=y, params=VL_FIT), by_name=kernels)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print("[vecchia-laplace] device time of the third fit by kernel: "
+          + "; ".join(f"{k[:70]} {v:.3f} s" for k, v in top), flush=True)
+    print(f"[vecchia-laplace] n={N_VL} m={M_VL} bernoulli_probit cholesky "
+          f"float32: first fit {first_s:.3f} s; after reset_fit "
+          f"{secs:.3f} s, {r.num_it} iterations ({r.optimizer}), {steps} "
+          f"Newton steps, {syncs} host syncs; device busy over a third fit "
+          f"{_busy_txt(busy, wall)}; peak device memory {peak:.2f} GiB; nll "
+          f"{r.neg_log_likelihood:.4f}, cov pars {cov.tolist()}", flush=True)
+    ref = _reference_time("vecchia_laplace_fit_n20k_binary")
+    if ref is not None:
+        print(f"[vecchia-laplace] the reference C++ library "
+              f"(BASELINE_MEASURED.json, bench_reference.py, {ref[2]} CPU "
+              f"thread(s)): {ref[0]} s, {ref[1]} iterations", flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+    m64, secs64 = _vl_fit(torch, gpt, coords, y, "float64")
+    cov64 = m64.get_cov_pars()
+    if not (np.all(np.isfinite(cov64)) and np.all(cov64 > 0)
+            and 0 < m64.get_num_optim_iter() <= MAXIT_VL):
+        raise AssertionError(f"vecchia-laplace float64: cov pars {cov64}")
+    print(f"[vecchia-laplace] float64 on the card: {secs64:.3f} s, "
+          f"{m64.get_num_optim_iter()} iterations, "
+          f"{m64._engine.total_num_mode_it} Newton steps, nll "
+          f"{m64._fit_result.neg_log_likelihood:.4f}, cov pars "
+          f"{cov64.tolist()} (float32: {cov.tolist()}, max rel diff "
+          f"{float(np.max(np.abs(cov / cov64 - 1.0))):.3g})", flush=True)
+
+
+def phase_segment_vl(torch, gpt, histogram, kernel_row):
+    """hist_segment at Vecchia LaGaBoost's shapes: sim_lagab's n = 20,000
+    rows, p = 5, uint8, the real bin count; whole and part segments and a
+    one-bin feature with the checks of phase 3, and the whole segment's
+    times, added to kernel_row under "at_n20k_p5"."""
+    dev = torch.device("cuda")
+    _, X, y = sim_lagab(N_VL)
+    ds = gpt.Dataset(X, label=y)
+    ds.construct()
+    num_bins = int(ds.num_bins)
+    n, p = ds.bins.shape
+    rng = np.random.RandomState(SEED_VLB)
+    gen = torch.Generator().manual_seed(SEED_VLB)
+    stats = np.ones((n, 3), dtype=np.float32)
+    stats[:, 0] = rng.randn(n)
+    stats[:, 1] = rng.rand(n) + 0.5
+    stats_d = torch.as_tensor(stats, device=dev)
+    bins = torch.as_tensor(np.ascontiguousarray(ds.bins, dtype=np.uint8),
+                           device=dev)
+    for name, b, s0, cnt in (("whole", bins, 0, n),
+                             ("part", bins, 1234, 7_777),
+                             ("one-bin feature", _one_bin(bins, 1), 0, n)):
+        tol = 1e-5 * float(histogram.hist_segment_plain(
+            b, stats_d, s0, cnt, num_bins)[:, :2].abs().max())
+        _segment_case(torch, histogram, f"hist_segment n={n} p={p} {name}",
+                      b, stats_d, s0, cnt, num_bins, max(tol, 1e-5), gen)
+    amax = histogram.stat_amax(stats_d, 0)
+
+    def kernel():
+        return histogram.hist_segment(bins, stats_d, 0, n, num_bins,
+                                      amax=amax)
+    bound_ms, bound_by = bound(n * p + 12 * n + 12 * p * num_bins, 3 * n * p)
+    row = {"ms": _time_ms(torch, kernel),
+           "device_ms": _device_ms(torch, kernel),
+           "plain_ms": _time_ms(torch, lambda: histogram.hist_segment_plain(
+               bins, stats_d, 0, n, num_bins)),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[kernel] hist_segment n={n} p={p} B={num_bins} uint8, whole "
+          f"segment: {row['ms']:.4f} ms by events, "
+          f"{_fmt_ms(row['device_ms'])} device, plain {row['plain_ms']:.4f} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    kernel_row["at_n20k_p5"] = row
+
+
+def _train_vl_lagaboost(torch, gpt, n, device, dtype, rounds):
+    """(booster, gp, construction s incl. the init score, first-fit s,
+    per-round s) of binary Vecchia LaGaBoost on sim_lagab."""
+    coords, X, y = sim_lagab(n)
+    gp = gpt.GPModel(gp_coords=coords, dtype=dtype, device=device,
+                     **VL_MODEL)
+    fit_secs = []
+    fit = gp.fit
+
+    def timed_fit(*args, **kwargs):
+        t = time.perf_counter()
+        out = fit(*args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        fit_secs.append(time.perf_counter() - t)
+        return out
+
+    gp.fit = timed_fit
+    t0 = time.perf_counter()
+    bst = gpt.Booster(VLB, gpt.Dataset(X, label=y), gp_model=gp,
+                      device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        bst.update()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    secs[0] -= fit_secs[0]
+    gp.fit = fit
+    return bst, gp, init_s, fit_secs[0], secs
+
+
+def phase_vecchia_lagaboost(torch, gpt, histogram):
+    """Binary Vecchia LaGaBoost at n = 20,000, p = 5 (sim_lagab, seed 4;
+    the GP model of phase 20 in float32; 31 leaves, learning rate 0.1) for
+    10 rounds, then the response on 1,000 new points. Returns
+    hist_segment's launches over the 10 rounds."""
+    _reset_launches(histogram)
+    bst, gp, init_s, fit_s, secs = _train_vl_lagaboost(
+        torch, gpt, N_VL, "cuda", "float32", ROUNDS)
+    launches = histogram.hist_segment.launches
+    from collections import Counter
+    sites = Counter()
+    _, syncs = _count_syncs(torch, bst.update, sites)
+    print("[vecchia-lagaboost] host syncs of round 11 by Python line: "
+          + ", ".join(f"{k} x{v}" for k, v in sites.most_common(8)),
+          flush=True)
+    kernels = {}
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)], by_name=kernels)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print("[vecchia-lagaboost] device time of rounds 12-13 by kernel: "
+          + "; ".join(f"{k[:70]} {v:.3f} s" for k, v in top), flush=True)
+    rng = np.random.RandomState(SEED_VLB + 1)
+    Xn, cn = rng.rand(N_PRED, P_VLB), rng.rand(N_PRED, 2)
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    pred_s = time.perf_counter() - t0
+    for k in ("response_mean", "response_var"):
+        if pred[k].shape != (N_PRED,) or not np.all(np.isfinite(pred[k])):
+            raise AssertionError(f"vecchia lagaboost: prediction {k}")
+    if not (np.all(pred["response_mean"] > 0)
+            and np.all(pred["response_mean"] < 1)):
+        raise AssertionError("vecchia lagaboost: probabilities outside "
+                             "(0, 1)")
+    cov = gp.get_cov_pars()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)):
+        raise AssertionError(f"vecchia lagaboost: cov pars {cov}")
+    if launches <= 0:
+        raise AssertionError(f"vecchia lagaboost: {launches} hist_segment "
+                             "launches")
+    print(f"[vecchia-lagaboost] n={N_VL} p={P_VLB} m={M_VL} bernoulli_probit "
+          f"float32, {ROUNDS} rounds: booster with init score {init_s:.3f} s "
+          f"(init score {bst.init_score:.5f}); first GP fit {fit_s:.3f} s "
+          f"({gp._fit_result.optimizer}, {gp._fit_result.num_it} "
+          f"iterations); mean per round {np.mean(secs):.4f} s (min "
+          f"{np.min(secs):.4f}, max {np.max(secs):.4f}); host syncs in round "
+          f"{ROUNDS + 1}: {syncs}; device busy over rounds {ROUNDS + 2}-"
+          f"{ROUNDS + 3}: {_busy_txt(busy, wall, hist_s)}; predict "
+          f"{N_PRED} points {pred_s:.3f} s; cov pars {cov.tolist()}; "
+          f"hist_segment launches over the {ROUNDS} rounds {launches}",
+          flush=True)
+    return launches
+
+
+def _vl_golden_data():
+    """tests/test_vecchia_laplace_golden.py vl_data (n = 100)."""
+    from scipy import stats
+    from gpboost_tpu_torch.utils.datasim import qnorm, sim_rand_unif
+    n, d = 100, 2
+    coords = sim_rand_unif(n * d, init_c=0.1).reshape(d, n).T
+    D = np.sqrt(((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1))
+    L = np.linalg.cholesky(np.exp(-D / 0.1) + 1e-20 * np.eye(n))
+    probs = stats.norm.cdf(L @ qnorm(sim_rand_unif(n, init_c=0.8)))
+    y = (sim_rand_unif(n, init_c=0.19341) < probs).astype(float)
+    X = np.column_stack([np.ones(n), np.sin(
+        (np.arange(1, n + 1) - n / 2) ** 2 * 2 * np.pi / n)])
+    return coords, D, y, X
+
+
+def phase_vecchia_laplace_card_vs_cpu(torch, gpt):
+    """Card against CPU at n = 2,000 (float64, 20 neighbours, random
+    ordering): the engine's NLL and gradients in u and F (rtol 1e-8) and
+    Newton steps, a fit (rtol 1e-4, equal iterations) and 3 rounds of
+    LaGaBoost (phase 5's near-tie rule, predictions to 1e-4); then the R
+    goldens of tests/test_vecchia_laplace_golden.py on the card."""
+    coords, y = sim_vl(N_VL_CPU)
+    F = 0.3 * np.sin(np.arange(N_VL_CPU))
+    u = np.log([0.9, 1.0 / 0.1])
+    ev = {}
+    for dev in ("cuda", "cpu"):
+        eng = gpt.GPModel(gp_coords=coords, dtype="float64", device=dev,
+                          **VL_MODEL)._engine
+        nll, gu, gF, _ = eng.laplace_vag_F(u, y, F, eng.zero_mode())
+        ev[dev] = (nll, gu, gF, eng.last_num_mode_it)
+    (ng, gug, gFg, sg), (nc, guc, gFc, sc) = ev["cuda"], ev["cpu"]
+    errs = {"nll": abs(ng / nc - 1.0),
+            "g_u": float(np.max(np.abs(gug / guc - 1.0))),
+            "g_F": float(np.max(np.abs(gFg - gFc)) / np.max(np.abs(gFc)))}
+    if not (max(errs.values()) < 1e-8 and sg == sc):
+        raise AssertionError(f"vecchia-laplace engine card vs CPU: {errs}, "
+                             f"Newton steps {sg} vs {sc}")
+    fits = {dev: _vl_fit(torch, gpt, coords, y, "float64", dev)
+            for dev in ("cuda", "cpu")}
+    cg, cc = fits["cuda"][0].get_cov_pars(), fits["cpu"][0].get_cov_pars()
+    ig, ic = (fits[d][0].get_num_optim_iter() for d in ("cuda", "cpu"))
+    fit_rel = float(np.max(np.abs(cg / cc - 1.0)))
+    if not (fit_rel < 1e-4 and ig == ic):
+        raise AssertionError(f"vecchia-laplace fit card {cg} ({ig} its) "
+                             f"cpu {cc} ({ic} its)")
+    runs = {dev: _train_vl_lagaboost(torch, gpt, N_VL_CPU, dev, "float64", 3)
+            for dev in ("cuda", "cpu")}
+    (bg, _, _, _, _), (bc, _, _, _, _) = runs["cuda"], runs["cpu"]
+    res = _compare_models("vecchia-lagaboost card-vs-cpu", bc, bg)
+    rng = np.random.RandomState(SEED_VLB + 2)
+    Xn, cn = rng.rand(200, P_VLB), rng.rand(200, 2)
+    perr = {}
+    for latent in (True, False):
+        keys = ("random_effect_mean", "random_effect_var") if latent \
+            else ("response_mean", "response_var")
+        if not latent and res == "near tie":
+            continue
+        pg = bg.predict(Xn, gp_coords_pred=cn, predict_var=True,
+                        pred_latent=latent)
+        pc = bc.predict(Xn, gp_coords_pred=cn, predict_var=True,
+                        pred_latent=latent)
+        for k in keys:
+            perr[k] = float(np.max(np.abs(pg[k] - pc[k])))
+    perr["training score"] = float((bg.F.cpu() - bc.F).abs().max())
+    if not max(perr.values()) < 1e-4:
+        raise AssertionError(f"vecchia lagaboost card vs CPU: {perr}")
+    print(f"[vecchia-laplace card-vs-cpu] n={N_VL_CPU} m={M_VL} float64: "
+          "engine max rel diff " + ", ".join(f"{k} {v:.3g}"
+                                             for k, v in errs.items())
+          + f", Newton steps {sg} both; fit cov pars max rel diff "
+          f"{fit_rel:.3g}, {ig} iterations both (card "
+          f"{fits['cuda'][1]:.3f} s, cpu {fits['cpu'][1]:.3f} s); "
+          f"LaGaBoost 3 rounds: trees {res}; max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in perr.items()), flush=True)
+    # the R goldens (n = 100, m = 99, ordering none) on the card
+    coords, D, yg, X = _vl_golden_data()
+    kw = {**VL_MODEL, "num_neighbors": 99, "vecchia_ordering": "none"}
+    gm = gpt.GPModel(gp_coords=coords, device="cuda", **kw)
+    nll = gm.neg_log_likelihood(cov_pars=[1.0, 0.2], y=yg)
+    iu = np.triu_indices(100, k=1)
+    gm.fit(y=yg, X=X, params=dict(
+        optimizer_cov="gradient_descent", optimizer_coef="gradient_descent",
+        use_nesterov_acc=True, lr_cov=0.1, lr_coef=0.1, maxit=1000,
+        acc_rate_cov=0.5, init_cov_pars=[1.0, np.mean(D[iu]) / 3]))
+    d_cov = np.sum(np.abs(gm.get_cov_pars() - [0.92350821208,
+                                               0.05944214192]))
+    d_coef = np.sum(np.abs(gm.get_coef() - [0.3983333, -0.2653886]))
+    coord_test = np.column_stack([[0.1, 0.11, 0.7], [0.9, 0.91, 0.55]])
+    X_test = np.column_stack([np.ones(3), [-0.5, 0.2, 1.0]])
+    kwp = dict(y=yg, gp_coords_pred=coord_test, predict_var=True,
+               cov_pars=[1.0, 0.2], X_pred=X_test)
+    pl = gm.predict(predict_response=False, **kwp)
+    pr = gm.predict(predict_response=True, **kwp)
+    d_pred = [np.sum(np.abs(pl["mu"] - [0.3389905, 0.1512445, -0.1039307])),
+              np.sum(np.abs(pl["var"] - [0.6193229, 0.6159349, 0.4291674])),
+              np.sum(np.abs(pr["mu"] - [0.6050312, 0.5473537, 0.4653610])),
+              np.sum(np.abs(pr["var"] - [0.2389684, 0.2477576, 0.2488001]))]
+    if not (abs(nll - 67.18342059) < 1e-6 and d_cov < 1e-6
+            and d_coef < 1e-6 and gm.get_num_optim_iter() == 17
+            and max(d_pred) < 1e-3):
+        raise AssertionError(
+            f"vecchia-laplace goldens on the card: nll {nll}, cov "
+            f"{d_cov}, coef {d_coef}, {gm.get_num_optim_iter()} its, "
+            f"predictions {d_pred}")
+    print(f"[vecchia-laplace goldens] on the card: nll {nll:.8f} (golden "
+          f"67.18342059), GD fit with covariates {gm.get_num_optim_iter()} "
+          f"iterations (golden 17), |diff| sums cov {d_cov:.3g}, coef "
+          f"{d_coef:.3g}, predictions {max(d_pred):.3g}", flush=True)
+
+
 def main():
     import torch
     import gpboost_tpu_torch as gpt
@@ -1596,7 +1971,8 @@ def main():
     phase_segment_large(torch, histogram, ds, segment)
     masked, block = phase_masked_kernels(torch, histogram, ds)
     # hist_block has no caller in either package: its count reads 0
-    masked["launches"], block["launches"], ref = phase_parallel(
+    masked["launches"], block["launches"], \
+        segment["launches_n200k_p50_one_round"], ref = phase_parallel(
         torch, gpt, histogram, ds, X, y)
     phase_two_ranks(torch, gpt, X, y, ref)
     Xg, _, yg = sim_grouped(N_GROUPED, Q_GROUPED)
@@ -1617,6 +1993,14 @@ def main():
     phase_laplace_card_vs_cpu(torch, gpt)
     print(f"[laplace] phases 15-19 in {time.perf_counter() - t_laplace:.1f} "
           "s", flush=True)
+    t_vl = time.perf_counter()
+    phase_vecchia_laplace(torch, gpt)
+    phase_segment_vl(torch, gpt, histogram, segment)
+    segment["launches_lagaboost_vecchia_n20k"] = phase_vecchia_lagaboost(
+        torch, gpt, histogram)
+    phase_vecchia_laplace_card_vs_cpu(torch, gpt)
+    print(f"[vecchia-laplace] phases 20-22 in "
+          f"{time.perf_counter() - t_vl:.1f} s", flush=True)
     print(json.dumps({"kernels": [segment, masked, block]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ GPBoost algorithm), and for non-Gaussian likelihoods with a GP model
 One boosting round (gbdt.cpp:412 TrainOneIter with the GP hooks):
 
   1. gradients at the current score F: without a GP model grad = F - y
-     (gbdt.py:954-960); with a Gaussian one, those of the marginal NLL,
-     grad = Psi~^-1 (F - y) / sigma2 through the GP model's engine (dense,
-     Woodbury or Vecchia); with a non-Gaussian one, the gradient in F of
-     the Laplace-approximated NLL at the current mode (gbdt.py:1127-1139);
-     hess = 1;
+     and hess = 1, both times the Dataset weights if it has them
+     (gbdt.py:954-960, :1107-1108); with a Gaussian one, those of the
+     marginal NLL, grad = Psi~^-1 (F - y) / sigma2 through the GP model's
+     engine (dense, Woodbury or Vecchia); with a non-Gaussian one, the
+     gradient in F of the Laplace-approximated NLL at the current mode
+     (gbdt.py:1127-1139), in data order for every engine (grouped, dense
+     or Vecchia-Laplace); hess = 1;
   2. one leaf-wise tree on them (tree_learner.py, histogram kernels);
      with leaves_newton_update the leaf values are re-solved by GLS, with
      line_search_step_length the tree is scaled by the 1-D GLS optimum;
@@ -33,10 +35,13 @@ float64; the trees are host numpy objects (tree.py), as in the reference.
 The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is each engine's
 `psi_tilde_inv_mat` here, on the device.
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
-`train` always runs the host loop. Nesterov-accelerated boosting,
-DART/GOSS/RF, sampling, a GP model together with a parallel tree learner,
-and every objective other than Gaussian regression without a non-Gaussian
-GP model raise NotImplementedError.
+`train` always runs the host loop. Every parameter of the reference's
+defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked:
+Nesterov-accelerated boosting, DART/GOSS/RF, sampling, constraints,
+missing-value options, the other objectives' settings, a GP model together
+with a parallel tree learner, and every objective other than Gaussian
+regression without a non-Gaussian GP model raise NotImplementedError.
+boost_from_average=False starts plain boosting from score 0.
 """
 
 import numpy as np
@@ -54,8 +59,8 @@ _OBJ_ALIASES = {
     "gaussian": "gaussian",
 }
 
-# the reference's defaults (gbdt.py:448) for every parameter the port reads
-# or checks; a non-default value of the last group raises
+# the reference's defaults (gbdt.py:448-521): every parameter the port
+# reads or checks; a non-default value of the last two groups raises
 _BOOST_PARAM_DEFAULTS = dict(
     learning_rate=0.1, num_leaves=31, max_depth=-1, min_data_in_leaf=20,
     lambda_l2=0.0, lambda_l1=0.0, min_sum_hessian_in_leaf=1e-3,
@@ -64,6 +69,7 @@ _BOOST_PARAM_DEFAULTS = dict(
     maxit_gp=10, reuse_learning_rates_gp_model=True, verbose=1, max_bin=255,
     boosting="gbdt", leaves_newton_update=False,
     line_search_step_length=False, use_nesterov_acc=False,
+    boost_from_average=True,
     bagging_fraction=1.0, bagging_freq=0, feature_fraction=1.0,
     path_smooth=0.0, extra_trees=False, linear_tree=False,
     monotone_constraints=None, interaction_constraints=None,
@@ -71,12 +77,28 @@ _BOOST_PARAM_DEFAULTS = dict(
     cegb_penalty_feature_coupled=None, cegb_penalty_feature_lazy=None,
     num_parallel_devices=None, tree_learner="serial", top_k=20,
 )
+# the options of unported features (DART, GOSS, Nesterov boosting, other
+# objectives, ranking, class weights, refit, categorical splits, sampling
+# seeds, CEGB, extra trees, missing values): only their defaults pass
+_UNPORTED_DEFAULTS = dict(
+    drop_rate=0.1, max_drop=50, skip_drop=0.5, drop_seed=4, top_rate=0.2,
+    other_rate=0.1, num_class=1, alpha=0.9, nesterov_acc_rate=0.5,
+    momentum_offset=0, momentum_schedule_version=1, sigmoid=1.0,
+    lambdarank_norm=True, lambdarank_truncation_level=30,
+    is_unbalance=False, scale_pos_weight=1.0, refit_decay_rate=0.9,
+    cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,
+    min_data_per_group=100, label_gain=None, objective_seed=5,
+    eval_at=(1, 2, 3, 4, 5), bagging_seed=3, feature_fraction_seed=2,
+    cegb_tradeoff=1.0, extra_seed=6, use_missing=True, zero_as_missing=False,
+)
+_BOOST_PARAM_DEFAULTS.update(_UNPORTED_DEFAULTS)
 _UNPORTED_IF_CHANGED = (
     "boosting", "use_nesterov_acc", "bagging_fraction", "bagging_freq",
     "feature_fraction", "path_smooth", "extra_trees", "linear_tree",
     "monotone_constraints", "interaction_constraints",
     "forcedsplits_filename", "cegb_penalty_split",
-    "cegb_penalty_feature_coupled", "cegb_penalty_feature_lazy")
+    "cegb_penalty_feature_coupled", "cegb_penalty_feature_lazy") \
+    + tuple(_UNPORTED_DEFAULTS)
 # tree_learner values and their aliases -> the learner's parallel_mode
 # (gbdt.py:590-596)
 _TREE_LEARNERS = {
@@ -96,7 +118,20 @@ _PARAM_ALIASES = {
     "num_iterations": "num_boost_round", "num_trees": "num_boost_round",
     "n_estimators": "num_boost_round", "num_round": "num_boost_round",
     "boosting_type": "boosting", "boost": "boosting",
+    "monotone_constraint": "monotone_constraints",
+    "sub_row": "bagging_fraction", "subsample": "bagging_fraction",
+    "bagging": "bagging_fraction", "subsample_freq": "bagging_freq",
+    "sub_feature": "feature_fraction", "colsample_bytree": "feature_fraction",
+    "unbalance": "is_unbalance", "unbalanced_sets": "is_unbalance",
 }
+
+
+def _changed(value, default):
+    """Whether a parameter differs from its default; sequences compare by
+    their entries."""
+    if isinstance(value, (list, tuple, np.ndarray)):
+        return default is None or list(np.ravel(value)) != list(default)
+    return value != default
 
 
 def _parse_params(raw, laplace=False):
@@ -106,7 +141,7 @@ def _parse_params(raw, laplace=False):
     for k, v in (raw or {}).items():
         p[_PARAM_ALIASES.get(k, k)] = v
     changed = [k for k in _UNPORTED_IF_CHANGED
-               if p[k] != _BOOST_PARAM_DEFAULTS[k]]
+               if _changed(p[k], _BOOST_PARAM_DEFAULTS[k])]
     if changed:
         raise NotImplementedError("not ported yet: " + ", ".join(
             f"{k}={p[k]!r}" for k in changed))
@@ -167,10 +202,14 @@ class Booster:
             c0 = gp_model._likelihood_obj.init_intercept(
                 np.asarray(y, dtype=np.float64), self._gp_total_re_var(y))
             self.init_score = self._find_init_score_gp(y, c0)
+        elif gp_model is None and not p["boost_from_average"]:
+            self.init_score = 0.0
         else:
             # BoostFromScore for Gaussian regression, with or without a
-            # GP model: the response mean over all rows
-            # (regression_objective.hpp:239-283)
+            # GP model: the response mean over all rows, unweighted as in
+            # the reference (regression_objective.hpp:239-283; gbdt.py:
+            # 900-902 honours boost_from_average=False without a GP model
+            # only)
             self.init_score = float(np.mean(y))
         # the score and labels of the rows this rank's learner holds
         self.y = torch.as_tensor(
@@ -178,6 +217,11 @@ class Booster:
             device=self.device)
         self.F = torch.full((self.learner.n,), self.init_score,
                             dtype=torch.float64, device=self.device)
+        # Dataset weights scale grad and hess without a GP model
+        # (gbdt.py:1107-1108); with one the reference ignores them
+        w = train_set.weight
+        self._w = None if w is None or gp_model is not None \
+            else torch.as_tensor(w[self.learner.rows], device=self.device)
         self._gp_init_pars = None
         self._gp_lr = 0.1
         self._gp_refit_iter = -1
@@ -229,7 +273,9 @@ class Booster:
     def _gradients(self):
         """(grad, hess) at the current score F, as device tensors."""
         if self.gp_model is None:
-            return self.F - self.y, torch.ones_like(self.F)
+            if self._w is None:
+                return self.F - self.y, torch.ones_like(self.F)
+            return (self.F - self.y) * self._w, self._w
         # covariance parameters are refitted after each tree (update());
         # here only when no fit for the current F exists yet
         if self._gp_refit_iter != self.current_iteration_:

@@ -20,8 +20,9 @@ def gp_model_from_jax_dict(d, device=None):
     `predict` on `device` (default: the first CUDA card). Gaussian models
     with grouped random effects, an exact GP (alone or with grouped random
     effects) or a Vecchia GP, and models of the 16 likelihoods of
-    likelihoods/base.py with grouped random effects or one exact GP, are
-    ported; any other model raises NotImplementedError."""
+    likelihoods/base.py with grouped random effects, one exact GP or one
+    Vecchia GP (the dense-precision Vecchia-Laplace path), are ported; any
+    other model raises NotImplementedError."""
     return GPModel(model_dict=d, device=device)
 
 

@@ -21,7 +21,12 @@ gaussian_latent; gp_model.py:468-495), by the Laplace approximation:
   * grouped random effects only: models/grouped_laplace.py, with slopes,
     crossed groupings, cluster_ids and observation weights;
   * one GP, gp_approx="none": the dense engine of models/laplace.py,
-    with observation weights.
+    with observation weights;
+  * one GP, gp_approx="vecchia": the dense-precision Vecchia-Laplace
+    engine (models/vecchia_laplace.py), with observation weights; as in
+    the reference, matrix_inversion_method="auto" means the matrix-free
+    path above n = 8,000, which is not ported yet and raises, so pass
+    "cholesky" there.
 
 GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
 every optimizer of models/optimize.py (gradient descent, Fisher scoring,
@@ -35,9 +40,9 @@ variance (predict_response) for the non-Gaussian likelihoods;
 package loads here. The likelihoods of likelihoods/families.py, other
 approximations, a GP combined with grouped effects for a non-Gaussian
 likelihood, GP random coefficients, weights with the Gaussian likelihood,
-the dense engines' cluster_ids, the iterative Woodbury branch (chosen
-automatically from q > 20,000) and posterior sampling raise
-NotImplementedError.
+the dense engines' cluster_ids, the iterative Woodbury and Vecchia-Laplace
+branches (chosen automatically from q > 20,000 and n > 8,000) and
+posterior sampling raise NotImplementedError.
 
 device: where the engine's tensors live (default: the first CUDA card; it
 raises without one, and the CPU runs only when device="cpu" is passed).
@@ -57,6 +62,7 @@ from .models.laplace import LaplaceDenseEngine
 from .models.optimize import (OptimConfig, OptimResult, optimize_gaussian,
                               optimize_laplace)
 from .models.vecchia import VecchiaGaussianEngine
+from .models.vecchia_laplace import VecchiaLaplaceEngine
 from .ops.cov_fcts import CovarianceFunction
 from .ops.distances import pairwise_dist
 from .utils.device import resolve_device, resolve_dtype
@@ -111,11 +117,10 @@ class GPModel:
         if likelihood != "gaussian":
             self._likelihood_obj = get_likelihood(
                 likelihood, likelihood_additional_param)
-            if gp_approx != "none":
+            if gp_approx not in ("none", "vecchia"):
                 raise NotImplementedError(
                     f"gp_approx '{gp_approx}' with likelihood "
-                    f"'{likelihood}' (Vecchia- and FITC-Laplace) is not "
-                    "ported yet")
+                    f"'{likelihood}' (FITC-Laplace) is not ported yet")
         if gp_approx not in ("none", "vecchia"):
             raise NotImplementedError(
                 f"gp_approx '{gp_approx}' is not ported yet ('none', "
@@ -198,8 +203,26 @@ class GPModel:
         self.cluster_ids = None if cluster_ids is None \
             else np.asarray(cluster_ids)
         self._vecchia = gp_approx == "vecchia"
+        if self._vecchia and (len(self.components) != 1
+                              or self.components[0].kind != "gp"):
+            raise NotImplementedError(
+                "gp_approx='vecchia' with grouped random effects is not "
+                "ported yet")
         self._use_woodbury = all(c.kind == "grouped" for c in self.components)
-        if self._likelihood_obj is not None:
+        if self._likelihood_obj is not None and self._vecchia:
+            # the reference's rule (gp_model.py:426-434): the matrix-free
+            # path above n = 8,000, the dense-precision Cholesky below
+            mim = matrix_inversion_method
+            if mim == "auto":
+                mim = "iterative" if self.num_data > 8000 else "cholesky"
+            self._engine = VecchiaLaplaceEngine(
+                self.components, self.num_data, self._likelihood_obj,
+                num_neighbors=num_neighbors if num_neighbors else 20,
+                vecchia_ordering=vecchia_ordering, seed=seed,
+                dtype=self._dtype, matrix_inversion_method=mim,
+                weights=self.weights, cluster_ids=self.cluster_ids,
+                device=self.device)
+        elif self._likelihood_obj is not None:
             if self._use_woodbury:
                 # the q-dimensional Laplace engine (likelihoods.h:2959 /
                 # :3223)
@@ -217,10 +240,6 @@ class GPModel:
                     cluster_ids=self.cluster_ids, dtype=self._dtype,
                     weights=self.weights, device=self.device)
         elif self._vecchia:
-            if len(self.components) != 1 or self.components[0].kind != "gp":
-                raise NotImplementedError(
-                    "gp_approx='vecchia' with grouped random effects is not "
-                    "ported yet")
             self._engine = VecchiaGaussianEngine(
                 self.components, self.num_data,
                 num_neighbors=num_neighbors if num_neighbors else 20,
@@ -271,6 +290,20 @@ class GPModel:
                 self._aux_override = v
             if hasattr(self.params, k):
                 setattr(self.params, k, v)
+        return self
+
+    def set_prediction_data(self, vecchia_pred_type=None,
+                            num_neighbors_pred=None, cg_delta_conv_pred=None,
+                            nsim_var_pred=None,
+                            rank_pred_approx_matrix_lanczos=None):
+        """Prediction settings (basic.py GPModel.set_prediction_data): the
+        Vecchia prediction type and neighbour count; the iterative
+        methods' settings are accepted without effect, as in the
+        reference."""
+        if vecchia_pred_type is not None:
+            self.vecchia_pred_type = vecchia_pred_type
+        if num_neighbors_pred is not None:
+            self.num_neighbors_pred = num_neighbors_pred
         return self
 
     def _default_init_cov_pars(self, y, optimizer_cov="lbfgs"):
@@ -617,10 +650,10 @@ class GPModel:
         training data for a non-Gaussian likelihood (the Booster passes
         its ensemble)."""
         r = self._require_fit()
-        if self._vecchia:
+        if self._vecchia and self._likelihood_obj is None:
             raise NotImplementedError(
                 "predict_training_data_random_effects is not ported yet for "
-                "gp_approx='vecchia'")
+                "gp_approx='vecchia' with the Gaussian likelihood")
         if self._likelihood_obj is not None:
             means, vs = self._training_re_laplace(r, predict_var, offset)
         else:

@@ -154,20 +154,24 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         y = torch.as_tensor(y, device=self.device)
         return y[self._perm].to(self.dtype)
 
-    def _bd(self, theta_log):
+    def _bd(self, theta_log, latent=False):
         """Batched Vecchia factors: A (n, m) coefficients, D (n,) diagonals
-        of the response covariance C = v K + I."""
+        of the response covariance C = v K + I, or with latent=True of the
+        latent covariance C = v K (no nugget; the Vecchia-Laplace
+        precision)."""
         v = torch.exp(theta_log[0])
         alphas = torch.exp(theta_log[1:])
         corr_nn, corr_ni = _corr_sets(self.comp.cov_fn, None, None, alphas,
                                       d_nn=self._d_nn, d_ni=self._d_ni)
-        K_nn = v * corr_nn + self._eye
+        K_nn = v * corr_nn
+        if not latent:
+            K_nn = K_nn + self._eye
         k_ni = v * corr_ni
         # padded neighbours: identity rows/cols in K_nn, zeros in k_ni
         K_nn = torch.where(self._pair_mask, K_nn, self._eye)
         k_ni = torch.where(self._nn_mask, k_ni, torch.zeros_like(k_ni))
         A = cho_solve_batched(K_nn, k_ni)
-        D = v + 1.0 - torch.sum(A * k_ni, dim=1)
+        D = (v if latent else v + 1.0) - torch.sum(A * k_ni, dim=1)
         return A, D
 
     def _B_apply(self, A, V):

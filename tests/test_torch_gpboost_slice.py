@@ -153,3 +153,82 @@ def test_unported_booster_options_raise(params):
     with pytest.raises(NotImplementedError):
         gpt.Booster({**PARAMS, **params}, gpt.Dataset(X, label=y),
                     gp_model=gp)
+
+
+# ----------------------------------------------------------------------
+# plain boosting (no GP model): Dataset weights, boost_from_average and the
+# reference's parameter aliases, held to the JAX package at n = 500, p = 4,
+# 7 leaves, 3 rounds (predictions to 1e-6), or raising NotImplementedError
+# naming the unported option
+N_PLAIN, P_PLAIN = 500, 4
+PLAIN = {"objective": "regression", "num_leaves": 7, "verbose": 0}
+
+
+def _plain_data(p=P_PLAIN):
+    rng = np.random.RandomState(11)
+    X = rng.rand(N_PLAIN, p)
+    y = 2 * X[:, 0] + np.sin(5 * X[:, 1]) + 0.3 * rng.randn(N_PLAIN)
+    return X, y, 0.2 + rng.rand(N_PLAIN)
+
+
+@pytest.mark.parametrize("case", ["weights", "no_boost_from_average",
+                                  "aliases_at_defaults"])
+def test_plain_boosting_options_match_jax(case):
+    X, y, w = _plain_data()
+    params, wt = dict(PLAIN), None
+    if case == "weights":
+        wt = w
+    elif case == "no_boost_from_average":
+        params["boost_from_average"] = False
+    else:
+        params.update(subsample=1.0, subsample_freq=0, colsample_bytree=1.0,
+                      sub_row=1.0, bagging=1.0, sub_feature=1.0,
+                      monotone_constraint=None, unbalance=False,
+                      unbalanced_sets=False)
+    bj = gpb.train(params, gpb.Dataset(X, label=y, weight=wt),
+                   num_boost_round=3, callbacks=[lambda env: None])
+    bp = gpt.train(params, gpt.Dataset(X, label=y, weight=wt),
+                   num_boost_round=3, device="cpu")
+    np.testing.assert_allclose(bp.init_score, bj.init_score, rtol=1e-12)
+    np.testing.assert_allclose(bp.predict(X), np.asarray(bj.predict(X)),
+                               rtol=0, atol=1e-6)
+    if case == "no_boost_from_average":
+        assert bp.init_score == 0.0
+
+
+@pytest.mark.parametrize("params,key", [
+    ({"subsample": 0.5, "subsample_freq": 1}, "bagging_fraction"),
+    ({"subsample_freq": 1}, "bagging_freq"),
+    ({"sub_row": 0.5}, "bagging_fraction"),
+    ({"bagging": 0.5}, "bagging_fraction"),
+    ({"colsample_bytree": 0.5}, "feature_fraction"),
+    ({"sub_feature": 0.5}, "feature_fraction"),
+    ({"monotone_constraint": [1, 0, 0, 0]}, "monotone_constraints"),
+    ({"unbalance": True}, "is_unbalance"),
+    ({"unbalanced_sets": True}, "is_unbalance"),
+    ({"zero_as_missing": True}, "zero_as_missing"),
+    ({"use_missing": False}, "use_missing"),
+    ({"drop_rate": 0.2}, "drop_rate"),
+    ({"alpha": 0.5}, "alpha"),
+    ({"eval_at": [1, 3]}, "eval_at"),
+    ({"bagging_seed": 7}, "bagging_seed"),
+])
+def test_plain_boosting_unported_options_raise(params, key):
+    X, y, _ = _plain_data()
+    with pytest.raises(NotImplementedError, match=key):
+        gpt.train({**PLAIN, **params}, gpt.Dataset(X, label=y),
+                   num_boost_round=1, device="cpu")
+
+
+def test_reference_defaults_pass_and_every_key_is_known():
+    """Every key of the reference's _BOOST_PARAM_DEFAULTS is read or
+    checked by the port, and passing all of them at their defaults (eval_at
+    as a list) trains."""
+    from gpboost_tpu.boosting.gbdt import _BOOST_PARAM_DEFAULTS as ref
+    from gpboost_tpu_torch.boosting.gbdt import _BOOST_PARAM_DEFAULTS
+    assert set(ref) <= set(_BOOST_PARAM_DEFAULTS)
+    X, y, _ = _plain_data()
+    params = {**ref, **PLAIN, "eval_at": list(ref["eval_at"])}
+    bp = gpt.train(params, gpt.Dataset(X, label=y), num_boost_round=1,
+                   device="cpu")
+    assert len(bp.trees) == 1

@@ -248,3 +248,10 @@ def test_port_never_imports_jax(path):
             top = nm.split(".")[0]
             assert top not in ("jax", "jaxlib", "gpboost_tpu"), \
                 f"{path}:{node.lineno} imports {nm}"
+
+
+def test_import_check_covers_the_slice_modules():
+    """The AST check above reaches every module of the port by its glob,
+    the Laplace slices' engines among them."""
+    for mod in ("laplace", "grouped_laplace", "vecchia_laplace"):
+        assert f"gpboost_tpu_torch/models/{mod}.py" in _PORT_FILES
