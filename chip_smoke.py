@@ -2,6 +2,11 @@
 """Smoke test of the PyTorch port (gpboost_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --phases 23-26 [--vlb-maxit 0]
+                                     # phases 1-2 and the groups asked for
+                                     # (3-8, 9-14, 15-19, 20-22, then 23,
+                                     # 24, 25, 26 each alone); no result
+                                     # lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -102,22 +107,62 @@ Phases; any failure exits non-zero and prints no result line:
      seed 3, bernoulli_probit, exponential, 20 neighbours, the dense
      precision path, float32, maxit 20, init_cov_pars [1.0, 0.1]): a first
      fit, a second after reset_fit (seconds, iterations, Newton steps,
-     host syncs, peak device memory), a third under torch.profiler (device
-     busy share); the reference library's time beside it; one float64 fit
-     of the same data with its covariance parameters beside float32's;
+     host syncs, peak device memory); the reference library's time beside
+     it; one float64 fit of the same data with its covariance parameters
+     beside float32's (a third, profiled fit was cut for phases 23-26);
  21. hist_segment at its shapes (n = 20,000, p = 5, uint8: phase 3's
      checks and times), then binary Vecchia LaGaBoost at n = 20,000
      (sim_lagab, p = 5, seed 4; the GP model of phase 20 with its default
-     initial values; 31 leaves, learning rate 0.1) for 10 rounds,
-     then the response on 1,000 new points: init-score and first-fit
-     seconds, seconds per round, host syncs of one steady round, device
-     busy share of two more; hist_segment launches (must be positive);
+     initial values; 31 leaves, learning rate 0.1) for 3 rounds (10 before
+     phases 23-26), then the response on 1,000 new points: init-score and
+     first-fit seconds, seconds per round, host syncs of one steady round,
+     device busy share of two more; hist_segment launches (must be
+     positive);
  22. card vs CPU at n = 2,000 in float64 (random ordering): the engine's
      NLL, g_u and g_F to rtol 1e-8 with equal Newton steps, a fit (rtol
      1e-4, equal iterations), 3 LaGaBoost rounds (phase 5's near-tie rule,
      predictions to 1e-4); then the R goldens of
      tests/test_vecchia_laplace_golden.py on the card at that file's
-     tolerances.
+     tolerances;
+ 23. the iterative methods' pieces, card against CPU: pcg, pcg_it's
+     per-column counts, pcg_batched, an SLQ log-determinant and its
+     gradient, the pivoted Cholesky (rtol 1e-9, counts equal); the
+     Vecchia operators B v and B'w at n = 2,000 against B built densely
+     (1e-12), B'w bitwise equal across two launches;
+ 24. the reference's vecchia_laplace_n20k as it runs it
+     (bench_reference.py:229-236): phase 20's data and model with
+     matrix_inversion_method "iterative" (vadu), float64: a first fit and
+     one after reset_fit (seconds, iterations, Newton steps, CG
+     iterations, host syncs, peak device memory; no float64 solve may stop
+     at cg_max_num_it), the device busy share of one NLL and gradient, the
+     matrix-free operator's times (a CG iteration, an S_J application, a
+     Lanczos step) beside their byte bounds, the covariance parameters
+     against phase 20's dense float64 fit (rtol 1e-1), the reference's
+     60.302 s; then one float32 fit with its solves at cg_max_num_it;
+ 25. hist_segment at n = 50,000, p = 5 (phase 3's checks and times), then
+     binary Vecchia LaGaBoost at the reference's n = 50,000 (sim_lagab,
+     seed 4; bench_reference.py:90-99, :190-203), iterative, float64, 31
+     leaves, learning rate 0.1, cut in depth to 2 rounds with the GP
+     model's first fit capped at 5 iterations (--vlb-maxit): init-score
+     and first-fit seconds, seconds per round and each round's GD refit
+     (iterations, NLL and gradient evaluations, seconds, CG), host syncs
+     of the second round, device busy share of one gradient, CG totals
+     (none at cg_max_num_it), peak device memory (below one n x n float64
+     matrix), hist_segment launches (must be positive), the operator's
+     times (B'w also against SegmentSum); the response on 1,000 new
+     points with 500 simulation draws; the reference's 2,870.2 s for 10
+     rounds beside;
+ 26. card against CPU at n = 2,000, iterative, float64, 10 probes, fits
+     capped at 3 iterations: the engine's NLL (rtol 1e-6), g_u and g_F
+     (1e-4) and Newton steps, a fit (1e-3, equal iterations), 2 LaGaBoost
+     rounds with the default per-round GD refit (3 rounds without it
+     before; the CPU side of a refit is the cost): each refit's steps on
+     both sides, which must be the same GD decisions (parameters 1e-4,
+     NLLs 1e-8) or part only at a decision taken on NLLs within 1e-8,
+     trees under phase 5's near-tie rule, predictions to 1e-4; then the
+     grouped iterative branch at q = 25,000 (n = 100,000), which auto
+     takes, against the Cholesky branch on the card (NLL 1e-4, gradient
+     1e-1, fit 1e-2).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -166,6 +211,13 @@ VL_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
 VL_FIT = {"maxit": MAXIT_VL, "init_cov_pars": [1.0, 0.1]}
 VLB = {"objective": "binary", "learning_rate": 0.1, "num_leaves": 31,
        "verbose": 0}
+ROUNDS_VL_DENSE = 3
+# the iterative slice: the reference's iterative vecchia_laplace_n20k
+# (bench_reference.py:229-236), its binary Vecchia LaGaBoost at n = 50,000
+# (bench_reference.py:90-99, :190-203) and the grouped iterative branch
+VL_ITER = {**VL_MODEL, "matrix_inversion_method": "iterative"}
+N_VLB_ITER, MAXIT_VLB_ITER = 50_000, 5
+N_GROUPED_ITER, Q_GROUPED_ITER = 100_000, 25_000
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
@@ -281,19 +333,31 @@ def _time_ms(torch, fn, reps=25):
 def _device_ms(torch, fn, reps=25, kernel="hist_"):
     """The kernel's own device time in ms per call of fn(): the summed
     durations of the device kernels whose name holds `kernel` under
-    torch.profiler, over reps calls. None when the profiler saw none."""
+    torch.profiler, over reps calls. A trace without such a kernel (seen
+    once at n = 50,000 after phase 24's trace) prints what it held, and a
+    second trace is taken; None when neither has one."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if str(e.device_type).endswith("CUDA") and kernel in e.name]
-    return sum(spans) * 1e-3 / reps if spans else None
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        dev = [e for e in events if str(e.device_type).endswith("CUDA")]
+        spans = [e.time_range.end - e.time_range.start for e in dev
+                 if kernel in e.name]
+        if spans:
+            return sum(spans) * 1e-3 / reps
+        names = sorted({e.name[:50] for e in dev})
+        print(f"[profiler] trace {attempt + 1} holds no '{kernel}' kernel: "
+              f"{len(events)} events, {len(dev)} on the device "
+              f"({names[:6]}), host events naming it "
+              f"{sum(kernel in e.name for e in events)}", flush=True)
+    return None
 
 
 def _fmt_ms(x):
@@ -1655,8 +1719,10 @@ def phase_vecchia_laplace(torch, gpt):
     seed 3, bernoulli_probit, exponential, 20 neighbours, the dense
     precision path (cholesky), float32, maxit 20, init_cov_pars
     [1.0, 0.1]. A first fit, a second after reset_fit (seconds,
-    iterations, Newton steps, host syncs, peak device memory), a third
-    under torch.profiler (device busy share); then one float64 fit."""
+    iterations, Newton steps, host syncs, peak device memory); then one
+    float64 fit, whose covariance parameters phase 24 holds the iterative
+    fit to (returned). The profiled third fit of earlier runs is cut to
+    make room for phases 23-26."""
     coords, y = sim_vl(N_VL)
     torch.cuda.reset_peak_memory_stats()
     model, first_s = _vl_fit(torch, gpt, coords, y, "float32")
@@ -1675,18 +1741,11 @@ def phase_vecchia_laplace(torch, gpt):
             and 0 < r.num_it <= MAXIT_VL):
         raise AssertionError(f"vecchia-laplace: cov pars {cov}, "
                              f"{r.num_it} iterations")
-    model.reset_fit()
-    kernels = {}
-    busy, wall, _ = _device_busy_s(torch, lambda: model.fit(
-        y=y, params=VL_FIT), by_name=kernels)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print("[vecchia-laplace] device time of the third fit by kernel: "
-          + "; ".join(f"{k[:70]} {v:.3f} s" for k, v in top), flush=True)
     print(f"[vecchia-laplace] n={N_VL} m={M_VL} bernoulli_probit cholesky "
           f"float32: first fit {first_s:.3f} s; after reset_fit "
           f"{secs:.3f} s, {r.num_it} iterations ({r.optimizer}), {steps} "
-          f"Newton steps, {syncs} host syncs; device busy over a third fit "
-          f"{_busy_txt(busy, wall)}; peak device memory {peak:.2f} GiB; nll "
+          f"Newton steps, {syncs} host syncs; peak device memory "
+          f"{peak:.2f} GiB; nll "
           f"{r.neg_log_likelihood:.4f}, cov pars {cov.tolist()}", flush=True)
     ref = _reference_time("vecchia_laplace_fit_n20k_binary")
     if ref is not None:
@@ -1706,15 +1765,17 @@ def phase_vecchia_laplace(torch, gpt):
           f"{m64._fit_result.neg_log_likelihood:.4f}, cov pars "
           f"{cov64.tolist()} (float32: {cov.tolist()}, max rel diff "
           f"{float(np.max(np.abs(cov / cov64 - 1.0))):.3g})", flush=True)
+    return cov64
 
 
-def phase_segment_vl(torch, gpt, histogram, kernel_row):
-    """hist_segment at Vecchia LaGaBoost's shapes: sim_lagab's n = 20,000
-    rows, p = 5, uint8, the real bin count; whole and part segments and a
-    one-bin feature with the checks of phase 3, and the whole segment's
-    times, added to kernel_row under "at_n20k_p5"."""
+def phase_segment_vl(torch, gpt, histogram, kernel_row, n_rows=N_VL):
+    """hist_segment at Vecchia LaGaBoost's shapes: sim_lagab's n_rows
+    (20,000 in phase 21, 50,000 in phase 25) rows, p = 5, uint8, the real
+    bin count; whole and part segments and a one-bin feature with the
+    checks of phase 3, and the whole segment's times, added to kernel_row
+    under "at_n20k_p5" (or n50k)."""
     dev = torch.device("cuda")
-    _, X, y = sim_lagab(N_VL)
+    _, X, y = sim_lagab(n_rows)
     ds = gpt.Dataset(X, label=y)
     ds.construct()
     num_bins = int(ds.num_bins)
@@ -1749,15 +1810,18 @@ def phase_segment_vl(torch, gpt, histogram, kernel_row):
           f"segment: {row['ms']:.4f} ms by events, "
           f"{_fmt_ms(row['device_ms'])} device, plain {row['plain_ms']:.4f} "
           f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
-    kernel_row["at_n20k_p5"] = row
+    kernel_row[f"at_n{n // 1000}k_p{p}"] = row
 
 
-def _train_vl_lagaboost(torch, gpt, n, device, dtype, rounds):
+def _train_vl_lagaboost(torch, gpt, n, device, dtype, rounds,
+                        model=VL_MODEL, gp_params=None, params=VLB):
     """(booster, gp, construction s incl. the init score, first-fit s,
     per-round s) of binary Vecchia LaGaBoost on sim_lagab."""
     coords, X, y = sim_lagab(n)
     gp = gpt.GPModel(gp_coords=coords, dtype=dtype, device=device,
-                     **VL_MODEL)
+                     **model)
+    if gp_params:
+        gp.set_optim_params(params=gp_params)
     fit_secs = []
     fit = gp.fit
 
@@ -1771,7 +1835,7 @@ def _train_vl_lagaboost(torch, gpt, n, device, dtype, rounds):
 
     gp.fit = timed_fit
     t0 = time.perf_counter()
-    bst = gpt.Booster(VLB, gpt.Dataset(X, label=y), gp_model=gp,
+    bst = gpt.Booster(params, gpt.Dataset(X, label=y), gp_model=gp,
                       device=device)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1791,23 +1855,26 @@ def _train_vl_lagaboost(torch, gpt, n, device, dtype, rounds):
 def phase_vecchia_lagaboost(torch, gpt, histogram):
     """Binary Vecchia LaGaBoost at n = 20,000, p = 5 (sim_lagab, seed 4;
     the GP model of phase 20 in float32; 31 leaves, learning rate 0.1) for
-    10 rounds, then the response on 1,000 new points. Returns
-    hist_segment's launches over the 10 rounds."""
+    3 rounds (10 in earlier runs; cut to make room for phases 23-26), then
+    the response on 1,000 new points. Returns hist_segment's launches over
+    the 3 rounds."""
     _reset_launches(histogram)
     bst, gp, init_s, fit_s, secs = _train_vl_lagaboost(
-        torch, gpt, N_VL, "cuda", "float32", ROUNDS)
+        torch, gpt, N_VL, "cuda", "float32", ROUNDS_VL_DENSE)
     launches = histogram.hist_segment.launches
     from collections import Counter
     sites = Counter()
     _, syncs = _count_syncs(torch, bst.update, sites)
-    print("[vecchia-lagaboost] host syncs of round 11 by Python line: "
+    print(f"[vecchia-lagaboost] host syncs of round {ROUNDS_VL_DENSE + 1} by "
+          "Python line: "
           + ", ".join(f"{k} x{v}" for k, v in sites.most_common(8)),
           flush=True)
     kernels = {}
     busy, wall, hist_s = _device_busy_s(
         torch, lambda: [bst.update() for _ in range(2)], by_name=kernels)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print("[vecchia-lagaboost] device time of rounds 12-13 by kernel: "
+    print(f"[vecchia-lagaboost] device time of rounds {ROUNDS_VL_DENSE + 2}-"
+          f"{ROUNDS_VL_DENSE + 3} by kernel: "
           + "; ".join(f"{k[:70]} {v:.3f} s" for k, v in top), flush=True)
     rng = np.random.RandomState(SEED_VLB + 1)
     Xn, cn = rng.rand(N_PRED, P_VLB), rng.rand(N_PRED, 2)
@@ -1828,15 +1895,18 @@ def phase_vecchia_lagaboost(torch, gpt, histogram):
         raise AssertionError(f"vecchia lagaboost: {launches} hist_segment "
                              "launches")
     print(f"[vecchia-lagaboost] n={N_VL} p={P_VLB} m={M_VL} bernoulli_probit "
-          f"float32, {ROUNDS} rounds: booster with init score {init_s:.3f} s "
+          f"float32, {ROUNDS_VL_DENSE} rounds: booster with init score "
+          f"{init_s:.3f} s "
           f"(init score {bst.init_score:.5f}); first GP fit {fit_s:.3f} s "
           f"({gp._fit_result.optimizer}, {gp._fit_result.num_it} "
           f"iterations); mean per round {np.mean(secs):.4f} s (min "
           f"{np.min(secs):.4f}, max {np.max(secs):.4f}); host syncs in round "
-          f"{ROUNDS + 1}: {syncs}; device busy over rounds {ROUNDS + 2}-"
-          f"{ROUNDS + 3}: {_busy_txt(busy, wall, hist_s)}; predict "
+          f"{ROUNDS_VL_DENSE + 1}: {syncs}; device busy over rounds "
+          f"{ROUNDS_VL_DENSE + 2}-"
+          f"{ROUNDS_VL_DENSE + 3}: {_busy_txt(busy, wall, hist_s)}; predict "
           f"{N_PRED} points {pred_s:.3f} s; cov pars {cov.tolist()}; "
-          f"hist_segment launches over the {ROUNDS} rounds {launches}",
+          f"hist_segment launches over the {ROUNDS_VL_DENSE} rounds "
+          f"{launches}",
           flush=True)
     return launches
 
@@ -1951,56 +2021,728 @@ def phase_vecchia_laplace_card_vs_cpu(torch, gpt):
           f"{d_coef:.3g}, predictions {max(d_pred):.3g}", flush=True)
 
 
-def main():
+# ----------------------------------------------------------------------
+# phases 23-26: the iterative methods and the matrix-free Vecchia-Laplace
+class _RefitLog:
+    """Records, while entered, every warm-started GD refit of the
+    covariance parameters that a LaGaBoost round runs
+    (gpboost_tpu_torch.boosting.gbdt's gd_fit_laplace_engine): per refit
+    its GD iterations, final learning rate, parameters and NLL, the NLL
+    and gradient evaluations it made, its seconds and the CG solves of
+    its evaluations (the engine's cg_stats accumulator, copied on the
+    device: the log adds no host read); and in `trace` every evaluation's
+    kind, point u and NLL, in order, over all refits."""
+
+    def __init__(self, torch):
+        self.torch, self.refits, self.trace = torch, [], []
+
+    def __enter__(self):
+        from gpboost_tpu_torch.boosting import gbdt
+        self.gbdt, self.fn = gbdt, gbdt.gd_fit_laplace_engine
+        gbdt.gd_fit_laplace_engine = self._refit
+        return self
+
+    def __exit__(self, *exc):
+        self.gbdt.gd_fit_laplace_engine = self.fn
+
+    def _refit(self, eng, *a, **k):
+        ev, nll_fn, grad_fn = {"nll": 0, "grad": 0}, eng.laplace_nll, \
+            eng.laplace_grad
+
+        def nll(u, *x):
+            v, b = nll_fn(u, *x)
+            ev["nll"] += 1
+            self.trace.append(("nll", np.array(u), v))
+            return v, b
+
+        def grad(u, *x):
+            g, b = grad_fn(u, *x)
+            ev["grad"] += 1
+            self.trace.append(("grad", np.array(u), None))
+            return g, b
+
+        def acc():
+            return None if eng._cg_acc is None else eng._cg_acc.clone()
+
+        cg0 = acc()
+        eng.laplace_nll, eng.laplace_grad = nll, grad
+        t0 = time.perf_counter()
+        try:
+            # the refit ends on host reads of its NLL: no sync is needed
+            out = self.fn(eng, *a, **k)
+        finally:
+            del eng.laplace_nll, eng.laplace_grad
+        self.refits.append({"it": out[4], "lr": out[3], "pars": out[0],
+                            "nll": out[2], "evals": ev, "cg": (cg0, acc()),
+                            "secs": time.perf_counter() - t0})
+        return out
+
+    def lines(self):
+        out = []
+        for i, r in enumerate(self.refits):
+            a, b = r["cg"]
+            cg = [0, 0, 0] if b is None else (
+                b if a is None else b - a).tolist()
+            out.append(
+                f"refit {i + 1}: {r['it']} GD iterations, "
+                f"{r['evals']['nll']} NLL and {r['evals']['grad']} gradient "
+                f"evaluations, {r['secs']:.3f} s, lr {r['lr']:.6g}, cov pars "
+                f"{np.asarray(r['pars']).tolist()}, nll {r['nll']:.10f}, CG "
+                f"{cg[1]} iterations in {cg[0]} columns ({cg[2]} at maxit)")
+        return out
+
+
+def _first_parting(ta, tb, u_tol=1e-4):
+    """(index, largest relative NLL difference before it) of the first
+    evaluation at which two refit traces part: another kind of
+    evaluation, or a point u that differs by more than u_tol relative to
+    its largest entry (a GD step taken at another length; the same steps
+    differ by the gradients' CG-level error, ~1e-6); index None when they
+    never part."""
+    worst = 0.0
+    for i, ((ka, ua, va), (kb, ub, vb)) in enumerate(zip(ta, tb)):
+        if ka != kb or np.max(np.abs(ua - ub)) > u_tol * np.max(np.abs(ub)):
+            return i, worst
+        if va is not None:
+            worst = max(worst, abs(va / vb - 1.0))
+    if len(ta) != len(tb):
+        return min(len(ta), len(tb)), worst
+    return None, worst
+
+
+def _spd(n, seed):
+    """A small SPD matrix with a spread spectrum, its Jacobi diagonal."""
+    rng = np.random.RandomState(seed)
+    M = rng.randn(n, n)
+    G = M @ M.T / n + np.diag(0.5 + rng.rand(n))
+    return G, rng
+
+
+def phase_iterative_pieces(torch, gpt):
+    """The primitives of ops/iterative.py and the Vecchia operators, card
+    against CPU: pcg (tol 1e-10), pcg_it's per-column counts, pcg_batched,
+    an SLQ log-determinant and its gradient, the pivoted Cholesky on a
+    200 x 200 SPD operator (rtol 1e-9, counts equal); B v and B'w at
+    n = 2,000 against B built densely (1e-12 of the largest entry, one
+    column and 8), B'w bitwise equal across two launches."""
+    from gpboost_tpu_torch.ops import iterative as it
+    nq = 200
+    G, rng = _spd(nq, SEED)
+    b, B = rng.randn(nq), rng.randn(nq, 6)
+    coords = rng.rand(nq, 2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        Gd = torch.as_tensor(G, device=dev)
+        dg = torch.diagonal(Gd)
+
+        def mv(v):
+            return Gd @ v
+
+        def pre(r):
+            return r / (dg if r.ndim == 1 else dg[:, None])
+
+        bd, Bd = (torch.as_tensor(a, device=dev) for a in (b, B))
+        x = it.pcg(mv, bd, pre, tol=1e-10)
+        X, its = it.pcg_it(mv, Bd, pre, tol=1e-8)
+        Xb = it.pcg_batched(mv, Bd.T, None, tol=1e-8)
+        slq = it.make_slq_logdet(lambda th, v: Gd @ v + torch.exp(th[0]) * v,
+                                 nq, rank=40, num_probes=20, seed=3,
+                                 device=dev)
+        th = torch.tensor([0.3], dtype=torch.float64, device=dev,
+                          requires_grad=True)
+        val = slq(th)
+        (g,) = torch.autograd.grad(val, th)
+        L, drem = it.pivoted_cholesky_kernel(
+            torch.as_tensor(coords, device=dev), 1.3,
+            lambda d: torch.exp(-d / 0.2), 25)
+        out[dev] = [t.detach().cpu().numpy() for t in
+                    (x, X, its, Xb, val, g, L, drem)]
+    names = ("pcg", "pcg_it x", "pcg_it counts", "pcg_batched", "slq value",
+             "slq gradient", "pivoted cholesky L", "pivoted cholesky d")
+    errs = {}
+    for nm, a, c in zip(names, out["cuda"], out["cpu"]):
+        if nm == "pcg_it counts":
+            if not np.array_equal(a, c):
+                raise AssertionError(f"iterative pieces: {nm} {a} vs {c}")
+            continue
+        errs[nm] = float(np.max(np.abs(a - c)) / max(np.max(np.abs(c)),
+                                                     1e-300))
+    if not max(errs.values()) < 1e-9:
+        raise AssertionError(f"iterative pieces card vs CPU: {errs}")
+    ex = np.linalg.solve(G, b)
+    if not np.max(np.abs(out["cuda"][0] - ex)) < 1e-8 * np.max(np.abs(ex)):
+        raise AssertionError("pcg against a dense solve")
+    # the Vecchia operators at n = 2,000
+    coords, y = sim_vl(N_VL_CPU)
+    eng = gpt.GPModel(gp_coords=coords, dtype="float64", device="cuda",
+                      **VL_ITER)._engine
+    with torch.no_grad():
+        A, D = eng._vecchia._bd(eng._t(np.log([0.9, 10.0])), latent=True)
+        idx = eng._vecchia._nn_idx
+        An, In = A.cpu().numpy(), idx.cpu().numpy()
+        Bm = np.eye(N_VL_CPU)
+        np.add.at(Bm, (np.repeat(np.arange(N_VL_CPU), In.shape[1]),
+                       In.reshape(-1)), -An.reshape(-1))
+        op_err = 0.0
+        bitwise = True
+        for k in (None, 8):
+            V = rng.randn(N_VL_CPU) if k is None else rng.randn(N_VL_CPU, k)
+            Vd = eng._t(V)
+            for name, f, ref in (("Bv", eng._Bv, Bm @ V),
+                                 ("B'w", eng._Btv, Bm.T @ V)):
+                r1, r2 = f(A, Vd), f(A, Vd)
+                op_err = max(op_err, float(np.max(np.abs(
+                    r1.cpu().numpy() - ref)) / np.max(np.abs(ref))))
+                bitwise &= bool(torch.equal(r1, r2))
+    if not (op_err < 1e-12 and bitwise):
+        raise AssertionError(f"vecchia operators: max rel err {op_err}, "
+                             f"bitwise {bitwise}")
+    print("[iterative pieces] card vs CPU, max rel diff: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; pcg_it counts {out["cuda"][2].tolist()} both; Vecchia B v "
+          f"and B'w at n={N_VL_CPU} (1 and 8 columns) against B built "
+          f"densely: max rel err {op_err:.3g}, B'w bitwise equal across "
+          "two launches", flush=True)
+
+
+def _operator_times(torch, eng, u, y, b):
+    """ms per vadu CG iteration, per S_J application (one column) and per
+    Lanczos step (the SLQ value over num_rand_vec_trace probes / 50), each
+    with its byte bound, at the engine's size and the parameters u."""
+    n, m = eng.n, eng._vecchia.m
+    with torch.no_grad():
+        ud = eng._t(u)
+        th, aux = eng._split_u(ud)
+        A, D = eng._vecchia._bd(th, latent=True)
+        yv, Fv = eng._to_vecchia(eng.prep_y(y)), eng.zero_mode()
+        _, W = eng._d1_W(yv, b + Fv, aux, eng._fisher_det, False)
+        v = eng._t(np.random.RandomState(SEED).randn(n))
+        _, its = eng._solve_qw(A, D, W, v, th)
+        its = int(its)
+        cg_ms = _time_ms(torch, lambda: eng._solve_qw(A, D, W, v, th),
+                         reps=3) / its
+        sj_ms = _time_ms(torch, lambda: eng._SJ(A, v), reps=10)
+        slq = eng._slq()
+        rank = min(eng.n, 50)
+        lz_ms = _time_ms(torch, lambda: slq(A, D, W), reps=2) / rank
+        # B'w over the probes' columns: the engine's weighted bags against
+        # SegmentSum (the grouped engines' deterministic sum) of the formed
+        # (n m, k) products
+        from gpboost_tpu_torch.models.grouped_re import SegmentSum
+        k = eng.num_rand_vec_trace
+        T = eng._t(np.random.RandomState(SEED).randn(n, k))
+        seg = SegmentSum(eng._flat_idx.cpu().numpy(), n, eng.device)
+
+        def bw_seg():
+            return T - seg((A[:, :, None] * T[:, None, :]).reshape(-1, k))
+
+        bw_ms = _time_ms(torch, lambda: eng._Btv(A, T), reps=10)
+        bw_seg_ms = _time_ms(torch, bw_seg, reps=10)
+        bw_err = float((eng._Btv(A, T) - bw_seg()).abs().max()
+                       / bw_seg().abs().max())
+        if not bw_err < 1e-12:
+            raise AssertionError(f"B'w: bags against SegmentSum {bw_err}")
+    isz = torch.finfo(eng.dtype).bits // 8
+
+    def pass_bytes(cols):
+        # index and coefficient per slot, base and operand read, result
+        return n * m * (8 + isz) + 3 * n * cols * isz
+
+    b_sj = bound(32 * pass_bytes(1), 32 * 2 * n * m)
+    b_cg = bound(66 * pass_bytes(1) + 12 * n * isz, 66 * 2 * n * m)
+    b_lz = bound(66 * pass_bytes(k) + 12 * n * k * isz, 66 * 2 * n * m * k)
+    eng.cg_stats(reset=True)
+    return {"cg_iteration_ms": cg_ms, "cg_its": its, "sj_ms": sj_ms,
+            "lanczos_step_ms": lz_ms, "bound_cg_ms": b_cg[0],
+            "bound_sj_ms": b_sj[0], "bound_lanczos_ms": b_lz[0],
+            "bw_ms": bw_ms, "bw_segment_sum_ms": bw_seg_ms,
+            "bound_bw_ms": bound(pass_bytes(k), 2 * n * m * k)[0], "k": k}
+
+
+def _fmt_ops(t):
+    return (f"vadu CG iteration {t['cg_iteration_ms']:.3f} ms (bound "
+            f"{t['bound_cg_ms']:.4f}; {t['cg_its']} iterations), S_J on one "
+            f"column {t['sj_ms']:.3f} ms (bound {t['bound_sj_ms']:.4f}), "
+            f"Lanczos step over the probes {t['lanczos_step_ms']:.3f} ms "
+            f"(bound {t['bound_lanczos_ms']:.4f}); B'w over {t['k']} columns "
+            f"{t['bw_ms']:.4f} ms by the weighted bags, "
+            f"{t['bw_segment_sum_ms']:.4f} ms by SegmentSum of the formed "
+            f"products (bound {t['bound_bw_ms']:.4f})")
+
+
+def phase_vecchia_laplace_iterative(torch, gpt, cov_dense64):
+    """The reference's vecchia_laplace_n20k as it runs it
+    (bench_reference.py:229-236): sim_vl n = 20,000, seed 3,
+    bernoulli_probit, exponential, 20 neighbours, iterative with vadu,
+    float64, maxit 20, init_cov_pars [1.0, 0.1]. A first fit and a fit
+    after reset_fit: seconds, iterations, Newton steps, CG iterations
+    (mode finding, and every solve with the SLQ probes'), host syncs, peak
+    device memory; no float64 solve may stop at cg_max_num_it. Device busy
+    share of one NLL-and-gradient evaluation at the estimate
+    (torch.profiler); the operator's times; the covariance parameters
+    against phase 20's dense float64 fit (rtol 1e-1, the R suite's
+    TOL_ITERATIVE); then one float32 fit with its solves at maxit."""
+    coords, y = sim_vl(N_VL)
+    model = gpt.GPModel(gp_coords=coords, dtype="float64", device="cuda",
+                        **VL_ITER)
+    eng = model._engine
+    rows = []
+    for label in ("first fit", "after reset_fit"):
+        if rows:
+            model.reset_fit()
+        eng.total_num_mode_it = eng.total_num_cg_it = 0
+        eng.cg_stats(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, syncs = _count_syncs(torch, lambda: model.fit(y=y,
+                                                         params=VL_FIT))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cg = eng.cg_stats(reset=True)
+        r = model._fit_result
+        rows.append((label, secs, r.num_it, eng.total_num_mode_it,
+                     eng.total_num_cg_it, cg, syncs,
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+        if cg["at_maxit"]:
+            raise AssertionError(f"vecchia-laplace iterative {label}: "
+                                 f"{cg['at_maxit']} float64 CG solves "
+                                 "stopped at cg_max_num_it")
+    cov = model.get_cov_pars()
+    rel = float(np.max(np.abs(cov / cov_dense64 - 1.0)))
+    if not (np.all(np.isfinite(cov)) and rel < 1e-1
+            and 0 < model.get_num_optim_iter() <= MAXIT_VL):
+        raise AssertionError(f"vecchia-laplace iterative: cov pars {cov} "
+                             f"against the dense fit's {cov_dense64}")
+    r = model._fit_result
+    u = np.log(eng.transform_pars(r.cov_pars))
+    kernels = {}
+    busy, wall, _ = _device_busy_s(torch, lambda: eng.laplace_vag(
+        u, y, np.zeros(N_VL), r.mode_state), by_name=kernels)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    ops = _operator_times(torch, eng, u, y, r.mode_state)
+    for label, secs, nit, newton, cgm, cg, syncs, peak in rows:
+        print(f"[vecchia-laplace iterative] n={N_VL} m={M_VL} vadu float64 "
+              f"{label}: {secs:.3f} s, {nit} iterations ({r.optimizer}), "
+              f"{newton} Newton steps, {cgm} CG iterations in the mode "
+              f"finding, {cg['iterations']} in all {cg['solves']} solved "
+              f"columns ({cg['at_maxit']} at cg_max_num_it), {syncs} host "
+              f"syncs, peak device memory {peak:.2f} GiB", flush=True)
+    print(f"[vecchia-laplace iterative] one NLL and gradient at the "
+          f"estimate: device busy {_busy_txt(busy, wall)}; by kernel: "
+          + "; ".join(f"{k[:60]} {v:.3f} s" for k, v in top), flush=True)
+    print(f"[vecchia-laplace iterative] n={N_VL}: {_fmt_ops(ops)}",
+          flush=True)
+    print(f"[vecchia-laplace iterative] cov pars {cov.tolist()}, nll "
+          f"{r.neg_log_likelihood:.4f}; the dense float64 fit's "
+          f"{cov_dense64.tolist()}: max rel diff {rel:.3g}", flush=True)
+    ref = _reference_time("vecchia_laplace_fit_n20k_binary")
+    if ref is not None:
+        print(f"[vecchia-laplace iterative] the reference C++ library, "
+              f"iterative float64 (BASELINE_MEASURED.json, "
+              f"bench_reference.py:229-236, {ref[2]} CPU thread(s)): "
+              f"{ref[0]} s, {ref[1]} iterations", flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+    m32 = gpt.GPModel(gp_coords=coords, dtype="float32", device="cuda",
+                      **VL_ITER)
+    t0 = time.perf_counter()
+    m32.fit(y=y, params=VL_FIT)
+    torch.cuda.synchronize()
+    secs32 = time.perf_counter() - t0
+    cg32 = m32._engine.cg_stats()
+    cov32 = m32.get_cov_pars()
+    print(f"[vecchia-laplace iterative] float32: {secs32:.3f} s, "
+          f"{m32.get_num_optim_iter()} iterations, "
+          f"{m32._engine.total_num_mode_it} Newton steps, "
+          f"{m32.get_total_num_cg_steps()} CG iterations in the mode "
+          f"finding, {cg32['iterations']} in all {cg32['solves']} solved "
+          f"columns, {cg32['at_maxit']} of them at cg_max_num_it; cov pars "
+          f"{cov32.tolist()} (max rel diff to float64 "
+          f"{float(np.max(np.abs(cov32 / cov - 1.0))):.3g})", flush=True)
+    return rows
+
+
+def phase_vecchia_lagaboost_iterative(torch, gpt, histogram, kernel_row,
+                                      maxit=MAXIT_VLB_ITER):
+    """hist_segment at n = 50,000, p = 5 (phase 3's checks and times);
+    then binary Vecchia LaGaBoost at the reference's n = 50,000
+    (sim_lagab, p = 5, seed 4; bench_reference.py:90-99, :190-203):
+    exponential, 20 neighbours, bernoulli_probit, iterative, float64, 31
+    leaves, learning rate 0.1. Depth is cut so that the script stays
+    inside 900 s: 2 rounds (the reference runs 10), the GP model's first
+    fit capped at `maxit` iterations (MAXIT_VLB_ITER; --vlb-maxit 0 lifts
+    the cap). Init-score and first-fit seconds, seconds per round with
+    each round's GD refit (iterations, NLL and gradient evaluations,
+    seconds, CG), host syncs of the second (steady) round, device busy
+    share of one gradient (torch.profiler), CG totals (no float64 solve
+    at cg_max_num_it), peak device memory (below one n x n float64
+    matrix), the operator's times; then the response on 1,000 new points
+    with 500 simulation draws. Returns hist_segment's launches over the 2
+    rounds."""
+    phase_segment_vl(torch, gpt, histogram, kernel_row, n_rows=N_VLB_ITER)
+    _reset_launches(histogram)
+    torch.cuda.reset_peak_memory_stats()
+    with _RefitLog(torch) as log:
+        bst, gp, init_s, fit_s, secs = _train_vl_lagaboost(
+            torch, gpt, N_VLB_ITER, "cuda", "float64", 1, model=VL_ITER,
+            gp_params={"maxit": maxit} if maxit else None)
+        from collections import Counter
+        sites = Counter()
+        t0 = time.perf_counter()
+        _, syncs = _count_syncs(torch, bst.update, sites)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    eng = gp._engine
+    launches = histogram.hist_segment.launches
+    cg = eng.cg_stats(reset=True)
+    print("[vecchia-lagaboost iterative] host syncs of round 2 by Python "
+          "line: " + ", ".join(f"{k} x{v}" for k, v in
+                               sites.most_common(6)), flush=True)
+    for line in log.lines():
+        print(f"[vecchia-lagaboost iterative] {line}", flush=True)
+    r = gp._fit_result
+    u = eng._u_from_pars(r.cov_pars, r.aux_pars, gp.y)
+    busy, wall, _ = _device_busy_s(torch, lambda: eng.vag_F_device(
+        u, bst.y, bst.F, r.mode_state, value=False))
+    ops = _operator_times(torch, eng, u, gp.y, r.mode_state)
+    rng = np.random.RandomState(SEED_VLB + 1)
+    Xn, cn = rng.rand(N_PRED, P_VLB), rng.rand(N_PRED, 2)
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    pred_s = time.perf_counter() - t0
+    cg_pred = eng.cg_stats(reset=True)
+    for k in ("response_mean", "response_var"):
+        if pred[k].shape != (N_PRED,) or not np.all(np.isfinite(pred[k])):
+            raise AssertionError(f"vecchia lagaboost iterative: {k}")
+    if not (np.all(pred["response_mean"] > 0)
+            and np.all(pred["response_mean"] < 1)):
+        raise AssertionError("vecchia lagaboost iterative: probabilities "
+                             "outside (0, 1)")
+    cov = gp.get_cov_pars()
+    at_maxit = cg["at_maxit"] + cg_pred["at_maxit"]
+    # no step may hold an n x n matrix (8 n^2 bytes in float64)
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0)
+            and launches > 0 and at_maxit == 0
+            and peak < 8 * N_VLB_ITER ** 2):
+        raise AssertionError(f"vecchia lagaboost iterative: cov pars {cov}, "
+                             f"{launches} hist_segment launches, "
+                             f"{at_maxit} CG solves at cg_max_num_it, peak "
+                             f"device memory {peak / 2 ** 30:.2f} GiB")
+    cap = f"maxit {maxit}" if maxit else "uncapped"
+    print(f"[vecchia-lagaboost iterative] n={N_VLB_ITER} p={P_VLB} m={M_VL} "
+          f"bernoulli_probit iterative vadu float64, 2 rounds: booster "
+          f"with init score {init_s:.3f} s (init score "
+          f"{bst.init_score:.5f}); first GP fit {fit_s:.3f} s, "
+          f"{r.num_it} iterations ({r.optimizer}, {cap}); per round "
+          f"{', '.join(f'{x:.3f}' for x in secs)} s, {syncs} host syncs in "
+          f"round 2; device busy over one gradient "
+          f"{_busy_txt(busy, wall)}; CG over the booster and 2 rounds "
+          f"{cg['iterations']} iterations in {cg['solves']} solved columns "
+          f"({gp.get_total_num_cg_steps()} in the mode finding over the "
+          f"whole run), {at_maxit} at cg_max_num_it; predict {N_PRED} "
+          f"points with {eng.nsim_var_pred} draws {pred_s:.3f} s "
+          f"({cg_pred['solves']} columns, {cg_pred['iterations']} CG "
+          f"iterations); peak device memory {peak / 2 ** 30:.2f} GiB (an "
+          f"n x n float64 matrix: {8 * N_VLB_ITER ** 2 / 2 ** 30:.1f} GiB); "
+          f"cov pars {cov.tolist()}; hist_segment launches over the 2 "
+          f"rounds {launches}", flush=True)
+    print(f"[vecchia-lagaboost iterative] n={N_VLB_ITER}: {_fmt_ops(ops)}",
+          flush=True)
+    ref = _reference_time("lagaboost_binary_vecchia_n50k_10rounds")
+    if ref is not None:
+        print(f"[vecchia-lagaboost iterative] the reference C++ library, "
+              f"10 rounds iterative float64 (BASELINE_MEASURED.json, "
+              f"{ref[2]} CPU thread(s)): {ref[0]} s", flush=True)
+    return launches
+
+
+def phase_iterative_card_vs_cpu(torch, gpt):
+    """Card against CPU at n = 2,000, iterative (vadu), float64, with 10
+    probes (num_rand_vec_trace) and at most 3 iterations a fit (maxit),
+    set by set_optim_params to keep the CPU side short: the engine's NLL
+    (rtol 1e-6), g_u and g_F (rtol 1e-4) and Newton steps; one fit
+    (parameters rtol 1e-3, equal iterations); 2 LaGaBoost rounds with the
+    default per-round GD refit of the covariance parameters (the refit
+    after the last round, which feeds no tree, is skipped), each refit's
+    GD iterations, evaluations, parameters and CG printed for both sides.
+    Where the two refits take the same steps (every evaluation at points
+    within 1e-4 of each other), GD iterations and step lengths are equal,
+    parameters agree to rtol 1e-4 and NLLs to 1e-8 (the first run read
+    1.5e-6 and 1.8e-10: the probe solves' CG error), and both trees
+    follow phase 5's near-tie rule, predictions to 1e-4; where they part,
+    the parting must be a GD decision taken on NLLs that agreed to 1e-8,
+    and only the tree before it is compared. Then
+    the grouped iterative branch at q = 25,000 (n = 100,000, crossed
+    groupings of 20,000 and 5,000 levels), which auto takes, against the
+    Cholesky branch on the card: NLL (rtol 1e-4) and its gradient (1e-1,
+    the R suite's TOL_ITERATIVE: the SLQ gradient's error) at fixed
+    parameters, and a fit (1e-2)."""
+    coords, y = sim_vl(N_VL_CPU)
+    F = 0.3 * np.sin(np.arange(N_VL_CPU))
+    u = np.log([0.9, 1.0 / 0.1])
+    it_params = {"num_rand_vec_trace": 10, "maxit": 3}
+    ev = {}
+    for dev in ("cuda", "cpu"):
+        gm = gpt.GPModel(gp_coords=coords, dtype="float64", device=dev,
+                         **VL_ITER)
+        gm.set_optim_params(params=it_params)
+        eng = gm._engine
+        t0 = time.perf_counter()
+        nll, gu, gF, _ = eng.laplace_vag_F(u, y, F, eng.zero_mode())
+        ev[dev] = (nll, gu, gF, eng.last_num_mode_it, eng.last_num_cg_it,
+                   time.perf_counter() - t0)
+    (ng, gug, gFg, sg, cgg, tg), (nc, guc, gFc, sc, cgc, tc) = \
+        ev["cuda"], ev["cpu"]
+    errs = {"nll": abs(ng / nc - 1.0),
+            "g_u": float(np.max(np.abs(gug / guc - 1.0))),
+            "g_F": float(np.max(np.abs(gFg - gFc)) / np.max(np.abs(gFc)))}
+    print(f"[iterative card-vs-cpu] n={N_VL_CPU} m={M_VL} vadu float64, 10 "
+          "probes: engine max rel diff " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items())
+          + f", Newton steps {sg} / {sc}, CG iterations {cgg} / {cgc} "
+          f"(card {tg:.3f} s, cpu {tc:.3f} s)", flush=True)
+    if not (errs["nll"] < 1e-6 and max(errs["g_u"], errs["g_F"]) < 1e-4
+            and sg == sc):
+        raise AssertionError(f"iterative engine card vs CPU: {errs}, "
+                             f"Newton steps {sg} vs {sc}")
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        gm = gpt.GPModel(gp_coords=coords, dtype="float64", device=dev,
+                         **VL_ITER)
+        t0 = time.perf_counter()
+        gm.fit(y=y, params={**VL_FIT, **it_params})
+        fits[dev] = (gm.get_cov_pars(), gm.get_num_optim_iter(),
+                     time.perf_counter() - t0)
+    fit_rel = float(np.max(np.abs(fits["cuda"][0] / fits["cpu"][0] - 1.0)))
+    print(f"[iterative card-vs-cpu] fit (maxit 3): cov pars max rel diff "
+          f"{fit_rel:.3g}, iterations {fits["cuda"][1]} / {fits['cpu'][1]} "
+          f"(card {fits["cuda"][2]:.3f} s, cpu {fits['cpu'][2]:.3f} s)",
+          flush=True)
+    if not (fit_rel < 1e-3 and fits["cuda"][1] == fits["cpu"][1]):
+        raise AssertionError(f"iterative fit card vs CPU: {fits}")
+    # LaGaBoost with the default per-round refit: round 1 (the first fit,
+    # tree 1, the GD refit), round 2 (tree 2 from the refit; the refit
+    # after it feeds no tree and is skipped)
+    runs, logs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with _RefitLog(torch) as logs[dev]:
+            bst, gp, *_ = _train_vl_lagaboost(
+                torch, gpt, N_VL_CPU, dev, "float64", 1, model=VL_ITER,
+                gp_params=it_params)
+            bst.params["train_gp_model_cov_pars"] = False
+            bst.update()
+        runs[dev] = (bst, gp, gp.get_total_num_cg_steps(),
+                     time.perf_counter() - t0)
+    for dev in ("cuda", "cpu"):
+        for line in logs[dev].lines():
+            print(f"[iterative card-vs-cpu] LaGaBoost {dev} {line}; mode "
+                  f"finding CG over the run {runs[dev][2]}", flush=True)
+    bg, bc = runs["cuda"][0], runs["cpu"][0]
+    part, nll_gap = _first_parting(logs["cuda"].trace, logs["cpu"].trace)
+    rg, rc = logs["cuda"].refits[0], logs["cpu"].refits[0]
+    if part is None:
+        # the refits took the same steps; their parameters agree to the
+        # level of the gradients' CG error (the probe solves stop at a
+        # relative residual of 1e-6), and both trees are compared
+        rel = float(np.max(np.abs(rg["pars"] / rc["pars"] - 1.0)))
+        if not (rg["it"] == rc["it"] and rg["lr"] == rc["lr"]
+                and rel < 1e-4 and nll_gap < 1e-8):
+            raise AssertionError(f"iterative lagaboost refit card vs CPU: "
+                                 f"{rg} vs {rc}")
+        res = _compare_models("iterative lagaboost card-vs-cpu", bc, bg)
+        what = (f"the refits took the same {rg['it']} GD steps (parameters "
+                f"max rel diff {rel:.3g}, NLLs {nll_gap:.3g}); trees {res}")
+    else:
+        # the runs parted at a discrete GD decision (an Armijo test or the
+        # convergence test) taken on NLLs that agreed to 1e-8: a tie at the
+        # level of the gradients' CG error; the tree before it must agree,
+        # the one after it is not compared
+        kind, ug, vg = logs["cuda"].trace[part]
+        _, uc, vc = logs["cpu"].trace[part]
+        print(f"[iterative card-vs-cpu] LaGaBoost: the refits part at "
+              f"evaluation {part} ({kind}) at u {ug.tolist()} (card) vs "
+              f"{uc.tolist()} (cpu); before it every NLL agreed to "
+              f"{nll_gap:.3g}; the evaluations before: " + "; ".join(
+                  f"{k} {v!r} / {w!r}" for (k, _, v), (_, _, w) in zip(
+                      logs["cuda"].trace[max(part - 3, 0):part],
+                      logs["cpu"].trace[max(part - 3, 0):part])),
+              flush=True)
+        if not (part > 0 and nll_gap < 1e-8):
+            raise AssertionError("iterative lagaboost card vs CPU: the "
+                                 "refits part at evaluation "
+                                 f"{part} on NLLs {nll_gap:.3g} apart")
+        from types import SimpleNamespace
+        res = _compare_models("iterative lagaboost card-vs-cpu",
+                              *(SimpleNamespace(trees=b_.trees[:1])
+                                for b_ in (bc, bg)))
+        what = f"tree 1 {res}; tree 2 follows the parted refit"
+    rng = np.random.RandomState(SEED_VLB + 2)
+    Xn, cn = rng.rand(200, P_VLB), rng.rand(200, 2)
+    perr = {}
+    if part is None and res != "near tie":
+        perr["training score"] = float((bg.F.cpu() - bc.F).abs().max())
+        pg = bg.predict(Xn, gp_coords_pred=cn, predict_var=True)
+        pc = bc.predict(Xn, gp_coords_pred=cn, predict_var=True)
+        for k in ("response_mean", "response_var"):
+            perr[k] = float(np.max(np.abs(pg[k] - pc[k])))
+    print(f"[iterative card-vs-cpu] LaGaBoost 2 rounds, refit on: {what}; "
+          "max |diff| " + (", ".join(f"{k} {v:.3g}" for k, v in perr.items())
+                           or "not compared")
+          + f" (card {runs['cuda'][-1]:.3f} s, cpu {runs['cpu'][-1]:.3f} s)",
+          flush=True)
+    if perr and not max(perr.values()) < 1e-4:
+        raise AssertionError(f"iterative lagaboost card vs CPU: {perr}")
+    # the grouped iterative branch, where auto takes it (q > 20,000)
+    rng = np.random.RandomState(SEED)
+    q1 = Q_GROUPED_ITER * 4 // 5
+    group = np.column_stack([
+        rng.randint(0, q1, N_GROUPED_ITER),
+        rng.randint(0, Q_GROUPED_ITER - q1, N_GROUPED_ITER)])
+    yq = 0.7 * rng.randn(q1)[group[:, 0]] \
+        + 0.5 * rng.randn(Q_GROUPED_ITER - q1)[group[:, 1]] \
+        + rng.randn(N_GROUPED_ITER)
+    out = {}
+    for mim in ("auto", "cholesky"):
+        gm = gpt.GPModel(group_data=group, device="cuda",
+                         matrix_inversion_method=mim)
+        eng = gm._engine
+        yd = eng.prep_y(yq)
+        th = eng._t(np.log([0.5, 0.25])).requires_grad_(True)
+        t0 = time.perf_counter()
+        nll, _ = eng._nll_parts(th, eng._t(1.0), yd)
+        (g,) = torch.autograd.grad(nll, th)
+        torch.cuda.synchronize()
+        ev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gm.fit(y=yq)
+        torch.cuda.synchronize()
+        out[mim] = (eng.matrix_inversion_method, float(nll),
+                    g.detach().cpu().numpy(),
+                    gm.get_cov_pars(), gm.get_num_optim_iter(), ev_s,
+                    time.perf_counter() - t0)
+    (mi, ni, gi, ci, ii, ei, fi), (mc, nc_, gc, cc, ic, ec, fc) = \
+        out["auto"], out["cholesky"]
+    gerr = {"nll": abs(ni / nc_ - 1.0),
+            "gradient": float(np.max(np.abs(gi / gc - 1.0))),
+            "cov pars": float(np.max(np.abs(ci / cc - 1.0)))}
+    if not (mi == "iterative" and gerr["nll"] < 1e-4
+            and gerr["gradient"] < 1e-1 and gerr["cov pars"] < 1e-2):
+        raise AssertionError(f"grouped iterative vs cholesky: {mi}, {gerr}")
+    print(f"[grouped iterative] n={N_GROUPED_ITER} q={Q_GROUPED_ITER}: auto "
+          f"takes '{mi}'; against the Cholesky branch max rel diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gerr.items())
+          + f"; NLL and gradient {ei:.3f} s (Cholesky {ec:.3f} s), fit "
+          f"{fi:.3f} s and {ii} iterations (Cholesky {fc:.3f} s, {ic})",
+          flush=True)
+
+
+# the groups of phases that run together; --phases runs every group that
+# holds one of the phases asked for (phases 1 and 2 always run)
+GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
+          (25, 25), (26, 26))
+
+
+def _groups(spec):
+    """The groups to run for a --phases spec such as "23-26" or "5,24";
+    all of them for None."""
+    if spec is None:
+        return set(GROUPS)
+    want = set()
+    for part in spec.split(","):
+        a, _, b = part.partition("-")
+        want.update(range(int(a), int(b or a) + 1))
+    return {g for g in GROUPS if want & set(range(g[0], g[1] + 1))}
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", help="run only the groups of phases that "
+                    "hold these (e.g. 23-26; 1 and 2 always run); prints "
+                    "no result lines")
+    ap.add_argument("--vlb-maxit", type=int, default=MAXIT_VLB_ITER,
+                    help="phase 25's cap on the first GP fit's iterations "
+                    "(0: none)")
+    args = ap.parse_args(argv)
+    groups = _groups(args.phases)
     import torch
     import gpboost_tpu_torch as gpt
     from gpboost_tpu_torch.ops import histogram
 
     phase_device(torch)
     phase_build(histogram)
-    segment = phase_kernel(torch, gpt, histogram)
-    segment["launches"] = phase_slice(torch, gpt, histogram)
-    phase_card_vs_cpu(torch, gpt)
-    X, y = sim_boost()
-    t0 = time.perf_counter()
-    ds = gpt.Dataset(X, label=y)
-    ds.construct()
-    print(f"[data] sim_boost n={N_BOOST} p={P_BOOST}: binned in "
-          f"{time.perf_counter() - t0:.2f} s, {int(ds.num_bins)} bins",
+    segment, masked, block = {}, {}, {}
+    if (3, 8) in groups:
+        segment = phase_kernel(torch, gpt, histogram)
+        segment["launches"] = phase_slice(torch, gpt, histogram)
+        phase_card_vs_cpu(torch, gpt)
+        X, y = sim_boost()
+        t0 = time.perf_counter()
+        ds = gpt.Dataset(X, label=y)
+        ds.construct()
+        print(f"[data] sim_boost n={N_BOOST} p={P_BOOST}: binned in "
+              f"{time.perf_counter() - t0:.2f} s, {int(ds.num_bins)} bins",
+              flush=True)
+        phase_segment_large(torch, histogram, ds, segment)
+        masked, block = phase_masked_kernels(torch, histogram, ds)
+        # hist_block has no caller in either package: its count reads 0
+        masked["launches"], block["launches"], \
+            segment["launches_n200k_p50_one_round"], ref = phase_parallel(
+            torch, gpt, histogram, ds, X, y)
+        phase_two_ranks(torch, gpt, X, y, ref)
+    if (9, 14) in groups:
+        Xg, _, yg = sim_grouped(N_GROUPED, Q_GROUPED)
+        dsg = gpt.Dataset(Xg, label=yg)
+        dsg.construct()
+        phase_segment_grouped(torch, histogram, dsg, segment)
+        segment["launches_grouped_n100k"] = phase_grouped_slice(
+            torch, gpt, histogram)
+        phase_grouped_goldens(torch, gpt)
+        phase_grouped_card_vs_cpu(torch, gpt)
+        phase_gaussian_fits(torch, gpt)
+        phase_vecchia_headline(torch, gpt)
+    if (15, 19) in groups:
+        t_laplace = time.perf_counter()
+        phase_glmm(torch, gpt)
+        segment["launches_lagaboost_n100k"] = phase_lagaboost(torch, gpt,
+                                                              histogram)
+        phase_lagaboost_goldens(torch, gpt)
+        phase_laplace_card_vs_cpu(torch, gpt)
+        print(f"[laplace] phases 15-19 in "
+              f"{time.perf_counter() - t_laplace:.1f} s", flush=True)
+    cov_dense64 = None
+    if (20, 22) in groups:
+        t_vl = time.perf_counter()
+        cov_dense64 = phase_vecchia_laplace(torch, gpt)
+        phase_segment_vl(torch, gpt, histogram, segment)
+        segment["launches_lagaboost_vecchia_n20k"] = \
+            phase_vecchia_lagaboost(torch, gpt, histogram)
+        phase_vecchia_laplace_card_vs_cpu(torch, gpt)
+        print(f"[vecchia-laplace] phases 20-22 in "
+              f"{time.perf_counter() - t_vl:.1f} s", flush=True)
+    t_it = time.perf_counter()
+    if (23, 23) in groups:
+        phase_iterative_pieces(torch, gpt)
+    if (24, 24) in groups:
+        if cov_dense64 is None:     # phase 20's float64 fit
+            coords, y = sim_vl(N_VL)
+            cov_dense64 = _vl_fit(torch, gpt, coords, y,
+                                  "float64")[0].get_cov_pars()
+        phase_vecchia_laplace_iterative(torch, gpt, cov_dense64)
+    if (25, 25) in groups:
+        segment["launches_lagaboost_vecchia_n50k_iterative"] = \
+            phase_vecchia_lagaboost_iterative(torch, gpt, histogram, segment,
+                                              args.vlb_maxit)
+    if (26, 26) in groups:
+        phase_iterative_card_vs_cpu(torch, gpt)
+    print(f"[iterative] phases 23-26 in {time.perf_counter() - t_it:.1f} s",
           flush=True)
-    phase_segment_large(torch, histogram, ds, segment)
-    masked, block = phase_masked_kernels(torch, histogram, ds)
-    # hist_block has no caller in either package: its count reads 0
-    masked["launches"], block["launches"], \
-        segment["launches_n200k_p50_one_round"], ref = phase_parallel(
-        torch, gpt, histogram, ds, X, y)
-    phase_two_ranks(torch, gpt, X, y, ref)
-    Xg, _, yg = sim_grouped(N_GROUPED, Q_GROUPED)
-    dsg = gpt.Dataset(Xg, label=yg)
-    dsg.construct()
-    phase_segment_grouped(torch, histogram, dsg, segment)
-    segment["launches_grouped_n100k"] = phase_grouped_slice(torch, gpt,
-                                                            histogram)
-    phase_grouped_goldens(torch, gpt)
-    phase_grouped_card_vs_cpu(torch, gpt)
-    phase_gaussian_fits(torch, gpt)
-    phase_vecchia_headline(torch, gpt)
-    t_laplace = time.perf_counter()
-    phase_glmm(torch, gpt)
-    segment["launches_lagaboost_n100k"] = phase_lagaboost(torch, gpt,
-                                                          histogram)
-    phase_lagaboost_goldens(torch, gpt)
-    phase_laplace_card_vs_cpu(torch, gpt)
-    print(f"[laplace] phases 15-19 in {time.perf_counter() - t_laplace:.1f} "
-          "s", flush=True)
-    t_vl = time.perf_counter()
-    phase_vecchia_laplace(torch, gpt)
-    phase_segment_vl(torch, gpt, histogram, segment)
-    segment["launches_lagaboost_vecchia_n20k"] = phase_vecchia_lagaboost(
-        torch, gpt, histogram)
-    phase_vecchia_laplace_card_vs_cpu(torch, gpt)
-    print(f"[vecchia-laplace] phases 20-22 in "
-          f"{time.perf_counter() - t_vl:.1f} s", flush=True)
+    if args.phases is not None:
+        print(f"[chip_smoke] phases {args.phases} done; a partial run "
+              "prints no result lines", flush=True)
+        return
     print(json.dumps({"kernels": [segment, masked, block]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

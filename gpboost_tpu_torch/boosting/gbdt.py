@@ -288,7 +288,8 @@ class Booster:
             u = eng._u_from_pars(r.cov_pars, r.aux_pars, gp.y)
             a = r.mode_state if r.mode_state is not None \
                 else eng.zero_mode()
-            _, _, gF, _ = eng.vag_F_device(u, self.y, self.F, a)
+            _, _, gF, _ = eng.vag_F_device(u, self.y, self.F, a,
+                                           value=False)
             return gF, torch.ones_like(gF)
         # grad = Sigma^-1 (F - y) = Psi~^-1 resid / sigma2 on the
         # nugget-scaled parameterization (re_model_template.h:9691)

@@ -22,11 +22,12 @@ gaussian_latent; gp_model.py:468-495), by the Laplace approximation:
     crossed groupings, cluster_ids and observation weights;
   * one GP, gp_approx="none": the dense engine of models/laplace.py,
     with observation weights;
-  * one GP, gp_approx="vecchia": the dense-precision Vecchia-Laplace
-    engine (models/vecchia_laplace.py), with observation weights; as in
-    the reference, matrix_inversion_method="auto" means the matrix-free
-    path above n = 8,000, which is not ported yet and raises, so pass
-    "cholesky" there.
+  * one GP, gp_approx="vecchia": the Vecchia-Laplace engines
+    (models/vecchia_laplace.py), with observation weights: the
+    dense-precision one (matrix_inversion_method="cholesky") or the
+    matrix-free one ("iterative": CG solves and SLQ log-determinants of
+    ops/iterative.py); as in the reference, "auto" takes the matrix-free
+    one above n = 8,000.
 
 GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
 every optimizer of models/optimize.py (gradient descent, Fisher scoring,
@@ -40,9 +41,12 @@ variance (predict_response) for the non-Gaussian likelihoods;
 package loads here. The likelihoods of likelihoods/families.py, other
 approximations, a GP combined with grouped effects for a non-Gaussian
 likelihood, GP random coefficients, weights with the Gaussian likelihood,
-the dense engines' cluster_ids, the iterative Woodbury and Vecchia-Laplace
-branches (chosen automatically from q > 20,000 and n > 8,000) and
-posterior sampling raise NotImplementedError.
+the dense engines' cluster_ids and posterior sampling raise
+NotImplementedError. The iterative engines (the Woodbury engine's
+iterative branch, which "auto" takes above q = 20,000, and the matrix-free
+Vecchia-Laplace engine) read the reference's CG keys of
+`set_optim_params`; `get_num_cg_steps` and `get_total_num_cg_steps` read
+their counts.
 
 device: where the engine's tensors live (default: the first CUDA card; it
 raises without one, and the CPU runs only when device="cpu" is passed).
@@ -62,19 +66,22 @@ from .models.laplace import LaplaceDenseEngine
 from .models.optimize import (OptimConfig, OptimResult, optimize_gaussian,
                               optimize_laplace)
 from .models.vecchia import VecchiaGaussianEngine
-from .models.vecchia_laplace import VecchiaLaplaceEngine
+from .models.vecchia_laplace import (VecchiaLaplaceEngine,
+                                     VecchiaLaplaceIterativeEngine)
 from .ops.cov_fcts import CovarianceFunction
 from .ops.distances import pairwise_dist
 from .utils.device import resolve_device, resolve_dtype
 
-_OPTIM_PARAM_KEYS = set(OptimConfig.__dataclass_fields__) | {
-    "init_coef",
-    # accepted, without effect, as in the reference
-    "trace", "cg_max_num_it",
-    "cg_max_num_it_tridiag", "cg_delta_conv", "cg_preconditioner_type",
-    "num_rand_vec_trace", "reuse_rand_vec_trace", "seed_rand_vec_trace",
-    "piv_chol_rank", "init_coef_aux_pars_from_iid_model", "nsim_var_pred",
-}
+# the iterative engines' CG / SLQ settings (gp_model.py:556-600 in the
+# reference); without effect on the other engines
+_CG_KEYS = ("num_rand_vec_trace", "cg_max_num_it", "cg_delta_conv",
+            "seed_rand_vec_trace", "nsim_var_pred", "piv_chol_rank",
+            "cg_preconditioner_type")
+_OPTIM_PARAM_KEYS = set(OptimConfig.__dataclass_fields__) | set(_CG_KEYS) \
+    | {"init_coef",
+       # accepted, without effect, as in the reference
+       "trace", "cg_max_num_it_tridiag", "reuse_rand_vec_trace",
+       "init_coef_aux_pars_from_iid_model"}
 _WOODBURY_MAX_Q = 20000
 
 
@@ -215,7 +222,9 @@ class GPModel:
             mim = matrix_inversion_method
             if mim == "auto":
                 mim = "iterative" if self.num_data > 8000 else "cholesky"
-            self._engine = VecchiaLaplaceEngine(
+            engine = VecchiaLaplaceIterativeEngine if mim == "iterative" \
+                else VecchiaLaplaceEngine
+            self._engine = engine(
                 self.components, self.num_data, self._likelihood_obj,
                 num_neighbors=num_neighbors if num_neighbors else 20,
                 vecchia_ordering=vecchia_ordering, seed=seed,
@@ -290,6 +299,10 @@ class GPModel:
                 self._aux_override = v
             if hasattr(self.params, k):
                 setattr(self.params, k, v)
+        cg = {k: params[k] for k in _CG_KEYS if k in (params or {})}
+        if cg and getattr(self._engine, "matrix_inversion_method",
+                          None) == "iterative":
+            self._engine.set_iterative_params(**cg)
         return self
 
     def set_prediction_data(self, vecchia_pred_type=None,
@@ -438,6 +451,20 @@ class GPModel:
         r = self._require_fit()
         return None if r.aux_pars is None else np.array(r.aux_pars)
 
+
+    def get_num_cg_steps(self):
+        """CG iterations of the last mode finding's solves (re_model.h:145
+        GetNumCGSteps; matrix_inversion_method='iterative')."""
+        n = getattr(self._engine, "last_num_cg_it", None)
+        if n is None:
+            raise ValueError("no CG solve has run "
+                             "(matrix_inversion_method != 'iterative')")
+        return int(n)
+
+    def get_total_num_cg_steps(self):
+        """CG iterations of every mode finding over the model's
+        lifetime."""
+        return int(getattr(self._engine, "total_num_cg_it", 0))
 
     def get_current_neg_log_likelihood(self):
         return self._require_fit().neg_log_likelihood

@@ -244,7 +244,7 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
 
     # ------------------------------------------------------------------
     # objective and residual at a fixed mode
-    def _g(self, u, F, b, y, create_graph):
+    def _g(self, u, F, b, y, create_graph, value=True):
         theta_log, aux = self._split_u(u)
         sbinv = self._sbinv(theta_log)
         quad = 0.5 * torch.sum(sbinv * b * b)

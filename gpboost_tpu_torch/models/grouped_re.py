@@ -26,8 +26,13 @@ Ported: NLL, profiled NLL and gradients, the Fisher information on the
 transformed and the original scale, GLS and gradient coefficient steps,
 `training_re`, `predict`, and `psi_tilde_inv_mat` on the device (the
 Woodbury branch of gbdt.py:2405-2419, which the reference runs in host
-scipy). matrix_inversion_method="iterative" (CG and stochastic Lanczos,
-ops/iterative.py) and weights raise NotImplementedError.
+scipy). matrix_inversion_method="iterative" (the reference's branch above
+q = 20,000, grouped_re.py:135-155 there; CG_utils.h:977 CGRandomEffects,
+:384 LogDetStochTridiag) takes the NLL's A^-1 Z'y by CG (tol 1e-8) and
+log|A| by SLQ (rank min(q, 100), num_rand_vec_trace probes), both with
+their implicit gradients (ops/iterative.py); the standard errors, GLS
+steps and predictions keep the Cholesky, as there. Weights raise
+NotImplementedError.
 """
 
 import math
@@ -35,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.iterative import make_cg_solve, make_slq_logdet
 from .gaussian_base import GaussianEngineBase, chol
 
 
@@ -80,11 +86,8 @@ class WoodburyGaussianEngine(GaussianEngineBase):
 
     def __init__(self, components, num_data, dtype=torch.float64,
                  matrix_inversion_method="cholesky", *, device,
-                 weights=None):
-        if matrix_inversion_method == "iterative":
-            raise NotImplementedError(
-                "matrix_inversion_method='iterative' for grouped random "
-                "effects needs ops/iterative.py, which is not ported yet")
+                 weights=None, num_rand_vec_trace=200, seed_rand_vec_trace=1,
+                 cg_max_num_it=1000):
         if weights is not None:
             raise NotImplementedError("weights are not ported yet")
         self.components = list(components)
@@ -130,6 +133,38 @@ class WoodburyGaussianEngine(GaussianEngineBase):
                      for c in self.components]
         self._y_cache = (None, None)
         self._X_cache = (None, None)
+        self._iter_fns = None
+        self.num_rand_vec_trace = int(num_rand_vec_trace)
+        self.seed_rand_vec_trace = int(seed_rand_vec_trace)
+        self.cg_max_num_it = int(cg_max_num_it)
+
+    def set_iterative_params(self, **kw):
+        """The iterative branch's settings: num_rand_vec_trace,
+        seed_rand_vec_trace and cg_max_num_it (the other CG keys do not
+        apply here)."""
+        for k in ("num_rand_vec_trace", "seed_rand_vec_trace",
+                  "cg_max_num_it"):
+            if k in kw:
+                setattr(self, k, int(kw[k]))
+        self._iter_fns = None
+
+    def _a_matvec(self, theta_log, v):
+        """A v = Z'Z v + Sigma^-1 v for v (q,) or columns (q, k)."""
+        d = self._oneh @ (1.0 / torch.exp(theta_log))
+        return self._G @ v + (d if v.ndim == 1 else d[:, None]) * v
+
+    def _iterative(self):
+        """(CG solve, SLQ log|A|) of the iterative branch."""
+        if self._iter_fns is None:
+            self._iter_fns = (
+                make_cg_solve(self._a_matvec, tol=1e-8,
+                              maxit=self.cg_max_num_it),
+                make_slq_logdet(self._a_matvec, self.q,
+                                rank=min(self.q, 100),
+                                num_probes=self.num_rand_vec_trace,
+                                seed=self.seed_rand_vec_trace,
+                                dtype=self.dtype, device=self.device))
+        return self._iter_fns
 
     # ------------------------------------------------------------------
     # device-side sufficient statistics
@@ -171,6 +206,11 @@ class WoodburyGaussianEngine(GaussianEngineBase):
 
     def _core(self, theta_log, y):
         Zty, yty = self._stats_y(y)
+        if self.matrix_inversion_method == "iterative":
+            solve, logdet_A = self._iterative()
+            quad = yty - Zty @ solve(theta_log, Zty)
+            return quad, logdet_A(theta_log) + torch.sum(
+                self._m_sizes * theta_log)
         L = chol(self._A(theta_log))
         quad = yty - Zty @ self._cho_solve(L, Zty)
         logdet = (2.0 * torch.sum(torch.log(torch.diagonal(L)))

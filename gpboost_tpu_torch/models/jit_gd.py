@@ -110,7 +110,7 @@ def gd_fit_laplace_engine(engine, cov_pars_init, aux_init, y, F, a_init,
     lr, u_ag_lag1 = float(lr0), u.copy()
     it, done = 0, False
     while not done and it < max_iter:
-        _, g, a_c = engine.laplace_vag(u, yd, Fd, a)
+        g, a_c = engine.laplace_grad(u, yd, Fd, a)
         g = g * mask
         lr = min(lr, MAX_LOG_STEP / max(float(np.max(np.abs(g))), 1e-300))
         dir_deriv = -float(g @ g)

@@ -54,9 +54,11 @@ class _LaplaceNLL(torch.autograd.Function):
     (the reference's nll_fn custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, u, F, engine, y, b_init):
+    def forward(ctx, u, F, engine, y, b_init, value=True):
         b, nit = engine._mode_solve(u, F, y, b_init)
-        nll = engine._g(u, F, b, y, create_graph=False)
+        # a caller that wants the gradient alone skips the value
+        nll = engine._g(u, F, b, y, create_graph=False) if value \
+            else u.new_zeros(())
         engine._note_it(nit)
         ctx.engine, ctx.y = engine, y
         ctx.save_for_backward(u, F, b)
@@ -72,7 +74,7 @@ class _LaplaceNLL(torch.autograd.Function):
             uu = u.detach().requires_grad_(True)
             FF = F.detach().requires_grad_(need_F)
             bb = b.detach().requires_grad_(True)
-            g = eng._g(uu, FF, bb, y, create_graph=True)
+            g = eng._g(uu, FF, bb, y, create_graph=True, value=False)
             ins = (uu, FF, bb) if need_F else (uu, bb)
             gr = torch.autograd.grad(g, ins, allow_unused=True)
             gr = [torch.zeros_like(x) if d is None else d
@@ -87,7 +89,7 @@ class _LaplaceNLL(torch.autograd.Function):
                   for d, x in zip(rg, rins)]
         du = (gr[0] - rg[0]) * ct
         dF = (gr[1] - rg[1]) * ct if need_F else None
-        return du, dF, None, None, None
+        return du, dF, None, None, None, None
 
 
 class LaplaceEngineBase:
@@ -95,7 +97,12 @@ class LaplaceEngineBase:
     its device and in its dtype:
 
         _mode_solve(u, F, y, b_init) -> (mode state, Newton steps)
-        _g(u, F, b, y, create_graph)  -> nll at a fixed mode state
+        _g(u, F, b, y, create_graph, value=True)
+                                      -> nll at a fixed mode state; with
+                                         value=False only its gradient is
+                                         read, and the engine may leave out
+                                         of the value a term whose
+                                         gradient it keeps
         _r(u, F, b, y)                -> the mode residual
         _adjoint_solve(u, F, b, y, v) -> H^-1 v at the mode
 
@@ -215,10 +222,11 @@ class LaplaceEngineBase:
 
     # ------------------------------------------------------------------
     # host-facing API (the reference's laplace_nll / _vag / _vag_F)
-    def _nll_raw(self, u, F, y, b_init):
+    def _nll_raw(self, u, F, y, b_init, value=True):
         """(nll, (mode state, Newton steps)) for device tensors u, F, y;
-        differentiable in u and F."""
-        nll, b = _LaplaceNLL.apply(u, F, self, y, b_init)
+        differentiable in u and F. value=False: the gradient alone (nll
+        is 0)."""
+        nll, b = _LaplaceNLL.apply(u, F, self, y, b_init, value)
         return nll, (b, self.last_num_mode_it)
 
     def _F(self, F):
@@ -237,11 +245,20 @@ class LaplaceEngineBase:
         v, g = self._host(nll, gu)
         return float(v), g, b
 
-    def vag_F_device(self, u, y, F, a_init):
-        """(nll, g_u, g_F, mode state) as device tensors."""
+    def laplace_grad(self, u, y, F, a_init):
+        """(g_u, mode state) without the NLL's value."""
+        ut = self._t(u).requires_grad_(True)
+        nll, (b, _) = self._nll_raw(ut, self._F(F), self.prep_y(y), a_init,
+                                    value=False)
+        (gu,) = torch.autograd.grad(nll, ut)
+        return self._host(gu)[0], b
+
+    def vag_F_device(self, u, y, F, a_init, value=True):
+        """(nll, g_u, g_F, mode state) as device tensors (nll 0 with
+        value=False)."""
         ut = self._t(u).requires_grad_(True)
         Ft = self._F(F).detach().requires_grad_(True)
-        nll, (b, _) = self._nll_raw(ut, Ft, self.prep_y(y), a_init)
+        nll, (b, _) = self._nll_raw(ut, Ft, self.prep_y(y), a_init, value)
         gu, gF = torch.autograd.grad(nll, (ut, Ft))
         return nll.detach(), gu, gF, b
 
@@ -339,7 +356,7 @@ class LaplaceDenseEngine(LaplaceEngineBase):
                     break
         return a, it
 
-    def _g(self, u, F, a, y, create_graph):
+    def _g(self, u, F, a, y, create_graph, value=True):
         Sigma, aux = self._split_u(u)
         mode = Sigma @ a
         loc = mode + F

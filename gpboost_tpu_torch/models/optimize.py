@@ -766,7 +766,7 @@ def _optimize_laplace_gd(engine, y, config: OptimConfig, X=None,
         Fd = F_of(beta)
 
         # ---- covariance / aux parameter step ---------------------------
-        _, g, a_state = engine.laplace_vag(u, yd, Fd, a_state)
+        g, a_state = engine.laplace_grad(u, yd, Fd, a_state)
         g = np.array(g)
         g[~est] = 0.0
         g_cov, g_aux = g[:p_cov], g[p_cov:]

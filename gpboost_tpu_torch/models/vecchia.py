@@ -174,6 +174,24 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         D = (v if latent else v + 1.0) - torch.sum(A * k_ni, dim=1)
         return A, D
 
+    def _bd_add_diag(self, theta_log, add_diag):
+        """Vecchia factors of the latent covariance plus a per-point
+        diagonal add_diag (n,), in the engine's order
+        (CalcVecchiaApproxLatentAddDiagonal, re_model_template.h: the
+        'vecchia_response' preconditioner's factors with pseudo-nugget
+        W^-1)."""
+        v = torch.exp(theta_log[0])
+        alphas = torch.exp(theta_log[1:])
+        corr_nn, corr_ni = _corr_sets(self.comp.cov_fn, None, None, alphas,
+                                      d_nn=self._d_nn, d_ni=self._d_ni)
+        K_nn = v * corr_nn + add_diag[self._nn_idx][:, :, None] * self._eye
+        K_nn = torch.where(self._pair_mask, K_nn, self._eye)
+        k_ni = v * corr_ni
+        k_ni = torch.where(self._nn_mask, k_ni, torch.zeros_like(k_ni))
+        A = cho_solve_batched(K_nn, k_ni)
+        D = v + add_diag - torch.sum(A * k_ni, dim=1)
+        return A, D
+
     def _B_apply(self, A, V):
         """B V for V (n, k): a gather, no scatter."""
         return V - torch.einsum("nm,nmk->nk", A, V[self._nn_idx])

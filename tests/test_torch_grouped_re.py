@@ -237,8 +237,12 @@ def test_float32_and_unported_options(data):
     m.fit(y=y)
     assert m._engine._G.dtype == torch.float32
     assert np.all(np.isfinite(m.get_cov_pars()))
-    for kw in (dict(matrix_inversion_method="iterative"),
-               dict(weights=np.ones(N)),
+    # the iterative branch is ported (tests/test_torch_vecchia_laplace_
+    # iterative.py holds it to the JAX package)
+    assert gpt.GPModel(group_data=g1, device="cpu",
+                       matrix_inversion_method="iterative"
+                       )._engine.matrix_inversion_method == "iterative"
+    for kw in (dict(weights=np.ones(N)),
                dict(drop_intercept_group_rand_effect=[True])):
         with pytest.raises(NotImplementedError):
             gpt.GPModel(group_data=g1, device="cpu", **kw)

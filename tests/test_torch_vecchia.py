@@ -183,7 +183,8 @@ def test_lbfgs_fit_matches(data):
 @pytest.mark.parametrize("kwargs", [
     dict(cov_function="gaussian"), dict(cov_fct_shape=1.0),
     dict(gp_approx="fitc"),
-    dict(likelihood="bernoulli_probit", matrix_inversion_method="iterative"),
+    dict(likelihood="bernoulli_probit", matrix_inversion_method="iterative",
+         cluster_ids=np.zeros(N)),
     dict(cluster_ids=np.zeros(N))])
 def test_unported_options_raise(data, kwargs):
     args = dict(gp_coords=data[0], cov_function="matern", gp_approx="vecchia",

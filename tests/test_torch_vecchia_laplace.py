@@ -399,15 +399,18 @@ def test_unported_parts_raise():
     kw = dict(gp_coords=coords, cov_function="exponential",
               likelihood="bernoulli_probit", gp_approx="vecchia",
               device="cpu")
-    with pytest.raises(NotImplementedError, match="iterative"):
-        gpt.GPModel(matrix_inversion_method="iterative", **kw)
+    # "iterative" takes the matrix-free engine, and so does the
+    # reference's auto rule above n = 8,000 (nothing n x n is built)
+    from gpboost_tpu_torch.models.vecchia_laplace import \
+        VecchiaLaplaceIterativeEngine
+    assert isinstance(gpt.GPModel(matrix_inversion_method="iterative",
+                                  **kw)._engine,
+                      VecchiaLaplaceIterativeEngine)
     with pytest.raises(NotImplementedError, match="cluster_ids"):
         gpt.GPModel(cluster_ids=np.arange(50) % 2, **kw)
-    # the reference's auto rule: the matrix-free path above n = 8,000,
-    # refused before anything n x n is built
     big = np.random.RandomState(0).rand(8001, 2)
-    with pytest.raises(NotImplementedError, match="iterative"):
-        gpt.GPModel(**{**kw, "gp_coords": big})
+    assert isinstance(gpt.GPModel(**{**kw, "gp_coords": big})._engine,
+                      VecchiaLaplaceIterativeEngine)
     assert gpt.GPModel(**kw)._engine.matrix_inversion_method == "cholesky"
     with pytest.raises(ValueError, match="predict_var"):
         gp = gpt.GPModel(**kw).fit(y=y, params={"maxit": 1})
