@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phases 23-26 [--vlb-maxit 0]
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
-                                     # 24, 25, 26 each alone); no result
-                                     # lines
+                                     # 24, 25, 26 each alone, and 27-29);
+                                     # no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -105,19 +105,20 @@ Phases; any failure exits non-zero and prints no result line:
      n = 5,000, timed;
  20. bench.py's vecchia_laplace_n20k at full width (sim_vl, n = 20,000,
      seed 3, bernoulli_probit, exponential, 20 neighbours, the dense
-     precision path, float32, maxit 20, init_cov_pars [1.0, 0.1]): a first
-     fit, a second after reset_fit (seconds, iterations, Newton steps,
-     host syncs, peak device memory); the reference library's time beside
-     it; one float64 fit of the same data with its covariance parameters
-     beside float32's (a third, profiled fit was cut for phases 23-26);
+     precision path, float32, maxit 20, init_cov_pars [1.0, 0.1]): one
+     fit (seconds, iterations, Newton steps, host syncs, peak device
+     memory); the reference library's time beside it; one float64 fit of
+     the same data with its covariance parameters beside float32's (a
+     third, profiled fit was cut for phases 23-26, the second after
+     reset_fit for phases 27-29);
  21. hist_segment at its shapes (n = 20,000, p = 5, uint8: phase 3's
      checks and times), then binary Vecchia LaGaBoost at n = 20,000
      (sim_lagab, p = 5, seed 4; the GP model of phase 20 with its default
      initial values; 31 leaves, learning rate 0.1) for 3 rounds (10 before
      phases 23-26), then the response on 1,000 new points: init-score and
      first-fit seconds, seconds per round, host syncs of one steady round,
-     device busy share of two more; hist_segment launches (must be
-     positive);
+     device busy share of one more (two before phases 27-29);
+     hist_segment launches (must be positive);
  22. card vs CPU at n = 2,000 in float64 (random ordering): the engine's
      NLL, g_u and g_F to rtol 1e-8 with equal Newton steps, a fit (rtol
      1e-4, equal iterations), 3 LaGaBoost rounds (phase 5's near-tie rule,
@@ -131,8 +132,9 @@ Phases; any failure exits non-zero and prints no result line:
      (1e-12), B'w bitwise equal across two launches;
  24. the reference's vecchia_laplace_n20k as it runs it
      (bench_reference.py:229-236): phase 20's data and model with
-     matrix_inversion_method "iterative" (vadu), float64: a first fit and
-     one after reset_fit (seconds, iterations, Newton steps, CG
+     matrix_inversion_method "iterative" (vadu), float64: one fit (the
+     second, after reset_fit, was cut for phases 27-29; seconds,
+     iterations, Newton steps, CG
      iterations, host syncs, peak device memory; no float64 solve may stop
      at cg_max_num_it), the device busy share of one NLL and gradient, the
      matrix-free operator's times (a CG iteration, an S_J application, a
@@ -162,7 +164,36 @@ Phases; any failure exits non-zero and prints no result line:
      trees under phase 5's near-tie rule, predictions to 1e-4; then the
      grouped iterative branch at q = 25,000 (n = 100,000), which auto
      takes, against the Cholesky branch on the card (NLL 1e-4, gradient
-     1e-1, fit 1e-2).
+     1e-1, fit 1e-2);
+ 27. Vecchia prediction at the headline's width: phase 14's data and model
+     (sim_vecchia, n = 100,000, m = 20, random ordering, exponential) in
+     float64, fitted on the device L-BFGS; then set_prediction_data and
+     predict at 10,000 new points (seeded, unit square) for each of the
+     five vecchia_pred_types, means and variances (the latent
+     cond_all ordering: means at 10,000, variances at 1,000 points, under
+     the reference's 2,000-point cap), each with seconds, host syncs, CG
+     iterations (latent) and peak device memory; the latent mean bitwise
+     equal in a second launch; predict_training_data_random_effects at
+     n = 100,000; one float32 latent solve's CG iterations; card against
+     CPU at n = 2,000 (200 points, fixed parameters) for every ordering and
+     the training random effects, to 1e-8 of the largest value (the latent
+     CG 1e-6);
+ 28. weights and clusters at full width: the headline fit with weights
+     w = 0.5 + 2u (u from the script's LCG), float32, which must take the
+     device L-BFGS; a clustered Vecchia fit at n = 100,000 in 100 clusters
+     of 1,000 points (independent realizations at 1,000 fixed locations;
+     no conditioning set may cross a cluster); phase 10's grouped GPBoost
+     (n = 100,000, q = 1,000) with those weights on the GPModel for 10
+     rounds: seconds per round, host syncs of round 11, hist_segment
+     launches (must be positive); a dense exact GP with cluster_ids at
+     n = 5,000 in 10 clusters;
+ 29. Nesterov GPBoost: w_gpboost1000 (n = 10,000, float32) with
+     use_nesterov_acc for 10 rounds, then predict at 1,000 new points:
+     seconds per round, GP refits per round, hist_segment launches (must
+     be positive); card against CPU at n = 2,000, float64, 5 rounds, for
+     Nesterov GPBoost, the weighted grouped GPBoost (q = 50) and the
+     clustered dense GP (10 clusters): trees under phase 5's near-tie
+     rule, covariance parameters to rtol 1e-4, predictions to 1e-4.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -523,7 +554,7 @@ def phase_segment_large(torch, histogram, ds, kernel_row):
         "half_device_ms": res["half"][1]}
 
 
-def _train(torch, gpt, n, dtype, device):
+def _train(torch, gpt, n, dtype, device, params=PARAMS, rounds=ROUNDS):
     """The slice: returns (booster, gp, initial-fit seconds, train seconds)."""
     coords, X, y = sim_gpboost(n)
     gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
@@ -542,7 +573,7 @@ def _train(torch, gpt, n, dtype, device):
 
     gp.fit = timed_fit
     t0 = time.perf_counter()
-    bst = gpt.train(PARAMS, gpt.Dataset(X, label=y), num_boost_round=ROUNDS,
+    bst = gpt.train(params, gpt.Dataset(X, label=y), num_boost_round=rounds,
                     gp_model=gp, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -786,6 +817,36 @@ def _compare_models(what, ref, other, X=None):
     return "all splits equal"
 
 
+def _card_cpu_boosters(what, bc, bg, gc, gg, Xn, pred_kw):
+    """Card against CPU for two boosters (phases 12 and 29): trees under
+    phase 5's near-tie rule, covariance parameters to rtol 1e-4, and to
+    1e-4 the training score, the trees before a near tie and the
+    predictions. A near tie moves a threshold, and so the fixed effect of
+    new rows from that tree on: after one only the random part is
+    compared."""
+    res = _compare_models(what, bc, bg)
+    cg, cc = gg.get_cov_pars(), gc.get_cov_pars()
+    cov_rel = float(np.max(np.abs(cg / cc - 1.0)))
+    if not cov_rel < 1e-4:
+        raise AssertionError(f"{what}: cov pars card {cg} cpu {cc}")
+    k = next((t for t, (a, b) in enumerate(zip(bc.trees, bg.trees))
+              if [r[:3] for r in _split_records(a)]
+              != [r[:3] for r in _split_records(b)]), len(bc.trees))
+    pg = bg.predict(Xn, predict_var=True, **pred_kw)
+    pc = bc.predict(Xn, predict_var=True, **pred_kw)
+    keys = ("random_effect_mean", "response_var") if k < len(bc.trees) \
+        else ("response_mean", "response_var")
+    errs = {key: float(np.max(np.abs(pg[key] - pc[key]))) for key in keys}
+    errs["training score"] = float((bg.F.cpu() - bc.F).abs().max())
+    errs[f"fixed effect of trees 0-{k - 1}"] = float(np.max(np.abs(
+        sum(t.predict_raw(Xn) for t in bg.trees[:k])
+        - sum(t.predict_raw(Xn) for t in bc.trees[:k]))))
+    if not max(errs.values()) < 1e-4:
+        raise AssertionError(f"{what}: max |diff| {errs}")
+    return (f"trees {res}; cov pars max rel diff {cov_rel:.3g}; max |diff| "
+            + ", ".join(f"{key} {v:.3g}" for key, v in errs.items()))
+
+
 def _device_busy_s(torch, fn, kernel="hist_", by_name=None):
     """(device busy seconds, wall seconds, seconds in device kernels whose
     name holds `kernel`) of fn() under torch.profiler: busy is the union of
@@ -1006,10 +1067,10 @@ def _grouped_new_rows(q, n_pred=N_PRED, seed=SEED + 2):
     return Xn, gn
 
 
-def _train_grouped(torch, gpt, n, q, device, rounds=ROUNDS):
+def _train_grouped(torch, gpt, n, q, device, rounds=ROUNDS, weights=None):
     """The grouped slice: (booster, gp, first-fit s, per-round s)."""
     X, group, y = sim_grouped(n, q)
-    gp = gpt.GPModel(group_data=group, device=device)
+    gp = gpt.GPModel(group_data=group, device=device, weights=weights)
     fit_secs = []
     fit = gp.fit
 
@@ -1150,35 +1211,12 @@ def phase_grouped_card_vs_cpu(torch, gpt):
     runs = {dev: _train_grouped(torch, gpt, N_GROUPED_CPU, Q_GROUPED_CPU,
                                 dev) for dev in ("cuda", "cpu")}
     (bg, gg, _, sg), (bc, gc, _, sc) = runs["cuda"], runs["cpu"]
-    res = _compare_models("grouped card-vs-cpu", bc, bg)
-    cg, cc = gg.get_cov_pars(), gc.get_cov_pars()
-    cov_rel = float(np.max(np.abs(cg / cc - 1.0)))
-    if not cov_rel < 1e-4:
-        raise AssertionError(f"grouped cov pars card {cg} cpu {cc}")
-    # a near tie moves a threshold, and so the fixed effect of new rows
-    # from that tree on; the training fit, the random part and the trees
-    # before it must agree
-    k = next((t for t, (a, b) in enumerate(zip(bc.trees, bg.trees))
-              if [r[:3] for r in _split_records(a)]
-              != [r[:3] for r in _split_records(b)]), len(bc.trees))
     Xn, gn = _grouped_new_rows(Q_GROUPED_CPU, 200)
-    pg = bg.predict(Xn, group_data_pred=gn, predict_var=True)
-    pc = bc.predict(Xn, group_data_pred=gn, predict_var=True)
-    keys = ("random_effect_mean", "response_var") if k < len(bc.trees) \
-        else ("response_mean", "response_var")
-    errs = {key: float(np.max(np.abs(pg[key] - pc[key]))) for key in keys}
-    errs["training score"] = float((bg.F.cpu() - bc.F).abs().max())
-    errs[f"fixed effect of trees 0-{k - 1}"] = float(np.max(np.abs(
-        sum(t.predict_raw(Xn) for t in bg.trees[:k])
-        - sum(t.predict_raw(Xn) for t in bc.trees[:k]))))
-    if not max(errs.values()) < 1e-4:
-        raise AssertionError(f"grouped card vs CPU: max |diff| {errs}")
+    txt = _card_cpu_boosters("grouped card-vs-cpu", bc, bg, gc, gg, Xn,
+                             dict(group_data_pred=gn))
     print(f"[grouped card-vs-cpu] n={N_GROUPED_CPU} q={Q_GROUPED_CPU} "
-          f"float64 {ROUNDS} rounds: trees {res}; cov pars max rel diff "
-          f"{cov_rel:.3g}; max |diff| "
-          + ", ".join(f"{key} {v:.3g}" for key, v in errs.items())
-          + f"; rounds card {sum(sg):.3f} s, cpu {sum(sc):.3f} s",
-          flush=True)
+          f"float64 {ROUNDS} rounds: {txt}; rounds card {sum(sg):.3f} s, "
+          f"cpu {sum(sc):.3f} s", flush=True)
 
 
 def phase_gaussian_fits(torch, gpt):
@@ -1718,17 +1756,16 @@ def phase_vecchia_laplace(torch, gpt):
     """bench.py's vecchia_laplace_n20k at full width: sim_vl n = 20,000,
     seed 3, bernoulli_probit, exponential, 20 neighbours, the dense
     precision path (cholesky), float32, maxit 20, init_cov_pars
-    [1.0, 0.1]. A first fit, a second after reset_fit (seconds,
-    iterations, Newton steps, host syncs, peak device memory); then one
-    float64 fit, whose covariance parameters phase 24 holds the iterative
-    fit to (returned). The profiled third fit of earlier runs is cut to
-    make room for phases 23-26."""
+    [1.0, 0.1]. One fit (seconds, iterations, Newton steps, host syncs,
+    peak device memory); then one float64 fit, whose covariance parameters
+    phase 24 holds the iterative fit to (returned). The profiled third fit
+    of earlier runs was cut for phases 23-26, the second after reset_fit
+    for phases 27-29."""
     coords, y = sim_vl(N_VL)
     torch.cuda.reset_peak_memory_stats()
-    model, first_s = _vl_fit(torch, gpt, coords, y, "float32")
+    model = gpt.GPModel(gp_coords=coords, dtype="float32", device="cuda",
+                        **VL_MODEL)
     eng = model._engine
-    model.reset_fit()
-    eng.total_num_mode_it = 0
     t0 = time.perf_counter()
     _, syncs = _count_syncs(torch, lambda: model.fit(y=y, params=VL_FIT))
     torch.cuda.synchronize()
@@ -1742,8 +1779,8 @@ def phase_vecchia_laplace(torch, gpt):
         raise AssertionError(f"vecchia-laplace: cov pars {cov}, "
                              f"{r.num_it} iterations")
     print(f"[vecchia-laplace] n={N_VL} m={M_VL} bernoulli_probit cholesky "
-          f"float32: first fit {first_s:.3f} s; after reset_fit "
-          f"{secs:.3f} s, {r.num_it} iterations ({r.optimizer}), {steps} "
+          f"float32: fit {secs:.3f} s, {r.num_it} iterations "
+          f"({r.optimizer}), {steps} "
           f"Newton steps, {syncs} host syncs; peak device memory "
           f"{peak:.2f} GiB; nll "
           f"{r.neg_log_likelihood:.4f}, cov pars {cov.tolist()}", flush=True)
@@ -1870,11 +1907,11 @@ def phase_vecchia_lagaboost(torch, gpt, histogram):
           + ", ".join(f"{k} x{v}" for k, v in sites.most_common(8)),
           flush=True)
     kernels = {}
-    busy, wall, hist_s = _device_busy_s(
-        torch, lambda: [bst.update() for _ in range(2)], by_name=kernels)
+    # one profiled round (two before phases 27-29)
+    busy, wall, hist_s = _device_busy_s(torch, bst.update, by_name=kernels)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[vecchia-lagaboost] device time of rounds {ROUNDS_VL_DENSE + 2}-"
-          f"{ROUNDS_VL_DENSE + 3} by kernel: "
+    print(f"[vecchia-lagaboost] device time of round {ROUNDS_VL_DENSE + 2} "
+          "by kernel: "
           + "; ".join(f"{k[:70]} {v:.3f} s" for k, v in top), flush=True)
     rng = np.random.RandomState(SEED_VLB + 1)
     Xn, cn = rng.rand(N_PRED, P_VLB), rng.rand(N_PRED, 2)
@@ -1901,9 +1938,8 @@ def phase_vecchia_lagaboost(torch, gpt, histogram):
           f"({gp._fit_result.optimizer}, {gp._fit_result.num_it} "
           f"iterations); mean per round {np.mean(secs):.4f} s (min "
           f"{np.min(secs):.4f}, max {np.max(secs):.4f}); host syncs in round "
-          f"{ROUNDS_VL_DENSE + 1}: {syncs}; device busy over rounds "
-          f"{ROUNDS_VL_DENSE + 2}-"
-          f"{ROUNDS_VL_DENSE + 3}: {_busy_txt(busy, wall, hist_s)}; predict "
+          f"{ROUNDS_VL_DENSE + 1}: {syncs}; device busy over round "
+          f"{ROUNDS_VL_DENSE + 2}: {_busy_txt(busy, wall, hist_s)}; predict "
           f"{N_PRED} points {pred_s:.3f} s; cov pars {cov.tolist()}; "
           f"hist_segment launches over the {ROUNDS_VL_DENSE} rounds "
           f"{launches}",
@@ -2274,8 +2310,9 @@ def phase_vecchia_laplace_iterative(torch, gpt, cov_dense64):
     """The reference's vecchia_laplace_n20k as it runs it
     (bench_reference.py:229-236): sim_vl n = 20,000, seed 3,
     bernoulli_probit, exponential, 20 neighbours, iterative with vadu,
-    float64, maxit 20, init_cov_pars [1.0, 0.1]. A first fit and a fit
-    after reset_fit: seconds, iterations, Newton steps, CG iterations
+    float64, maxit 20, init_cov_pars [1.0, 0.1]. One fit (a second after
+    reset_fit was cut for phases 27-29): seconds, iterations, Newton
+    steps, CG iterations
     (mode finding, and every solve with the SLQ probes'), host syncs, peak
     device memory; no float64 solve may stop at cg_max_num_it. Device busy
     share of one NLL-and-gradient evaluation at the estimate
@@ -2287,9 +2324,7 @@ def phase_vecchia_laplace_iterative(torch, gpt, cov_dense64):
                         **VL_ITER)
     eng = model._engine
     rows = []
-    for label in ("first fit", "after reset_fit"):
-        if rows:
-            model.reset_fit()
+    for label in ("first fit",):
         eng.total_num_mode_it = eng.total_num_cg_it = 0
         eng.cg_stats(reset=True)
         torch.cuda.reset_peak_memory_stats()
@@ -2638,10 +2673,327 @@ def phase_iterative_card_vs_cpu(torch, gpt):
           flush=True)
 
 
+# ----------------------------------------------------------------------
+# phases 27-29: the rest of the Gaussian Vecchia engine, weights and
+# cluster_ids in the Gaussian engines, Nesterov-accelerated GPBoost
+VECCHIA_PRED_TYPES = ("order_obs_first_cond_obs_only", "order_pred_first",
+                      "latent_order_obs_first_cond_obs_only",
+                      "order_obs_first_cond_all",
+                      "latent_order_obs_first_cond_all")
+LATENT_ALL = "latent_order_obs_first_cond_all"
+N_PRED_VECCHIA, N_LATENT_VAR, N_PRED_VCPU = 10_000, 1_000, 200
+VECCHIA_FIT = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1],
+               "maxit": MAXIT_VECCHIA}
+N_CLUSTERS, N_PER_CLUSTER, N_DENSE_CL, DENSE_CLUSTERS = 100, 1_000, 5_000, 10
+ROUNDS_CPU_27_29 = 5
+
+
+def _vecchia_model(gpt, coords, dtype, device, **kw):
+    """The headline's model (phase 14): exponential, 20 neighbours, random
+    ordering."""
+    return gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                       gp_approx="vecchia", num_neighbors=20,
+                       vecchia_ordering="random", dtype=dtype,
+                       device=device, **kw)
+
+
+def _weights(n):
+    """Observation weights 0.5 + 2u, u from the script's LCG."""
+    return 0.5 + 2.0 * lcg_unif(n, 0.55)
+
+
+def _timed(torch, fn):
+    """(fn(), seconds, host syncs, peak device GiB) of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, syncs = _count_syncs(torch, fn)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, syncs,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _finite(what, arr, shape, positive=False):
+    arr = np.asarray(arr)
+    if arr.shape != shape or not np.all(np.isfinite(arr)) \
+            or (positive and not np.all(arr > 0)):
+        raise AssertionError(f"{what}: shape {arr.shape}, not all finite"
+                             + (" and positive" if positive else ""))
+
+
+def _rel_max(a, b):
+    """max |a - b| over max |b|."""
+    return float(np.max(np.abs(np.asarray(a) - b)) / np.max(np.abs(b)))
+
+
+def phase_vecchia_pred(torch, gpt):
+    """The headline's model in float64, fitted on the device L-BFGS, then
+    every prediction ordering at 10,000 new points (latent variances at
+    1,000), the training random effects, one float32 latent solve, and the
+    orderings card against CPU at n = 2,000."""
+    coords, y = sim_vecchia(N_VECCHIA)
+    t0 = time.perf_counter()
+    model = _vecchia_model(gpt, coords, "float64", "cuda")
+    setup_s = time.perf_counter() - t0
+    _, fit_s, fit_syncs, _ = _timed(torch, lambda: model.fit(
+        y=y, params=VECCHIA_FIT))
+    r = model._fit_result
+    pars = model.get_cov_pars()
+    if r.optimizer != "device_lbfgs":
+        raise AssertionError(f"vecchia-pred fit took the {r.optimizer} path")
+    _finite("vecchia-pred cov pars", pars, (3,), positive=True)
+    print(f"[vecchia-pred] n={N_VECCHIA} m=20 float64: engine setup "
+          f"{setup_s:.3f} s, fit {fit_s:.3f} s in {r.num_it} device L-BFGS "
+          f"iterations, {fit_syncs} host syncs; cov pars {pars.tolist()}",
+          flush=True)
+    eng = model._engine
+    cp = np.random.RandomState(SEED + 7).rand(N_PRED_VECCHIA, 2)
+    for vt in VECCHIA_PRED_TYPES:
+        latent = vt == LATENT_ALL
+        model.set_prediction_data(vecchia_pred_type=vt)
+        pred, secs, syncs, peak = _timed(torch, lambda: model.predict(
+            gp_coords_pred=cp, predict_var=not latent))
+        _finite(f"{vt} mean", pred["mu"], (N_PRED_VECCHIA,))
+        txt = ""
+        if latent:
+            cg = int(eng.last_pred_cg_it.max())
+            again = model.predict(gp_coords_pred=cp)["mu"]
+            if not np.array_equal(again, pred["mu"]):
+                raise AssertionError("latent mean: two launches differ")
+            pv, vsecs, vsyncs, vpeak = _timed(torch, lambda: model.predict(
+                gp_coords_pred=cp[:N_LATENT_VAR], predict_var=True))
+            _finite(f"{vt} variances", pv["var"], (N_LATENT_VAR,),
+                    positive=True)
+            txt = (f"; mean CG {cg} iterations, bitwise equal in a second "
+                   f"launch; variances at {N_LATENT_VAR} points {vsecs:.3f} "
+                   f"s, {vsyncs} host syncs, CG "
+                   f"{int(eng.last_pred_cg_it.max())} iterations, peak "
+                   f"{vpeak:.2f} GiB")
+        else:
+            _finite(f"{vt} variances", pred["var"], (N_PRED_VECCHIA,),
+                    positive=True)
+        what = "means" if latent else "means and variances"
+        print(f"[vecchia-pred] {vt}: {what} at {N_PRED_VECCHIA} points "
+              f"{secs:.3f} s, {syncs} host syncs, peak {peak:.2f} GiB{txt}",
+              flush=True)
+    re_, secs, syncs, peak = _timed(
+        torch, model.predict_training_data_random_effects)
+    _finite("training random effects", re_["GP_1"], (N_VECCHIA,))
+    print(f"[vecchia-pred] predict_training_data_random_effects n="
+          f"{N_VECCHIA}: {secs:.3f} s, {syncs} host syncs, peak {peak:.2f} "
+          "GiB", flush=True)
+    m32 = _vecchia_model(gpt, coords, "float32", "cuda")
+    m32.set_prediction_data(vecchia_pred_type=LATENT_ALL)
+    p32, secs, _, _ = _timed(torch, lambda: m32.predict(
+        y=y, gp_coords_pred=cp[:N_LATENT_VAR], cov_pars=pars))
+    model.set_prediction_data(vecchia_pred_type=LATENT_ALL)
+    p64 = model.predict(gp_coords_pred=cp[:N_LATENT_VAR])["mu"]
+    _finite("float32 latent mean", p32["mu"], (N_LATENT_VAR,))
+    print(f"[vecchia-pred] float32 latent mean at {N_LATENT_VAR} points: CG "
+          f"{int(m32._engine.last_pred_cg_it.max())} iterations (maxit "
+          f"1000, tol 1e-8 of ||b||), {secs:.3f} s; max |diff| to float64 "
+          f"{float(np.max(np.abs(p32['mu'] - p64))):.3g}", flush=True)
+    # card against CPU at n = 2,000, at fixed parameters
+    coords2, y2 = sim_vecchia(N_CPU, seed=SEED)
+    cp2 = np.random.RandomState(SEED + 8).rand(N_PRED_VCPU, 2)
+    pars2 = np.array([0.25, 1.0, 0.1])
+    ms = {dev: _vecchia_model(gpt, coords2, "float64", dev)
+          for dev in ("cuda", "cpu")}
+    errs = {}
+    for vt in VECCHIA_PRED_TYPES:
+        tol = 1e-6 if vt == LATENT_ALL else 1e-8
+        out = {}
+        for dev, m_ in ms.items():
+            m_.set_prediction_data(vecchia_pred_type=vt)
+            out[dev] = m_.predict(y=y2, gp_coords_pred=cp2, cov_pars=pars2,
+                                  predict_var=True)
+        errs[vt] = max(_rel_max(out["cuda"][k], out["cpu"][k])
+                       for k in ("mu", "var"))
+        if not errs[vt] <= tol:
+            raise AssertionError(f"vecchia-pred card vs CPU {vt}: "
+                                 f"{errs[vt]:.3g} > {tol}")
+    tr = [m_._engine.training_re(pars2, y2)[0] for m_ in ms.values()]
+    errs["training_re"] = _rel_max(tr[0], tr[1])
+    if not errs["training_re"] <= 1e-8:
+        raise AssertionError(f"training_re card vs CPU {errs}")
+    print(f"[vecchia-pred card-vs-cpu] n={N_CPU} float64, {N_PRED_VCPU} "
+          "points, max |diff| over max |value| of means and variances: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + " (tolerance 1e-8; the latent CG 1e-6)", flush=True)
+
+
+def phase_weights_clusters(torch, gpt, histogram):
+    """Weights and cluster_ids at full width: the headline fit with
+    weights, a clustered Vecchia fit (100 clusters of 1,000 points), the
+    grouped GPBoost of phase 10 with weights, a clustered dense GP at
+    n = 5,000. Returns hist_segment's launches of the weighted GPBoost."""
+    coords, y = sim_vecchia(N_VECCHIA)
+    t0 = time.perf_counter()
+    mw = _vecchia_model(gpt, coords, "float32", "cuda",
+                        weights=_weights(N_VECCHIA))
+    setup_s = time.perf_counter() - t0
+    _, secs, syncs, _ = _timed(torch, lambda: mw.fit(y=y,
+                                                     params=VECCHIA_FIT))
+    r = mw._fit_result
+    if r.optimizer != "device_lbfgs":
+        raise AssertionError(f"weighted fit took the {r.optimizer} path")
+    _finite("weighted cov pars", mw.get_cov_pars(), (3,), positive=True)
+    print(f"[weights] headline fit with weights, n={N_VECCHIA} float32: "
+          f"setup {setup_s:.3f} s, {r.num_it} device L-BFGS iterations in "
+          f"{secs:.3f} s, {syncs} host syncs; cov pars "
+          f"{mw.get_cov_pars().tolist()}", flush=True)
+    del mw
+    rng = np.random.RandomState(SEED + 9)
+    loc = rng.rand(N_PER_CLUSTER, 2)
+    coords_c = np.tile(loc, (N_CLUSTERS, 1))
+    cid = np.repeat(np.arange(N_CLUSTERS), N_PER_CLUSTER)
+    yc = np.sin(6 * coords_c[:, 0]) * np.cos(4 * coords_c[:, 1]) \
+        + 0.5 * rng.randn(len(cid))
+    t0 = time.perf_counter()
+    mc = _vecchia_model(gpt, coords_c, "float32", "cuda", cluster_ids=cid)
+    setup_s = time.perf_counter() - t0
+    e = mc._engine
+    own = np.broadcast_to(e._clusters_ord[:, None], e._nn_idx_np.shape)
+    mask = e._nn_mask.cpu().numpy()
+    if np.any(e._clusters_ord[e._nn_idx_np][mask] != own[mask]):
+        raise AssertionError("a conditioning set crosses clusters")
+    _, secs, syncs, _ = _timed(torch, lambda: mc.fit(y=yc,
+                                                     params=VECCHIA_FIT))
+    rc = mc._fit_result
+    if rc.optimizer != "device_lbfgs":
+        raise AssertionError(f"clustered fit took the {rc.optimizer} path")
+    _finite("clustered cov pars", mc.get_cov_pars(), (3,), positive=True)
+    print(f"[clusters] Vecchia, {N_CLUSTERS} clusters of {N_PER_CLUSTER} "
+          f"points (n={len(cid)}) float32: setup {setup_s:.3f} s (search per "
+          f"cluster), no conditioning set crosses a cluster; "
+          f"{rc.num_it} device L-BFGS iterations in {secs:.3f} s, {syncs} "
+          f"host syncs; cov pars {mc.get_cov_pars().tolist()}", flush=True)
+    del mc
+    _reset_launches(histogram)
+    bst, gp, fit_s, secs = _train_grouped(torch, gpt, N_GROUPED, Q_GROUPED,
+                                          "cuda",
+                                          weights=_weights(N_GROUPED))
+    launches = histogram.hist_segment.launches
+    _, syncs = _count_syncs(torch, bst.update)
+    Xn, gn = _grouped_new_rows(Q_GROUPED)
+    pred = bst.predict(Xn, group_data_pred=gn, predict_var=True)
+    _finite("weighted GPBoost response variances", pred["response_var"],
+            (len(Xn),), positive=True)
+    if launches <= 0:
+        raise AssertionError(f"weighted GPBoost: {launches} launches")
+    print(f"[weights] grouped GPBoost with weights, n={N_GROUPED} "
+          f"q={Q_GROUPED} float64, {ROUNDS} rounds: first GP fit "
+          f"{fit_s:.3f} s, per round {np.mean(secs):.4f} s (min "
+          f"{np.min(secs):.4f}, max {np.max(secs):.4f}); host syncs of "
+          f"round {ROUNDS + 1}: {syncs}; cov pars "
+          f"{gp.get_cov_pars().tolist()}; hist_segment launches {launches}",
+          flush=True)
+    coords5, y5 = sim_vecchia(N_DENSE_CL, seed=SEED)
+    cid5 = np.repeat(np.arange(DENSE_CLUSTERS), N_DENSE_CL // DENSE_CLUSTERS)
+    md = gpt.GPModel(gp_coords=coords5, cov_function="exponential",
+                     cluster_ids=cid5, device="cuda")
+    _, secs, syncs, peak = _timed(torch, lambda: md.fit(y=y5))
+    pred = md.predict(gp_coords_pred=coords5[:50] + 0.005,
+                      cluster_ids_pred=cid5[:50], predict_var=True)
+    _finite("clustered dense variances", pred["var"], (50,), positive=True)
+    print(f"[clusters] dense exact GP, n={N_DENSE_CL} in {DENSE_CLUSTERS} "
+          f"clusters, float64: fit {secs:.3f} s, "
+          f"{md.get_num_optim_iter()} iterations ({md._fit_result.optimizer}"
+          f"), {syncs} host syncs, peak {peak:.2f} GiB; cov pars "
+          f"{md.get_cov_pars().tolist()}", flush=True)
+    return launches
+
+
+def phase_nesterov(torch, gpt, histogram):
+    """w_gpboost1000 with use_nesterov_acc for 10 rounds, then predict;
+    card against CPU at n = 2,000 (float64) for Nesterov GPBoost, the
+    weighted grouped GPBoost and the clustered dense GP. Returns
+    hist_segment's launches of the Nesterov run."""
+    _reset_launches(histogram)
+    coords, X, y = sim_gpboost(N_FULL)
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=20, dtype="float32",
+                     device="cuda")
+    bst = gpt.Booster({**PARAMS, "use_nesterov_acc": True},
+                      gpt.Dataset(X, label=y), gp_model=gp, device="cuda")
+    refits, refit = [], bst._refit_gp_cov
+
+    def counted_refit():
+        refits[-1] += 1
+        return refit()
+
+    bst._refit_gp_cov = counted_refit
+    secs = []
+    for _ in range(ROUNDS):
+        refits.append(0)
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = histogram.hist_segment.launches
+    Xn, cn = new_points(N_PRED)
+    pred = bst.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    for k in ("response_mean", "response_var"):
+        _finite(f"nesterov {k}", pred[k], (N_PRED,))
+    if launches <= 0:
+        raise AssertionError(f"nesterov: {launches} launches")
+    print(f"[nesterov] w_gpboost1000 n={N_FULL} float32 with "
+          f"use_nesterov_acc, {ROUNDS} rounds: round 1 (with the first GP "
+          f"fit) {secs[0]:.3f} s, rounds 2-{ROUNDS} mean "
+          f"{np.mean(secs[1:]):.4f} s (min {np.min(secs[1:]):.4f}, max "
+          f"{np.max(secs[1:]):.4f}); GP refits per round {refits}; cov pars "
+          f"{gp.get_cov_pars().tolist()}; hist_segment launches {launches}",
+          flush=True)
+    nest = {**PARAMS, "use_nesterov_acc": True}
+    runs = {dev: _train(torch, gpt, N_CPU, "float64", dev, params=nest,
+                        rounds=ROUNDS_CPU_27_29) for dev in ("cuda", "cpu")}
+    (bg, gg, _, tg), (bc, gc, _, tc) = runs["cuda"], runs["cpu"]
+    Xn, cn = new_points(200)
+    txt = _card_cpu_boosters("nesterov card-vs-cpu", bc, bg, gc, gg, Xn,
+                             dict(gp_coords_pred=cn))
+    print(f"[nesterov card-vs-cpu] w_gpboost n={N_CPU} float64 "
+          f"{ROUNDS_CPU_27_29} rounds: {txt}; train card {tg:.3f} s, cpu "
+          f"{tc:.3f} s", flush=True)
+    wg = _weights(N_GROUPED_CPU)
+    runs = {dev: _train_grouped(torch, gpt, N_GROUPED_CPU, Q_GROUPED_CPU,
+                                dev, rounds=ROUNDS_CPU_27_29, weights=wg)
+            for dev in ("cuda", "cpu")}
+    (bg, gg, _, _), (bc, gc, _, _) = runs["cuda"], runs["cpu"]
+    Xn, gn = _grouped_new_rows(Q_GROUPED_CPU, 200)
+    txt = _card_cpu_boosters("weighted card-vs-cpu", bc, bg, gc, gg, Xn,
+                             dict(group_data_pred=gn))
+    print(f"[weights card-vs-cpu] grouped GPBoost with weights n="
+          f"{N_GROUPED_CPU} q={Q_GROUPED_CPU} float64 {ROUNDS_CPU_27_29} "
+          f"rounds: {txt}", flush=True)
+    coords2, y2 = sim_vecchia(N_CPU, seed=SEED)
+    cid2 = np.repeat(np.arange(DENSE_CLUSTERS), N_CPU // DENSE_CLUSTERS)
+    cp2 = coords2[:100] + 0.005
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        gm = gpt.GPModel(gp_coords=coords2, cov_function="exponential",
+                         cluster_ids=cid2, device=dev)
+        gm.fit(y=y2)
+        fits[dev] = (gm, gm.predict(gp_coords_pred=cp2,
+                                    cluster_ids_pred=cid2[:100],
+                                    predict_var=True))
+    (gg, pg), (gc, pc) = fits["cuda"], fits["cpu"]
+    cov_rel = float(np.max(np.abs(gg.get_cov_pars() / gc.get_cov_pars()
+                                  - 1.0)))
+    perr = max(float(np.max(np.abs(pg[k] - pc[k]))) for k in ("mu", "var"))
+    if not (cov_rel < 1e-4 and perr < 1e-4):
+        raise AssertionError(f"clustered dense GP card vs CPU: cov pars "
+                             f"{cov_rel:.3g}, predictions {perr:.3g}")
+    print(f"[clusters card-vs-cpu] dense GP n={N_CPU} in {DENSE_CLUSTERS} "
+          f"clusters float64: {gg.get_num_optim_iter()} / "
+          f"{gc.get_num_optim_iter()} iterations, cov pars max rel diff "
+          f"{cov_rel:.3g}, predictions max |diff| {perr:.3g}", flush=True)
+    return launches
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
-          (25, 25), (26, 26))
+          (25, 25), (26, 26), (27, 29))
 
 
 def _groups(spec):
@@ -2739,6 +3091,15 @@ def main(argv=None):
         phase_iterative_card_vs_cpu(torch, gpt)
     print(f"[iterative] phases 23-26 in {time.perf_counter() - t_it:.1f} s",
           flush=True)
+    if (27, 29) in groups:
+        t_g = time.perf_counter()
+        phase_vecchia_pred(torch, gpt)
+        segment["launches_gpboost_weighted_n100k"] = phase_weights_clusters(
+            torch, gpt, histogram)
+        segment["launches_nesterov_w_gpboost1000"] = phase_nesterov(
+            torch, gpt, histogram)
+        print(f"[gaussian-rest] phases 27-29 in "
+              f"{time.perf_counter() - t_g:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

@@ -21,6 +21,12 @@ One boosting round (gbdt.cpp:412 TrainOneIter with the GP hooks):
      the GP model's optimizer settings in the first round, warm-started
      Nesterov GD after.
 
+With use_nesterov_acc (gbdt.cpp:421 ApplyMomentumStep,
+nesterov_boosting.h:19) each round starts with a momentum step on the
+score, F <- (1 + mu) F - mu F_prev with mu from `_nesterov_schedule`, and
+with a GP model a refit on the post-momentum residuals: two refits a round.
+`predict` replays the recursion over the trees (gbdt_prediction.cpp:22-34).
+
 The objective of LaGaBoost is the GP model's likelihood, whatever the
 `objective` parameter says (gbdt.py:647); its init score is the
 intercept-only Laplace fit at the initial covariance parameters
@@ -37,7 +43,7 @@ The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is each engine's
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
 `train` always runs the host loop. Every parameter of the reference's
 defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked:
-Nesterov-accelerated boosting, DART/GOSS/RF, sampling, constraints,
+DART/GOSS/RF, sampling, constraints,
 missing-value options, the other objectives' settings, a GP model together
 with a parallel tree learner, and every objective other than Gaussian
 regression without a non-Gaussian GP model raise NotImplementedError.
@@ -69,6 +75,7 @@ _BOOST_PARAM_DEFAULTS = dict(
     maxit_gp=10, reuse_learning_rates_gp_model=True, verbose=1, max_bin=255,
     boosting="gbdt", leaves_newton_update=False,
     line_search_step_length=False, use_nesterov_acc=False,
+    nesterov_acc_rate=0.5, momentum_offset=0, momentum_schedule_version=1,
     boost_from_average=True,
     bagging_fraction=1.0, bagging_freq=0, feature_fraction=1.0,
     path_smooth=0.0, extra_trees=False, linear_tree=False,
@@ -77,13 +84,12 @@ _BOOST_PARAM_DEFAULTS = dict(
     cegb_penalty_feature_coupled=None, cegb_penalty_feature_lazy=None,
     num_parallel_devices=None, tree_learner="serial", top_k=20,
 )
-# the options of unported features (DART, GOSS, Nesterov boosting, other
-# objectives, ranking, class weights, refit, categorical splits, sampling
-# seeds, CEGB, extra trees, missing values): only their defaults pass
+# the options of unported features (DART, GOSS, other objectives,
+# ranking, class weights, refit, categorical splits, sampling seeds, CEGB,
+# extra trees, missing values): only their defaults pass
 _UNPORTED_DEFAULTS = dict(
     drop_rate=0.1, max_drop=50, skip_drop=0.5, drop_seed=4, top_rate=0.2,
-    other_rate=0.1, num_class=1, alpha=0.9, nesterov_acc_rate=0.5,
-    momentum_offset=0, momentum_schedule_version=1, sigmoid=1.0,
+    other_rate=0.1, num_class=1, alpha=0.9, sigmoid=1.0,
     lambdarank_norm=True, lambdarank_truncation_level=30,
     is_unbalance=False, scale_pos_weight=1.0, refit_decay_rate=0.9,
     cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,
@@ -93,7 +99,7 @@ _UNPORTED_DEFAULTS = dict(
 )
 _BOOST_PARAM_DEFAULTS.update(_UNPORTED_DEFAULTS)
 _UNPORTED_IF_CHANGED = (
-    "boosting", "use_nesterov_acc", "bagging_fraction", "bagging_freq",
+    "boosting", "bagging_fraction", "bagging_freq",
     "feature_fraction", "path_smooth", "extra_trees", "linear_tree",
     "monotone_constraints", "interaction_constraints",
     "forcedsplits_filename", "cegb_penalty_split",
@@ -126,6 +132,18 @@ _PARAM_ALIASES = {
 }
 
 
+def _nesterov_schedule(i, version=1, rate=0.5, offset=0):
+    """Momentum rate at boosting iteration i (gbdt.h:399
+    NesterovSchedule)."""
+    if i < offset:
+        return 0.0
+    if version == 0:
+        return float(rate)
+    if version == 1:
+        return 1.0 - 3.0 / (6.0 + i)
+    return 0.0
+
+
 def _changed(value, default):
     """Whether a parameter differs from its default; sequences compare by
     their entries."""
@@ -140,6 +158,8 @@ def _parse_params(raw, laplace=False):
     p = dict(_BOOST_PARAM_DEFAULTS)
     for k, v in (raw or {}).items():
         p[_PARAM_ALIASES.get(k, k)] = v
+    if p["use_nesterov_acc"] and p["boosting"] != "gbdt":
+        raise ValueError("use_nesterov_acc requires boosting='gbdt'")
     changed = [k for k in _UNPORTED_IF_CHANGED
                if _changed(p[k], _BOOST_PARAM_DEFAULTS[k])]
     if changed:
@@ -225,6 +245,7 @@ class Booster:
         self._gp_init_pars = None
         self._gp_lr = 0.1
         self._gp_refit_iter = -1
+        self._F_lag1 = None
         self.current_iteration_ = 0
 
     # ------------------------------------------------------------------
@@ -400,8 +421,25 @@ class Booster:
             leaf_value_of_slot = leaf_value_of_slot * alpha
         return leaf_value_of_slot
 
+    def _momentum_mu(self, i):
+        p = self.params
+        return _nesterov_schedule(i, int(p["momentum_schedule_version"]),
+                                  float(p["nesterov_acc_rate"]),
+                                  int(p["momentum_offset"]))
+
     def update(self):
         """One boosting iteration (gbdt.cpp:412 TrainOneIter)."""
+        if self.params["use_nesterov_acc"]:
+            # the momentum step on the score comes before the gradients;
+            # with a GP model the covariance parameters are refitted on the
+            # post-momentum residuals (gbdt.cpp:428 condition iii)
+            if self._F_lag1 is None:
+                self._F_lag1 = self.F.clone()
+            mu = self._momentum_mu(self.current_iteration_)
+            F_new = (1.0 + mu) * self.F - mu * self._F_lag1
+            self._F_lag1, self.F = self.F, F_new
+            if self.gp_model is not None:
+                self._refit_gp_cov()
         grad, hess = self._gradients()
         tree, slot_of_row, leaf_value_of_slot = self.learner.train(grad, hess)
         if self.gp_model is not None \
@@ -437,7 +475,15 @@ class Booster:
         if X.ndim == 1:
             X = X[:, None]
         F_pred = np.zeros(len(X))
-        for tree in self.trees:
+        lag = None
+        for it, tree in enumerate(self.trees):
+            if self.params["use_nesterov_acc"]:
+                # the training-time momentum recursion
+                if it == 1:
+                    lag = F_pred.copy()
+                elif it > 1:
+                    mu = self._momentum_mu(it)
+                    F_pred, lag = (1.0 + mu) * F_pred - mu * lag, F_pred
             F_pred = F_pred + tree.predict_raw(X)
         F_pred = F_pred + self.init_score
         if self.gp_model is None:

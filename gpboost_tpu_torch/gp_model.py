@@ -9,9 +9,13 @@ Ported, for the Gaussian likelihood, with the engine the reference picks
     (group_rand_coef_data, ind_effect_group_rand_coef) and cluster_ids
     (each level refined by its cluster);
   * a GP, alone or with grouped random effects, gp_approx="none": the dense
-    engine (models/gaussian_gp.py);
+    engine (models/gaussian_gp.py), with cluster_ids (a same-cluster mask);
   * gp_approx="vecchia" with one isotropic GP: the Vecchia engine
-    (models/vecchia.py).
+    (models/vecchia.py), in the orderings "random", "none", "time" and
+    "time_random_space", with cluster_ids (per-cluster neighbour sets) and
+    every prediction ordering of `set_prediction_data`.
+
+All three take observation weights (the nugget of row i is sigma2 / w_i).
 
 For the 16 likelihoods of likelihoods/base.py (bernoulli_probit /
 _logit, binomial, poisson, gamma, negative_binomial(_1), beta, t,
@@ -40,8 +44,7 @@ variance (predict_response) for the non-Gaussian likelihoods;
 `model_to_dict` writes the reference's state dict and a dict of either
 package loads here. The likelihoods of likelihoods/families.py, other
 approximations, a GP combined with grouped effects for a non-Gaussian
-likelihood, GP random coefficients, weights with the Gaussian likelihood,
-the dense engines' cluster_ids and posterior sampling raise
+likelihood, GP random coefficients and posterior sampling raise
 NotImplementedError. The iterative engines (the Woodbury engine's
 iterative branch, which "auto" takes above q = 20,000, and the matrix-free
 Vecchia-Laplace engine) read the reference's CG keys of
@@ -135,8 +138,6 @@ class GPModel:
         unsupported = [nm for nm, v in (
             ("gp_rand_coef_data", gp_rand_coef_data),
             ("num_parallel_devices", num_parallel_devices)) if v is not None]
-        if weights is not None and likelihood == "gaussian":
-            unsupported.append("weights (Gaussian likelihood)")
         if drop_intercept_group_rand_effect is not None \
                 and np.any(drop_intercept_group_rand_effect):
             unsupported.append("drop_intercept_group_rand_effect")
@@ -254,7 +255,7 @@ class GPModel:
                 num_neighbors=num_neighbors if num_neighbors else 20,
                 vecchia_ordering=vecchia_ordering, seed=seed,
                 dtype=self._dtype, device=self.device,
-                cluster_ids=self.cluster_ids)
+                weights=self.weights, cluster_ids=self.cluster_ids)
             self._use_woodbury = False
         elif self._use_woodbury:
             if self.cluster_ids is not None:
@@ -268,11 +269,13 @@ class GPModel:
                 mim = "iterative" if q_tot > _WOODBURY_MAX_Q else "cholesky"
             self._engine = WoodburyGaussianEngine(
                 self.components, self.num_data, dtype=self._dtype,
-                matrix_inversion_method=mim, device=self.device)
+                matrix_inversion_method=mim, device=self.device,
+                weights=self.weights)
         else:
             self._engine = DenseGaussianEngine(
                 self.components, self.num_data, dtype=self._dtype,
-                device=self.device, cluster_ids=self.cluster_ids)
+                device=self.device, cluster_ids=self.cluster_ids,
+                weights=self.weights)
         self.num_cov_par = self._engine.num_cov_par
         self.params = OptimConfig()
         self._coef_override = None
@@ -618,7 +621,10 @@ class GPModel:
                          gp_coords_pred, cluster_ids_pred):
         """Per-component prediction inputs (gp_model.py:1058): level codes
         for the Woodbury engine, cross and prediction incidence matrices
-        for the dense one, coordinates for a GP."""
+        for the dense one, coordinates for a GP; with cluster_ids the
+        cross and prediction same-cluster masks of the dense engines
+        (gp_model.py:1127-1137; the Woodbury engine's levels carry their
+        clusters instead)."""
         comps = []
         n_pred = None
         ig = igrc = 0
@@ -665,7 +671,18 @@ class GPModel:
                 pd["coords_pred"] = cp
                 n_pred = len(cp)
             comps.append(pd)
-        return {"comps": comps, "n_pred": n_pred}
+        pred_data = {"comps": comps, "n_pred": n_pred,
+                     "cross_cluster_mask": None, "pred_cluster_mask": None}
+        if self.cluster_ids is not None:
+            if cluster_ids_pred is None:
+                raise ValueError("cluster_ids_pred not provided")
+            if not self._use_woodbury and not self._vecchia:
+                cip = np.asarray(cluster_ids_pred)
+                pred_data["cross_cluster_mask"] = (
+                    self.cluster_ids[:, None] == cip[None, :]).astype(float)
+                pred_data["pred_cluster_mask"] = (
+                    cip[:, None] == cip[None, :]).astype(float)
+        return pred_data
 
     def predict_training_data_random_effects(self, predict_var=False,
                                               offset=None):
@@ -677,10 +694,6 @@ class GPModel:
         training data for a non-Gaussian likelihood (the Booster passes
         its ensemble)."""
         r = self._require_fit()
-        if self._vecchia and self._likelihood_obj is None:
-            raise NotImplementedError(
-                "predict_training_data_random_effects is not ported yet for "
-                "gp_approx='vecchia' with the Gaussian likelihood")
         if self._likelihood_obj is not None:
             means, vs = self._training_re_laplace(r, predict_var, offset)
         else:

@@ -15,7 +15,11 @@ reference used jax.grad, jax.hessian and jax.jacfwd. The façade routes every
 Gaussian model with a GP component here unless gp_approx="vecchia", so a GP
 combined with grouped random effects runs here at small n.
 
-cluster_ids and weights raise NotImplementedError.
+cluster_ids make the realizations of different clusters independent: every
+component's W_j is multiplied by the same-cluster mask (one static masked
+dense matrix for the reference's per-cluster blocks,
+re_model_template.h:6067-6069). Observation weights w make the nugget of
+row i sigma2 / w_i: Psi~ = diag(1/w) + sum_j v~_j (W_j o K_j).
 """
 
 import math
@@ -56,18 +60,31 @@ def assemble_pred_covs(components, par_offsets, comp_vars, theta_log,
                                             alphas)
         K_cross = K_cross + float(v) * Kc
         K_pred = K_pred + float(v) * Kp
+    if pred_data.get("cross_cluster_mask") is not None:
+        K_cross = K_cross * torch.as_tensor(
+            pred_data["cross_cluster_mask"], device=device).to(dtype)
+        K_pred = K_pred * torch.as_tensor(
+            pred_data["pred_cluster_mask"], device=device).to(dtype)
     return K_cross, K_pred
 
 
 class DenseSigmaAssembly:
     """Sigma(theta) = sum_j v_j (W_j o K_j) over the random-effect
-    components, on the device."""
+    components, on the device, with the same-cluster mask in every W_j when
+    cluster_ids are given."""
 
-    def __init__(self, components, num_data, dtype, device):
+    def __init__(self, components, num_data, dtype, device,
+                 cluster_ids=None):
         self.components = list(components)
         self.n = int(num_data)
         self.dtype = dtype
         self.device = device
+        self.cluster_codes = self._cluster_mask = None
+        if cluster_ids is not None:
+            codes = np.unique(np.asarray(cluster_ids), return_inverse=True)[1]
+            self.cluster_codes = codes
+            self._cluster_mask = torch.as_tensor(
+                codes[:, None] == codes[None, :], device=device).to(dtype)
         self._comp_static = []
         self.par_offsets = []
         offset = 0
@@ -82,6 +99,9 @@ class DenseSigmaAssembly:
                 W = torch.as_tensor(W, device=device).to(dtype)
             else:
                 D = _dist(comp.coords, comp.coords, dtype, device)
+            if self._cluster_mask is not None:
+                W = self._cluster_mask if W is None \
+                    else W * self._cluster_mask
             self._comp_static.append({"W": W, "D": D})
         self.num_theta = offset
 
@@ -97,6 +117,8 @@ class DenseSigmaAssembly:
             else:
                 alphas = torch.exp(theta_log[off + 1: off + comp.num_cov_par])
                 K = comp.cov_fn.corr_from_dist(static["D"], alphas)
+                if static["W"] is not None:
+                    K = K * static["W"]
             M = M + v * K
         return M
 
@@ -114,12 +136,14 @@ def report_matrices(assembly, theta_log):
         if comp.kind == "grouped":
             R = torch.as_tensor(comp.same_group_mask(),
                                 device=assembly.device).to(assembly.dtype)
-            if comp.z is not None:
-                R = R * torch.as_tensor(comp.z, device=assembly.device).to(
-                    assembly.dtype)[None, :]
         else:
             alphas = torch.exp(theta_log[off + 1: off + comp.num_cov_par])
             R = comp.cov_fn.corr_from_dist(static["D"], alphas)
+        if assembly._cluster_mask is not None:
+            R = R * assembly._cluster_mask
+        if comp.z is not None:
+            R = R * torch.as_tensor(comp.z, device=assembly.device).to(
+                assembly.dtype)[None, :]
         out.append(v * R)
     return out
 
@@ -131,14 +155,13 @@ class DenseGaussianEngine(GaussianEngineBase):
 
     def __init__(self, components, num_data, dtype=torch.float64, *, device,
                  cluster_ids=None, weights=None):
-        if cluster_ids is not None or weights is not None:
-            raise NotImplementedError(
-                "cluster_ids and weights are not ported yet for the dense "
-                "engine")
         self.device = torch.device(device)
         self.dtype = dtype
+        self.weights = None if weights is None \
+            else np.asarray(weights, dtype=np.float64)
         self._assembly = DenseSigmaAssembly(components, num_data, dtype,
-                                            self.device)
+                                            self.device, cluster_ids)
+        self.cluster_codes = self._assembly.cluster_codes
         self.components = self._assembly.components
         self.n = self._assembly.n
         self.par_offsets = self._assembly.par_offsets
@@ -147,9 +170,15 @@ class DenseGaussianEngine(GaussianEngineBase):
 
     # ------------------------------------------------------------------
     def psi_tilde(self, theta_log):
-        """Scaled covariance I + sum_j v~_j (W_j o K_j)."""
-        return torch.eye(self.n, dtype=self.dtype, device=self.device) \
-            + self._assembly.sigma(theta_log)
+        """Scaled covariance diag(1/w) + sum_j v~_j (W_j o K_j) (the
+        identity without weights)."""
+        if self.weights is None:
+            eye = torch.eye(self.n, dtype=self.dtype, device=self.device)
+        else:
+            eye = torch.diag(torch.as_tensor(1.0 / self.weights,
+                                             device=self.device).to(
+                                                 self.dtype))
+        return eye + self._assembly.sigma(theta_log)
 
     def psi_original(self, pars_orig):
         """sigma2 I + sum_j v_j (W_j o K_j(rho_j)) from original pars."""

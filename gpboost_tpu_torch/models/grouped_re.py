@@ -31,8 +31,15 @@ q = 20,000, grouped_re.py:135-155 there; CG_utils.h:977 CGRandomEffects,
 :384 LogDetStochTridiag) takes the NLL's A^-1 Z'y by CG (tol 1e-8) and
 log|A| by SLQ (rank min(q, 100), num_rand_vec_trace probes), both with
 their implicit gradients (ops/iterative.py); the standard errors, GLS
-steps and predictions keep the Cholesky, as there. Weights raise
-NotImplementedError.
+steps and predictions keep the Cholesky, as there.
+
+Observation weights w (the nugget of row i is sigma2 / w_i, Psi~ =
+diag(1/w) + Z Sigma Z') replace Z'Z, Z'v, v'v, Z'X and X'X by Z'WZ, Z'Wv,
+v'Wv, Z'WX and X'WX, and add -sum log w to log|Psi~|. The GLS and the
+coefficient gradient use X'WX, X'Wy and X'Wr, the closed form
+(X' Psi~^-1 X)^-1 X' Psi~^-1 y: the reference's grouped_re.py:124, :283 and
+:300 keep the unweighted X'X, X'y and X'r there, which gives other
+coefficients (NaN in a test case of tests/test_torch_weights_clusters.py).
 """
 
 import math
@@ -88,8 +95,8 @@ class WoodburyGaussianEngine(GaussianEngineBase):
                  matrix_inversion_method="cholesky", *, device,
                  weights=None, num_rand_vec_trace=200, seed_rand_vec_trace=1,
                  cg_max_num_it=1000):
-        if weights is not None:
-            raise NotImplementedError("weights are not ported yet")
+        self.weights = None if weights is None \
+            else np.asarray(weights, dtype=np.float64)
         self.components = list(components)
         if not all(c.kind == "grouped" for c in self.components):
             raise ValueError("the Woodbury engine takes grouped random "
@@ -111,14 +118,16 @@ class WoodburyGaussianEngine(GaussianEngineBase):
                               for j, c in enumerate(self.components)])
         self._w = np.stack([np.ones(self.n) if c.z is None else c.z
                             for c in self.components])
-        # Z'Z, each entry summed over the rows in row order
+        # Z'WZ, each entry summed over the rows in row order
         q = self.q
+        wvec = np.ones(self.n) if self.weights is None else self.weights
         G = np.zeros(q * q)
         for j in range(self.num_theta):
             for k in range(self.num_theta):
                 G += np.bincount(self._idx[j] * q + self._idx[k],
-                                 weights=self._w[j] * self._w[k],
+                                 weights=wvec * self._w[j] * self._w[k],
                                  minlength=q * q)
+        self._logdet_R = float(-np.sum(np.log(wvec)))      # log|diag(1/w)|
         dev = self.device
         self._G = torch.as_tensor(G.reshape(q, q), device=dev).to(dtype)
         block_id = np.repeat(np.arange(self.num_theta), self.block_sizes)
@@ -129,6 +138,7 @@ class WoodburyGaussianEngine(GaussianEngineBase):
         self._idx_d = torch.as_tensor(self._idx, device=dev)
         self._w_d = [None if c.z is None else self._t(c.z)
                      for c in self.components]
+        self._wvec_d = None if self.weights is None else self._t(self.weights)
         self._seg = [SegmentSum(c.group_codes, c.num_groups, dev)
                      for c in self.components]
         self._y_cache = (None, None)
@@ -168,8 +178,15 @@ class WoodburyGaussianEngine(GaussianEngineBase):
 
     # ------------------------------------------------------------------
     # device-side sufficient statistics
+    def _weigh(self, v):
+        """W v for v (n,) or (n, L) (v itself without weights)."""
+        if self._wvec_d is None:
+            return v
+        return self._wvec_d * v if v.ndim == 1 else self._wvec_d[:, None] * v
+
     def _zt(self, v):
-        """Z' v for v (n,) or (n, L) on the device: (q,) or (q, L)."""
+        """Z'W v for v (n,) or (n, L) on the device: (q,) or (q, L)."""
+        v = self._weigh(v)
         parts = []
         for w, seg in zip(self._w_d, self._seg):
             wv = v if w is None else (w * v if v.ndim == 1
@@ -178,20 +195,20 @@ class WoodburyGaussianEngine(GaussianEngineBase):
         return torch.cat(parts)
 
     def _stats_y(self, y):
-        """(Z'y, y'y), cached for the last y tensor."""
+        """(Z'Wy, y'Wy), cached for the last y tensor."""
         ref, val = self._y_cache
         if ref is y:
             return val
-        val = (self._zt(y), y @ y)
+        val = (self._zt(y), y @ self._weigh(y))
         self._y_cache = (y, val)
         return val
 
     def _stats_X(self, X):
-        """(Z'X, X'X), cached for the last X tensor."""
+        """(Z'WX, X'WX), cached for the last X tensor."""
         ref, val = self._X_cache
         if ref is X:
             return val
-        val = (self._zt(X), X.T @ X)
+        val = (self._zt(X), X.T @ self._weigh(X))
         self._X_cache = (X, val)
         return val
 
@@ -210,11 +227,11 @@ class WoodburyGaussianEngine(GaussianEngineBase):
             solve, logdet_A = self._iterative()
             quad = yty - Zty @ solve(theta_log, Zty)
             return quad, logdet_A(theta_log) + torch.sum(
-                self._m_sizes * theta_log)
+                self._m_sizes * theta_log) + self._logdet_R
         L = chol(self._A(theta_log))
         quad = yty - Zty @ self._cho_solve(L, Zty)
         logdet = (2.0 * torch.sum(torch.log(torch.diagonal(L)))
-                  + torch.sum(self._m_sizes * theta_log))
+                  + torch.sum(self._m_sizes * theta_log) + self._logdet_R)
         return quad, logdet
 
     def _nll_parts(self, theta_log, sigma2, y):
@@ -232,20 +249,20 @@ class WoodburyGaussianEngine(GaussianEngineBase):
 
     def _wls(self, theta_log, y, X):
         """GLS coefficients in q-space: (X'P X) beta = X'P y with
-        X'P X = X'X - (Z'X)' A^-1 (Z'X)."""
+        X'P X = X'WX - (Z'WX)' A^-1 (Z'WX)."""
         ZtX, XtX = self._stats_X(X)
         Zty, _ = self._stats_y(y)
         L = chol(self._A(theta_log))
         AinvZtX = self._cho_solve(L, ZtX)
         XtPX = XtX - ZtX.T @ AinvZtX
-        XtPy = X.T @ y - AinvZtX.T @ Zty
+        XtPy = X.T @ self._weigh(y) - AinvZtX.T @ Zty
         return self._cho_solve(chol(XtPX), XtPy)
 
     def _coef_grad(self, theta_log, sigma2, resid, X):
         ZtX, _ = self._stats_X(X)
         L = chol(self._A(theta_log))
         AinvZtr = self._cho_solve(L, self._zt(resid))
-        return -(X.T @ resid - ZtX.T @ AinvZtr) / sigma2
+        return -(X.T @ self._weigh(resid) - ZtX.T @ AinvZtr) / sigma2
 
     # ------------------------------------------------------------------
     def _blocks(self, M):
@@ -362,14 +379,16 @@ class WoodburyGaussianEngine(GaussianEngineBase):
         return out
 
     def psi_tilde_inv_mat(self, pars_internal, M):
-        """Psi~^-1 M for M (n, L) on the device: M - Z A^-1 Z' M
+        """Psi~^-1 M for M (n, L) on the device: W M - W Z A^-1 Z'W M
         (gbdt.py:2405-2419 Woodbury branch)."""
         theta_log = self._t(np.log(np.asarray(pars_internal)[1:]))
         with torch.no_grad():
             Mt = M.to(self.dtype)
             w = self._cho_solve(chol(self._A(theta_log)), self._zt(Mt))
-            out = Mt
+            out = self._weigh(Mt)
             for j, wz in enumerate(self._w_d):
                 g = w[self._idx_d[j]]
-                out = out - (g if wz is None else wz[:, None] * g)
+                if wz is not None:
+                    g = wz[:, None] * g
+                out = out - self._weigh(g)
         return out.to(M.dtype)

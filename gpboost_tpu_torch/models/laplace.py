@@ -32,8 +32,8 @@ subtracts the vector-Jacobian product of the mode residual r.
 The W+/W- split-Cholesky path of the reference (for curvatures that can be
 negative or zero), two predictor sets (num_sets_fe = 2) and two random-effect
 sets (num_sets_re = 2) serve only likelihoods of likelihoods/families.py,
-which `get_likelihood` refuses; the dense engine's cluster_ids raise
-NotImplementedError.
+which `get_likelihood` refuses. The dense engine takes cluster_ids through
+the same-cluster mask of models/gaussian_gp.py's assembly.
 """
 
 import numpy as np
@@ -297,12 +297,9 @@ class LaplaceDenseEngine(LaplaceEngineBase):
 
     def __init__(self, components, num_data, likelihood, cluster_ids=None,
                  dtype=torch.float64, weights=None, *, device):
-        if cluster_ids is not None:
-            raise NotImplementedError(
-                "cluster_ids are not ported yet for the dense engine")
         self._init_common(likelihood, num_data, dtype, device, weights)
         self._assembly = DenseSigmaAssembly(components, num_data, dtype,
-                                            self.device)
+                                            self.device, cluster_ids)
         self.components = self._assembly.components
         self.par_offsets = self._assembly.par_offsets
         self.num_theta = self._assembly.num_theta

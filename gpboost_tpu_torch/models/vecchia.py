@@ -2,25 +2,38 @@
 (counterpart of gpboost_tpu/models/vecchia.py).
 
 Sigma^-1 ~= B' D^-1 B with B = I - A unit lower triangular and at most m
-off-diagonals per row, conditioning on nearest preceding neighbours in a
-random ordering. The ordering and the neighbour search are the reference's
-host numpy / cKDTree code (or the shared native search at n >= 20k), so both
-packages condition on the same sets.
+off-diagonals per row, conditioning on nearest preceding neighbours in the
+ordering ("random", "none", "time" or "time_random_space"). The ordering and
+the neighbour search are the reference's host numpy / cKDTree code (or the
+shared native search at n >= 20k without clusters), so both packages
+condition on the same sets. With cluster_ids the search runs per cluster
+(independent realizations: no conditioning set crosses a cluster).
 
 Device layout: the (n, m) neighbour indices, masks and the theta-independent
 neighbour distances live on the engine's device; each NLL evaluation is a
 batch of (m, m) correlation matrices -> batched Cholesky solves -> masked
 reductions, differentiated by torch.autograd through the custom-VJP solve of
-ops/batched_chol.py.
+ops/batched_chol.py. Observation weights w make the nugget of row i
+sigma2 / w_i, on the conditioning sets' diagonals and on D.
 
-Ported: the ordering, neighbour search, `_bd`, the NLL with and without the
-profiled nugget (value and gradient, the host wrappers of
-models/gaussian_base.py), GLS and gradient coefficient steps for linear
-covariates, the raw closures of the device L-BFGS, and prediction with
-vecchia_pred_type='order_obs_first_cond_obs_only'. As in the reference,
-Fisher scoring and Newton raise here. Weights, cluster_ids, a device mesh,
-neighbour re-determination and the other prediction orderings raise
-NotImplementedError.
+Prediction (CalcPredVecchia*, Vecchia_utils.h:479-588), all batched on the
+device:
+  * "order_obs_first_cond_obs_only" (aliases "order_pred_first",
+    "latent_order_obs_first_cond_obs_only"): each prediction point
+    conditions on its k nearest observed points;
+  * "order_obs_first_cond_all": joint Vecchia over [obs; pred], the
+    predictive distribution N(-Lam_pp^-1 Lam_po y, Lam_pp^-1) with dense
+    p x p matrices;
+  * "latent_order_obs_first_cond_all": Vecchia on the latent process over
+    [obs; pred], its posterior precision B'D^-1 B + blockdiag(I_n, 0)
+    solved by Jacobi-preconditioned CG (tol 1e-8 relative to ||b||, at most
+    1000 iterations, every column until all have converged). B' u is a
+    weighted `embedding_bag` sum over the joint pattern's transpose, sorted
+    once on the host: no atomics, so two launches give the same bits.
+As in the reference, weights support only the first, clusters no
+prediction, and latent variances at most 2,000 points; Fisher scoring and
+Newton raise. A device mesh raises NotImplementedError; neighbour
+re-determination (anisotropic kernels) is not ported.
 """
 
 import math
@@ -31,6 +44,13 @@ import torch
 from .gaussian_base import GaussianEngineBase, chol
 from ..ops.batched_chol import cho_solve_batched
 from ..ops.cov_fcts import _safe_sqrt
+from ..ops.iterative import _cg
+
+LATENT_CG_TOL = 1e-8
+LATENT_CG_MAXIT = 1000
+LATENT_VAR_MAX_POINTS = 2000
+_COND_OBS_TYPES = ("order_obs_first_cond_obs_only", "order_pred_first",
+                   "latent_order_obs_first_cond_obs_only")
 
 
 def _corr_sets(cov_fn, cn, ci, alphas, d_nn=None, d_ni=None):
@@ -45,19 +65,47 @@ def _corr_sets(cov_fn, cn, ci, alphas, d_nn=None, d_ni=None):
                                                                        alphas)
 
 
-def nearest_preceding_neighbors(coords, m):
+def _bags(t, idx, offs, w):
+    """out[i] = sum of w[r] t[idx[r]] over bag i's slots r, t (n,) or
+    (n, k): a weighted `embedding_bag` sum, one thread an output, no
+    atomics."""
+    t2 = t if t.ndim == 2 else t.view(-1, 1)
+    return torch.embedding_bag(t2, idx, offs, False, 0, False, w, False,
+                               None)[0].view(t.shape)
+
+
+def _col(d, v):
+    """d (n,) broadcast against v (n,) or columns (n, k)."""
+    return d if v.ndim == 1 else d[:, None]
+
+
+def nearest_preceding_neighbors(coords, m, clusters=None):
     """Neighbour indices among preceding points in the ordering (a copy of
-    the reference's host search, vecchia.py:77, without clusters).
+    the reference's host search, vecchia.py:77).
+
+    With `clusters`, candidates are restricted to the row's own cluster:
+    the search runs per cluster on its sub-coordinates (global order kept
+    within each cluster) and local indices map back to global positions.
 
     Exact kNN via cKDTree over doubling batches: for the batch [s, 2s) a tree
     on points [0, 2s) is queried with an over-allocation factor and indices
     >= i are filtered out; rare rows fall back to a brute-force pass.
 
-    Returns (idx (n, m) int64, mask (n, m) bool). Rows i < m are padded with
-    the row's own index, masked out.
+    Returns (idx (n, m) int64, mask (n, m) bool). Rows without a preceding
+    neighbour are padded with the row's own index, masked out.
     """
     from scipy.spatial import cKDTree
     n = len(coords)
+    if clusters is not None:
+        clusters = np.asarray(clusters)
+        idx = np.tile(np.arange(n)[:, None], (1, m))
+        mask = np.zeros((n, m), dtype=bool)
+        for c in np.unique(clusters):
+            sel = np.flatnonzero(clusters == c)
+            sub_idx, sub_mask = nearest_preceding_neighbors(coords[sel], m)
+            idx[sel] = sel[sub_idx]
+            mask[sel] = sub_mask
+        return idx, mask
     idx = np.zeros((n, m), dtype=np.int64)
     mask = np.zeros((n, m), dtype=bool)
     s = 1
@@ -84,6 +132,54 @@ def nearest_preceding_neighbors(coords, m):
     return idx, mask
 
 
+def vecchia_permutation(coords, n, vecchia_ordering, seed):
+    """The reference's orderings (vecchia.py:166-177): "none", "random"
+    (RandomState(seed)), "time" (stable sort on the first coordinate) and
+    "time_random_space" (ties broken by RandomState(seed) jitter)."""
+    if vecchia_ordering in ("none", None):
+        return np.arange(n)
+    if vecchia_ordering == "random":
+        return np.random.RandomState(seed).permutation(n)
+    if vecchia_ordering == "time":
+        return np.argsort(coords[:, 0], kind="stable")
+    if vecchia_ordering == "time_random_space":
+        key = coords[:, 0] + 1e-12 * np.random.RandomState(seed).rand(n)
+        return np.argsort(key, kind="stable")
+    raise ValueError(f"vecchia_ordering '{vecchia_ordering}'")
+
+
+class _JointBags:
+    """The Vecchia pattern over [obs; pred] as `embedding_bag` bags: row i's
+    slots (m for an observed point, k for a prediction point) for B v, and
+    each point's slots of the transposed pattern, sorted once on the host
+    (stable, so in slot order), for B'u."""
+
+    def __init__(self, nn_idx, sel, n, device):
+        p, k = sel.shape
+        m = nn_idx.shape[1]
+        flat = np.concatenate([nn_idx.reshape(-1), sel.reshape(-1)])
+        rows = np.concatenate([np.repeat(np.arange(n), m),
+                               n + np.repeat(np.arange(p), k)])
+        order = np.argsort(flat, kind="stable")
+        counts = np.bincount(flat, minlength=n + p)
+        self.idx = torch.as_tensor(flat, device=device)
+        self.offs = torch.as_tensor(
+            np.concatenate([np.arange(n) * m, n * m + np.arange(p) * k]),
+            device=device)
+        self.t_order = torch.as_tensor(order, device=device)
+        self.t_rows = torch.as_tensor(rows[order], device=device)
+        self.t_offs = torch.as_tensor(
+            np.concatenate([[0], np.cumsum(counts)[:-1]]), device=device)
+
+    def a(self, t, w):
+        """A t: out[i] = sum over row i's slots of w[r] t[idx[r]]."""
+        return _bags(t, self.idx, self.offs, w)
+
+    def at(self, t, wt):
+        """A' t for wt = w[t_order]."""
+        return _bags(t, self.t_rows, self.t_offs, wt)
+
+
 class VecchiaGaussianEngine(GaussianEngineBase):
     """Vecchia-approximated Gaussian marginal NLL, gradients and prediction.
 
@@ -95,10 +191,9 @@ class VecchiaGaussianEngine(GaussianEngineBase):
     def __init__(self, components, num_data, num_neighbors=20,
                  vecchia_ordering="random", seed=0, dtype=torch.float64,
                  *, device, mesh=None, weights=None, cluster_ids=None):
-        if mesh is not None or weights is not None or cluster_ids is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "mesh, weights and cluster_ids are not ported yet for "
-                "gp_approx='vecchia'")
+                "a device mesh is not ported yet for gp_approx='vecchia'")
         if len(components) != 1 or components[0].kind != "gp":
             raise ValueError("gp_approx='vecchia' requires exactly one GP "
                              "component")
@@ -112,32 +207,38 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         self.m = int(min(num_neighbors, self.n - 1))
         self.num_theta = comp.num_cov_par
         self.num_cov_par = self.num_theta + 1
+        self.weights = None if weights is None \
+            else np.asarray(weights, dtype=np.float64)
 
-        if vecchia_ordering in ("none", None):
-            perm = np.arange(self.n)
-        elif vecchia_ordering == "random":
-            perm = np.random.RandomState(seed).permutation(self.n)
-        else:
-            raise NotImplementedError(
-                f"vecchia_ordering '{vecchia_ordering}' is not ported yet "
-                "(supported: 'random', 'none')")
+        perm = vecchia_permutation(comp.coords, self.n, vecchia_ordering,
+                                   seed)
         self.perm = perm
         self.coords_ord = comp.coords[perm]
+        self.cluster_ids = None if cluster_ids is None \
+            else np.asarray(cluster_ids)
+        self._clusters_ord = None if self.cluster_ids is None \
+            else self.cluster_ids[perm]
         idx = mask = None
-        if self.n >= 20000 and self.coords_ord.shape[1] == 2:
+        if self.n >= 20000 and self.coords_ord.shape[1] == 2 \
+                and self._clusters_ord is None:
             # native cell-bucketed search, as the reference does at this size
             from ..native import nn_preceding_2d
             res = nn_preceding_2d(self.coords_ord, self.m)
             if res is not None:
                 idx, mask = res
         if idx is None:
-            idx, mask = nearest_preceding_neighbors(self.coords_ord, self.m)
+            idx, mask = nearest_preceding_neighbors(
+                self.coords_ord, self.m, clusters=self._clusters_ord)
         dev = self.device
-        self._nn_idx = torch.as_tensor(idx, device=dev)
+        self._nn_idx_np = np.asarray(idx, dtype=np.int64)
+        self._nn_idx = torch.as_tensor(self._nn_idx_np, device=dev)
         self._nn_mask = torch.as_tensor(mask, device=dev)
         self._pair_mask = self._nn_mask[:, :, None] & self._nn_mask[:, None, :]
         self._perm = torch.as_tensor(perm, device=dev)
         self._eye = torch.eye(self.m, dtype=dtype, device=dev)[None]
+        # per-row inverse weights in the Vecchia order (nugget sigma2 / w_i)
+        self._winv = None if self.weights is None else torch.as_tensor(
+            1.0 / self.weights[perm], dtype=dtype, device=dev)
         # theta-independent neighbour distances, computed once on the host
         cn = self.coords_ord[idx]                          # (n, m, d)
         d_nn = np.sqrt(np.maximum(
@@ -146,6 +247,7 @@ class VecchiaGaussianEngine(GaussianEngineBase):
             ((cn - self.coords_ord[:, None, :]) ** 2).sum(-1), 0.0))
         self._d_nn = torch.as_tensor(d_nn, dtype=dtype, device=dev)
         self._d_ni = torch.as_tensor(d_ni, dtype=dtype, device=dev)
+        self.last_pred_cg_it = None
 
     # ------------------------------------------------------------------
     def prep_y(self, y):
@@ -156,8 +258,8 @@ class VecchiaGaussianEngine(GaussianEngineBase):
 
     def _bd(self, theta_log, latent=False):
         """Batched Vecchia factors: A (n, m) coefficients, D (n,) diagonals
-        of the response covariance C = v K + I, or with latent=True of the
-        latent covariance C = v K (no nugget; the Vecchia-Laplace
+        of the response covariance C = v K + diag(1/w), or with latent=True
+        of the latent covariance C = v K (no nugget; the Vecchia-Laplace
         precision)."""
         v = torch.exp(theta_log[0])
         alphas = torch.exp(theta_log[1:])
@@ -165,13 +267,21 @@ class VecchiaGaussianEngine(GaussianEngineBase):
                                       d_nn=self._d_nn, d_ni=self._d_ni)
         K_nn = v * corr_nn
         if not latent:
-            K_nn = K_nn + self._eye
+            if self._winv is None:
+                K_nn = K_nn + self._eye
+            else:
+                # each conditioning set's diagonal carries its rows' 1 / w
+                K_nn = K_nn + self._winv[self._nn_idx][:, :, None] * self._eye
         k_ni = v * corr_ni
         # padded neighbours: identity rows/cols in K_nn, zeros in k_ni
         K_nn = torch.where(self._pair_mask, K_nn, self._eye)
         k_ni = torch.where(self._nn_mask, k_ni, torch.zeros_like(k_ni))
         A = cho_solve_batched(K_nn, k_ni)
-        D = (v if latent else v + 1.0) - torch.sum(A * k_ni, dim=1)
+        if latent:
+            diag_c = v
+        else:
+            diag_c = v + (1.0 if self._winv is None else self._winv)
+        D = diag_c - torch.sum(A * k_ni, dim=1)
         return A, D
 
     def _bd_add_diag(self, theta_log, add_diag):
@@ -276,39 +386,175 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         inv[self._perm] = out
         return inv
 
+    def training_re(self, pars_orig, y_resid, predict_var=False):
+        """Posterior mean of the GP at the training points, on the device
+        (re_model_template.h:4420): Sigma~ = Psi~ - diag(1/w), so
+        mean = Sigma~ Psi~^-1 r = r - diag(1/w) Psi~^-1 r with no dense
+        matrix. The variance is not available for Vecchia, as in the
+        reference. (With weights the reference's vecchia.py:516 leaves out
+        the diag(1/w); the port keeps it, which makes the m = n - 1 result
+        equal the dense engine's.)"""
+        if predict_var:
+            raise ValueError("predict_training_data_random_effects with "
+                             "predict_var=True is not implemented for "
+                             "gp_approx='vecchia'; use predict() instead")
+        t = self.transform_pars(np.asarray(pars_orig, dtype=np.float64))
+        with torch.no_grad():
+            r = torch.as_tensor(np.asarray(y_resid, dtype=np.float64),
+                                device=self.device).to(self.dtype)
+            inv = self.psi_tilde_inv_mat(t, r[:, None])[:, 0]
+            if self.weights is not None:
+                inv = inv / torch.as_tensor(self.weights, dtype=self.dtype,
+                                            device=self.device)
+            return self._host((r - inv)[:, None])[0], None
+
     # ------------------------------------------------------------------
     def _knn_obs(self, coords_pred, k):
         """k nearest observed points per prediction point (host cKDTree)."""
+        if self._clusters_ord is not None:
+            raise NotImplementedError(
+                "prediction with cluster_ids under gp_approx='vecchia' is "
+                "not implemented (training and the NLL are); predict with "
+                "the dense engine (gp_approx='none') for clustered models")
         from scipy.spatial import cKDTree
         dist, idx = cKDTree(self.coords_ord).query(np.asarray(coords_pred),
                                                    k=k)
         p = len(coords_pred)
         return idx.reshape(p, -1), dist.reshape(p, -1)
 
-    def _pred_cond_obs(self, theta_log, cn, ci, y_nbr):
-        """Batched conditional mean and variance of each prediction point
-        given its k nearest observed points (vecchia.py:563)."""
+    def _joint_neighbors(self, coords_pred, k):
+        """Neighbour sets of the prediction points among [obs; preceding
+        preds]: global indices (p, k) (>= n marks a prediction point), the
+        k nearest of the union of the k nearest observed points and the
+        preceding prediction points' search, cut by a stable sort of the
+        distances (vecchia.py:544-561; ties keep the candidates' order)."""
+        n, p = self.n, len(coords_pred)
+        obs_idx, obs_d = self._knn_obs(coords_pred, min(k, n))
+        pidx, pmask = nearest_preceding_neighbors(coords_pred,
+                                                  min(k, max(p - 1, 1)))
+        pd = np.sqrt(((coords_pred[:, None, :]
+                       - coords_pred[pidx]) ** 2).sum(-1))
+        pd = np.where(pmask, pd, np.inf)
+        cand_idx = np.concatenate([obs_idx, pidx + n], axis=1)
+        cand_d = np.concatenate([obs_d, pd], axis=1)
+        take = np.argsort(cand_d, axis=1, kind="stable")[:, :k]
+        rows = np.arange(p)[:, None]
+        sel = cand_idx[rows, take]
+        valid = np.isfinite(cand_d[rows, take])
+        return np.where(valid, sel, 0), valid
+
+    def _pred_sets(self, theta_log, cn, ci, valid, nugget, pad, diag_add):
+        """Each prediction row's (k, k) neighbour covariance with `nugget`
+        on its diagonal and its cross covariances; returns their solve a
+        and the conditional variance v + diag_add - a'k. Invalid slots get
+        `pad` times the identity and zero cross covariance."""
         v = torch.exp(theta_log[0])
         alphas = torch.exp(theta_log[1:])
         corr_nn, corr_ni = _corr_sets(self.comp.cov_fn, cn, ci, alphas)
         k = cn.shape[1]
-        K = v * corr_nn + torch.eye(k, dtype=self.dtype, device=self.device)
+        eye = torch.eye(k, dtype=self.dtype, device=self.device)[None]
+        K = v * corr_nn + nugget * eye
         kni = v * corr_ni
+        if valid is not None:
+            pair = valid[:, :, None] & valid[:, None, :]
+            K = torch.where(pair, K, pad * eye)
+            kni = torch.where(valid, kni, torch.zeros_like(kni))
         a = cho_solve_batched(K, kni)
-        mu = torch.sum(a * y_nbr, dim=1)
-        var = v + 1.0 - torch.sum(a * kni, dim=1)
-        return mu, var
+        return a, v + diag_add - torch.sum(a * kni, dim=1)
+
+    def _pred_cond_obs(self, theta_log, cn, ci, y_nbr, winv_nbr=None):
+        """Conditional mean and variance of each prediction point given its
+        k nearest observed points (vecchia.py:563-587); with weights each
+        neighbour's nugget is 1 / w."""
+        nugget = 1.0 if winv_nbr is None else winv_nbr[:, :, None]
+        a, var = self._pred_sets(theta_log, cn, ci, None, nugget, 1.0, 1.0)
+        return torch.sum(a * y_nbr, dim=1), var
+
+    def _pred_cond_all(self, theta_log, cn, ci, nbr_y, is_pred, pred_col,
+                       valid, want_cov):
+        """Joint Vecchia over [obs; pred] (vecchia.py:589-626): with the
+        prediction rows of B as [Bp_o, Bp_p], Lam_pp = Bp_p' D^-1 Bp_p and
+        Lam_po y = Bp_p' D^-1 (Bp_o y). Bp_p is the identity with -a at the
+        (row, preceding prediction point) slots, pairs that are unique:
+        set by index_put, no scatter-add."""
+        a, D = self._pred_sets(theta_log, cn, ci, valid, 1.0, 1.0, 1.0)
+        p = ci.shape[0]
+        r = -torch.sum(a * nbr_y, dim=1)                       # Bp_o y
+        rows = torch.arange(p, device=self.device)[:, None].expand_as(a)
+        Bpp = torch.eye(p, dtype=self.dtype, device=self.device)
+        Bpp.index_put_((rows[is_pred], pred_col[is_pred]), -a[is_pred])
+        W = Bpp / D[:, None]
+        L = chol(Bpp.T @ W)
+        mu = -torch.cholesky_solve((W.T @ r)[:, None], L)[:, 0]
+        if not want_cov:
+            return mu, None, None
+        cov = torch.cholesky_solve(
+            torch.eye(p, dtype=self.dtype, device=self.device), L)
+        return mu, torch.diagonal(cov), cov
+
+    def _pred_latent(self, theta_log, cn, ci, sel, valid, y, want_var):
+        """Latent-ordering joint prediction (vecchia.py:628-734): Vecchia
+        on the latent process over [obs; pred], posterior precision
+        P = B'D^-1 B + blockdiag(I_n, 0), solved by Jacobi-preconditioned
+        CG. Returns (mean, variances or None); the CG iteration counts of
+        the last solve are kept in `last_pred_cg_it` (a device tensor)."""
+        n, dev = self.n, self.device
+        v = torch.exp(theta_log[0])
+        A_o, D_o = self._bd(theta_log, latent=True)
+        A_o = torch.where(self._nn_mask, A_o, torch.zeros_like(A_o))
+        a, D_p = self._pred_sets(theta_log, cn, ci, valid, 1e-10 * v, v, 0.0)
+        D_p = torch.maximum(D_p, 1e-12 * v)
+        p = ci.shape[0]
+        Dinv = torch.cat([1.0 / D_o, 1.0 / D_p])
+        obs_one = torch.cat([torch.ones(n, dtype=self.dtype, device=dev),
+                             torch.zeros(p, dtype=self.dtype, device=dev)])
+        bags = _JointBags(self._nn_idx_np, sel, n, dev)
+        sel_d = bags.idx[n * self.m:].view(p, -1)
+        w = torch.cat([A_o.reshape(-1), a.reshape(-1)])
+        wt = w.index_select(0, bags.t_order)
+
+        def B_apply(x):
+            if x.ndim == 2:
+                return x - bags.a(x, w)
+            # one column: gathers and row sums, the reference's order
+            return x - torch.cat([torch.sum(A_o * x[self._nn_idx], 1),
+                                  torch.sum(a * x[sel_d], 1)])
+
+        def P_apply(x):
+            u = _col(Dinv, x) * B_apply(x)
+            return u - bags.at(u, wt) + _col(obs_one, x) * x
+
+        diagP = Dinv + obs_one + bags.at(Dinv, (w * w).index_select(
+            0, bags.t_order))
+
+        def precond(r):
+            return r / _col(diagP, r)
+
+        # _cg's shared-lane rule is the reference's loop (vecchia.py:693-720):
+        # every column iterates until all have converged; its guards on
+        # alpha and beta act only on a zero search direction
+        rhs = torch.cat([y, torch.zeros(p, dtype=self.dtype, device=dev)])
+        z, it = _cg(P_apply, rhs, precond, LATENT_CG_TOL, LATENT_CG_MAXIT,
+                    None, False)
+        self.last_pred_cg_it = it
+        if not want_var:
+            return z[n:], None
+        E = torch.zeros((n + p, p), dtype=self.dtype, device=dev)
+        jp = torch.arange(p, device=dev)
+        E[n + jp, jp] = 1.0
+        Z, it = _cg(P_apply, E, precond, LATENT_CG_TOL, LATENT_CG_MAXIT,
+                    None, False)
+        self.last_pred_cg_it = it
+        return z[n:], Z[n + jp, jp]
 
     def predict(self, pars_orig, y_resid, pred_data, predict_var=False,
                 predict_cov_mat=False, predict_response=False,
                 vecchia_pred_type="order_obs_first_cond_obs_only",
                 num_neighbors_pred=None):
-        """Vecchia predictions, each prediction point conditioning on its
-        k nearest observed points (CalcPredVecchiaObservedFirstOrder)."""
-        if vecchia_pred_type != "order_obs_first_cond_obs_only":
-            raise NotImplementedError(
-                f"vecchia_pred_type '{vecchia_pred_type}' is not ported yet "
-                "(supported: 'order_obs_first_cond_obs_only')")
+        """Vecchia predictions for every ordering of the reference
+        (vecchia.py:736-839), batched over all prediction points on the
+        device; means, variances and covariance matrices as float64
+        numpy."""
         pars_orig = np.asarray(pars_orig, dtype=np.float64)
         sigma2 = pars_orig[0]
         t = self.transform_pars(pars_orig)
@@ -318,22 +564,86 @@ class VecchiaGaussianEngine(GaussianEngineBase):
                                  dtype=np.float64)
         if coords_pred.ndim == 1:
             coords_pred = coords_pred[:, None]
-        n_pred = len(coords_pred)
-        k = min(num_neighbors_pred or self.m, self.n)
-        nn, _ = self._knn_obs(coords_pred, k)
-        with torch.no_grad():
-            mu, var = self._pred_cond_obs(
-                theta_log, self._t(self.coords_ord[nn]), self._t(coords_pred),
-                self._t(y_ord[nn]))
-        mu = mu.cpu().numpy().astype(np.float64)
+        n, n_pred = self.n, len(coords_pred)
+        mp = num_neighbors_pred or self.m
+        cov = None
+        joint = vecchia_pred_type in ("order_obs_first_cond_all",
+                                      "latent_order_obs_first_cond_all")
+        if vecchia_pred_type not in _COND_OBS_TYPES and not joint:
+            raise ValueError(f"vecchia_pred_type '{vecchia_pred_type}'")
+        if joint and self._winv is not None:
+            raise NotImplementedError(
+                "weighted Vecchia predictions currently support "
+                "vecchia_pred_type='order_obs_first_cond_obs_only'")
+        if vecchia_pred_type in _COND_OBS_TYPES:
+            k = min(mp, n)
+            nn, _ = self._knn_obs(coords_pred, k)
+            with torch.no_grad():
+                winv = None if self._winv is None else self._winv[
+                    torch.as_tensor(nn, device=self.device)]
+                mu, var = self._pred_cond_obs(
+                    theta_log, self._t(self.coords_ord[nn]),
+                    self._t(coords_pred), self._t(y_ord[nn]), winv)
+                mu, var = self._host(mu, var)
+            if predict_cov_mat:
+                cov = np.diag(var)
+        else:
+            k = min(mp, n + n_pred - 1)
+            sel, valid = self._joint_neighbors(coords_pred, k)
+            all_coords = np.vstack([self.coords_ord, coords_pred])
+            cn = self._t(all_coords[sel])
+            ci = self._t(coords_pred)
+            valid_d = torch.as_tensor(valid, device=self.device)
+            if vecchia_pred_type == "order_obs_first_cond_all":
+                is_pred = (sel >= n) & valid
+                nbr_y = np.where(is_pred | ~valid, 0.0,
+                                 y_ord[np.minimum(sel, n - 1)])
+                pred_col = np.where(is_pred, sel - n, 0)
+                want_cov = predict_var or predict_cov_mat
+                with torch.no_grad():
+                    mu, var, covd = self._pred_cond_all(
+                        theta_log, cn, ci, self._t(nbr_y),
+                        torch.as_tensor(is_pred, device=self.device),
+                        torch.as_tensor(pred_col, device=self.device),
+                        valid_d, want_cov)
+                    if want_cov:
+                        mu, var, cov = self._host(mu, var, covd)
+                    else:
+                        mu = self._host(mu)[0]
+                        var = np.zeros(n_pred)
+            else:
+                want_var = predict_var or predict_cov_mat
+                if want_var and n_pred > LATENT_VAR_MAX_POINTS:
+                    raise ValueError(
+                        "latent_order_obs_first_cond_all with predict_var "
+                        "currently supports up to "
+                        f"{LATENT_VAR_MAX_POINTS} prediction points (one CG "
+                        "solve per point)")
+                with torch.no_grad():
+                    mu, var = self._pred_latent(
+                        theta_log, cn, ci, sel, valid_d, self._t(y_ord),
+                        want_var)
+                    if want_var:
+                        mu, var = self._host(mu, var)
+                        # latent scale: add the nugget for the response
+                        var = var + 1.0
+                    else:
+                        mu = self._host(mu)[0]
+                        var = np.zeros(n_pred)
+                if predict_cov_mat:
+                    cov = np.diag(var)
         # sigma2 cancels in the mean; variances were computed on the
         # nugget-scaled parameterization -> multiply by sigma2
-        var = var.cpu().numpy().astype(np.float64) * sigma2
+        var = var * sigma2
+        if cov is not None:
+            cov = cov * sigma2
         if not predict_response:
             var = var - sigma2
+            if cov is not None:
+                cov = cov - sigma2 * np.eye(n_pred)
         out = {"mu": mu}
         if predict_cov_mat:
-            out["cov"] = np.diag(var)
+            out["cov"] = cov
         if predict_var:
             out["var"] = var
         return out

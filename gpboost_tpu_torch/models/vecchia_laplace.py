@@ -54,7 +54,7 @@ from .gaussian_gp import _dist
 from .grouped_re import SegmentSum
 from .laplace import (DELTA_CONV_MODE, MAXIT_MODE_NEWTON, LaplaceEngineBase,
                       _LaplaceNLL)
-from .vecchia import VecchiaGaussianEngine
+from .vecchia import VecchiaGaussianEngine, _bags, _col
 
 
 class _Permute(torch.autograd.Function):
@@ -519,19 +519,6 @@ _PC_ALIASES = {"Sigma_inv_plus_BtWB": "vadu",
                "jacobi": "diagonal"}
 _PRECONDITIONERS = ("vadu", "pivoted_cholesky", "vecchia_response",
                     "diagonal", "none")
-
-
-def _col(d, v):
-    """d (n,) broadcast against v (n,) or columns (n, k)."""
-    return d if v.ndim == 1 else d[:, None]
-
-
-def _bags(t, idx, offs, w):
-    """out[i] = sum of w[r] t[idx[r]] over bag i's slots r, t (n,) or
-    (n, k): a weighted `embedding_bag` sum, one thread an output."""
-    t2 = t if t.ndim == 2 else t.view(-1, 1)
-    return torch.embedding_bag(t2, idx, offs, False, 0, False, w, False,
-                               None)[0].view(t.shape)
 
 
 def _slot_products(t, g, eng):

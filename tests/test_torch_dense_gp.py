@@ -155,7 +155,9 @@ def test_combined_model_fit_predict_and_training_re(models, gp_sim_data):
 
 def test_unported_options_raise(gp_sim_data):
     d = gp_sim_data
-    for kw in (dict(cluster_ids=d["cluster_ids"]), dict(weights=np.ones(100)),
+    # cluster_ids and weights are ported (tests/test_torch_weights_
+    # clusters.py holds them to the JAX package)
+    for kw in (dict(num_parallel_devices=2), dict(gp_approx="tapering"),
                dict(gp_rand_coef_data=d["Z_SVC"][:, 0])):
         with pytest.raises(NotImplementedError):
             gpt.GPModel(gp_coords=d["coords"], cov_function="exponential",

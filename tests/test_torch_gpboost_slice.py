@@ -107,9 +107,11 @@ def test_unported_jax_model_dicts_raise(trained, change):
         d["has_gp_model"] = 0
         d["objective"] = "bernoulli_logit"
     elif change == "dense_gp":
-        # a dense GP loads; one with cluster_ids is not ported yet
+        # a dense GP loads, with cluster_ids too
+        # (tests/test_torch_weights_clusters.py); one with GP random
+        # coefficients is not ported yet
         d["gp_model"] = {**d["gp_model"], "gp_approx": "none",
-                         "cluster_ids": np.zeros(N).tolist()}
+                         "gp_rand_coef_data": np.ones(N).tolist()}
     else:
         d["num_sets"] = 2
     with pytest.raises(NotImplementedError):
@@ -141,8 +143,10 @@ def test_float32_engine_trains():
         "response_mean"]))
 
 
+# use_nesterov_acc is ported (tests/test_torch_weights_clusters.py);
+# extra_trees is not
 @pytest.mark.parametrize("params", [{"boosting": "dart"},
-                                    {"use_nesterov_acc": True},
+                                    {"extra_trees": True},
                                     {"objective": "binary"},
                                     {"bagging_fraction": 0.5,
                                      "bagging_freq": 1}])

@@ -242,7 +242,10 @@ def test_float32_and_unported_options(data):
     assert gpt.GPModel(group_data=g1, device="cpu",
                        matrix_inversion_method="iterative"
                        )._engine.matrix_inversion_method == "iterative"
-    for kw in (dict(weights=np.ones(N)),
+    # weights are ported (tests/test_torch_weights_clusters.py)
+    assert gpt.GPModel(group_data=g1, device="cpu", weights=np.ones(N)
+                       )._engine.weights is not None
+    for kw in (dict(num_parallel_devices=2),
                dict(drop_intercept_group_rand_effect=[True])):
         with pytest.raises(NotImplementedError):
             gpt.GPModel(group_data=g1, device="cpu", **kw)
