@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phases 23-26 [--vlb-maxit 0]
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
-                                     # 24, 25, 26 each alone, and 27-29);
-                                     # no result lines
+                                     # 24, 25, 26 each alone, 27-29 and
+                                     # 30-32); no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -23,7 +23,8 @@ Phases; any failure exits non-zero and prints no result line:
      across two launches and under a permutation of the segment's rows, and
      match the plain version (counts exact, grad/hess to 1e-4); then at the
      serial learner's shapes of boosting_n200k_p50 (n = 200,000, p = 50,
-     uint8; whole and half segment, one-bin feature). Times: CUDA events
+     uint8; whole and half segment, one-bin feature; the plain version
+     timed on the whole segment). Times: CUDA events
      around the wrapper (median of 25, host work included) and the kernel's
      own device time from torch.profiler (mean of 25), beside the plain
      version's;
@@ -193,7 +194,40 @@ Phases; any failure exits non-zero and prints no result line:
      be positive); card against CPU at n = 2,000, float64, 5 rounds, for
      Nesterov GPBoost, the weighted grouped GPBoost (q = 50) and the
      clustered dense GP (10 clusters): trees under phase 5's near-tie
-     rule, covariance parameters to rtol 1e-4, predictions to 1e-4.
+     rule, covariance parameters to rtol 1e-4, predictions to 1e-4;
+ 30. the objectives at full width: boosting_n200k_p50's data (phase 7's
+     binned Dataset; labels from the same draw: binary 1{y > median},
+     poisson and tweedie Poisson(exp(0.5 (y - mean))) with seed 5,
+     cross_entropy the logistic of y - mean, l1, quantile (alpha 0.9),
+     huber, fair and mape y itself), 31 leaves, learning rate 0.1, the
+     serial learner, and binary with bagging_fraction 0.8, bagging_freq 1,
+     feature_fraction 0.8: one warm-up round, 5 timed rounds, the host
+     syncs of one more, hist_segment launches (each positive), peak memory;
+     card against CPU at n = 2,000 for 3 rounds of each: init scores
+     equal, trees under phase 5's near-tie rule, predictions after the
+     output transform to 1e-6 over the trees before any near-tie;
+ 31. validation and early stopping at full width: (a) binary boosting on
+     phase 30's rows with 50,000 rows of sim_boost(seed=3) labelled by the
+     training median, binary_logloss, learning rate 0.3, up to 150 rounds,
+     early stopping 10: rounds, seconds a round with and without the
+     validation, host syncs of a steady round with and without it,
+     best_iteration = argmin + 1 of the recorded metric, and
+     predict(num_iteration=best_iteration) gives that metric back to
+     1e-12; (b) phase 10's grouped GPBoost with 20,000 validation rows
+     through gp_valid_data (50 levels unseen in training), l2 and
+     test_neg_log_likelihood, up to 60 rounds, early stopping 5; (c)
+     w_gpboost1000 (n = 10,000, m = 20, float32) with 2,000 validation
+     points through gp_coords_pred, l2, 20 rounds, early stopping 5, the
+     neighbour search timed; (d) phase 17's LaGaBoost with 20,000
+     validation rows, binary_logloss, 5 rounds;
+ 32. cv of grouped GPBoost on phase 10's generator at n = 20,000, 4 folds,
+     l2, up to 40 rounds, early stopping 5 (seconds, seconds a
+     fold-round, best_iter = argmin + 1, hist_segment launches), then
+     grid_search_tune_parameters over learning_rate {0.05, 0.1} x
+     min_data_in_leaf {20, 100}, 2 random tries of 20 rounds; card
+     against CPU at n = 1,000 (q = 50): cv mean and stdv curves to 1e-6
+     over the rounds before any near-tie, best_iter and grid search's
+     best_params equal.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -544,14 +578,17 @@ def phase_segment_large(torch, histogram, ds, kernel_row):
                                           amax=amax)
         res[name] = (_time_ms(torch, kernel), _device_ms(torch, kernel))
     bound_ms, bound_by = bound(n * p + 12 * n + 12 * p * num_bins, 3 * n * p)
+    plain_ms = _time_ms(torch, lambda: histogram.hist_segment_plain(
+        bins, stats_d, 0, n, num_bins), reps=10)
     print(f"[kernel] hist_segment n={n} p={p} B={num_bins} uint8: "
           + "; ".join(f"{k} {v[0]:.4f} ms by events, {_fmt_ms(v[1])} device"
                       for k, v in res.items())
-          + f"; bound (whole) {bound_ms:.5f} ms ({bound_by})", flush=True)
+          + f"; plain (whole) {plain_ms:.4f} ms; bound (whole) "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     kernel_row["at_n200k_p50"] = {
         "ms": res["whole"][0], "device_ms": res["whole"][1],
-        "bound_ms": bound_ms, "half_ms": res["half"][0],
-        "half_device_ms": res["half"][1]}
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "half_ms": res["half"][0], "half_device_ms": res["half"][1]}
 
 
 def _train(torch, gpt, n, dtype, device, params=PARAMS, rounds=ROUNDS):
@@ -1109,8 +1146,8 @@ def phase_grouped_slice(torch, gpt, histogram):
     tree_syncs, sites = [], Counter()
     train = bst.learner.train
 
-    def counted_train(*args):
-        out, s = _count_syncs(torch, lambda: train(*args), sites)
+    def counted_train(*args, **kwargs):
+        out, s = _count_syncs(torch, lambda: train(*args, **kwargs), sites)
         tree_syncs.append(s)
         return out
 
@@ -1492,8 +1529,8 @@ def phase_lagaboost(torch, gpt, histogram):
     tree_syncs, sites = [], Counter()
     train = bst.learner.train
 
-    def counted_train(*args):
-        out, s = _count_syncs(torch, lambda: train(*args), sites)
+    def counted_train(*args, **kwargs):
+        out, s = _count_syncs(torch, lambda: train(*args, **kwargs), sites)
         tree_syncs.append(s)
         return out
 
@@ -2990,10 +3027,469 @@ def phase_nesterov(torch, gpt, histogram):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 30-32: the model-selection path of plain boosting and GPBoost:
+# the LightGBM objectives, bagging and feature_fraction, validation sets
+# with early stopping, cv and grid search
+OBJECTIVES = ("binary", "poisson", "tweedie", "cross_entropy", "l1",
+              "quantile", "huber", "fair", "mape")
+SAMPLING = {"bagging_fraction": 0.8, "bagging_freq": 1,
+            "feature_fraction": 0.8}
+ROUNDS_OBJ, N_OBJ_CPU, ROUNDS_OBJ_CPU = 5, 2_000, 3
+N_VALID_BOOST, ROUNDS_VALID, STOP_VALID = 50_000, 150, 10
+N_VALID_GROUPED, ROUNDS_VALID_GP, STOP_VALID_GP = 20_000, 60, 5
+N_VALID_VECCHIA, ROUNDS_VALID_VECCHIA = 2_000, 20
+N_CV, ROUNDS_CV, ROUNDS_GRID, N_CV_CPU, Q_CV_CPU, ROUNDS_CV_CPU = \
+    20_000, 40, 20, 1_000, 50, 8
+GRID = {"learning_rate": [0.05, 0.1], "min_data_in_leaf": [20, 100]}
+
+
+def _objective_label(y, objective):
+    """Phase 30's labels from one sim_boost draw."""
+    if objective == "binary":
+        return (y > np.median(y)).astype(float)
+    if objective in ("poisson", "tweedie"):
+        return np.random.RandomState(5).poisson(
+            np.exp(0.5 * (y - y.mean()))).astype(float)
+    if objective == "cross_entropy":
+        return 1.0 / (1.0 + np.exp(-(y - y.mean())))
+    return y
+
+
+def _objective_runs():
+    runs = [(obj, {"objective": obj}) for obj in OBJECTIVES]
+    runs[OBJECTIVES.index("quantile")][1]["alpha"] = 0.9
+    return runs + [("binary+sampling", {"objective": "binary", **SAMPLING})]
+
+
+def _growth_records(tree):
+    """_split_records in the order the splits were made: split s made the
+    nodes 2s + 1 and 2s + 2."""
+    return sorted(_split_records(tree), key=lambda r: tree.left[r[0]])
+
+
+def _equal_prefix(what, ba, bb):
+    """(k, note): the number of leading trees with equal splits in two
+    boosters (card and CPU), compared in the order the splits were made. At
+    the first split that differs, the two sides' best gains (the largest
+    over every leaf) must be a float32 near-tie of phase 5's rule
+    (relative gap < 1e-5); what follows it is not compared."""
+    for k, (ta, tb) in enumerate(zip(ba.trees, bb.trees)):
+        ra, rb = _growth_records(ta), _growth_records(tb)
+        if [r[:3] for r in ra] == [r[:3] for r in rb]:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(ra, rb))
+                  if a[:3] != b[:3]), None)
+        if i is None:
+            raise AssertionError(f"{what}: tree {k} has {len(ra)} splits on "
+                                 f"the card, {len(rb)} on the CPU")
+        gap = abs(ra[i][3] - rb[i][3]) / max(abs(rb[i][3]), 1e-30)
+        if not gap < 1e-5:
+            raise AssertionError(f"{what}: tree {k} split {i} differs: card "
+                                 f"{ra[i]} cpu {rb[i]}")
+        return k, (f"tree {k} split {i} parts at a float32 near-tie "
+                   f"(relative gain gap {gap:.3g})")
+    return len(ba.trees), "all trees equal"
+
+
+def phase_objectives(torch, gpt, histogram, ds, y):
+    """boosting_n200k_p50's data (the binned Dataset of phases 6-8) with
+    each objective, 31 leaves, learning rate 0.1, the serial learner: one
+    warm-up round, 5 timed rounds, the host syncs of one more, B1 launches
+    and peak memory; then card against CPU at n = 2,000 for 3 rounds.
+    Returns hist_segment's launches over the full-width runs."""
+    _reset_launches(histogram)
+    lines = []
+    for name, opts in _objective_runs():
+        ds.label = _objective_label(y, opts["objective"])
+        torch.cuda.reset_peak_memory_stats()
+        l0 = histogram.hist_segment.launches
+        bst = gpt.Booster({**BOOST, **opts}, ds, device="cuda")
+        bst.update()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(ROUNDS_OBJ):
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        _, syncs = _count_syncs(torch, bst.update)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        pred = bst.predict(ds.data[:1000])
+        _finite(f"objective {name}", pred, (1000,))
+        launches = histogram.hist_segment.launches - l0
+        if launches <= 0:
+            raise AssertionError(f"objective {name}: no hist_segment launch")
+        lines.append(f"{name} {np.mean(secs):.4f} s (min {np.min(secs):.4f}"
+                     f"), {syncs} syncs, {launches} B1, peak {peak:.2f} GiB")
+    launches = histogram.hist_segment.launches
+    print(f"[objectives] boosting_n200k_p50 n={N_BOOST} p={P_BOOST}, 31 "
+          f"leaves, lr 0.1, serial learner; per objective: mean of "
+          f"{ROUNDS_OBJ} rounds after one warm-up, host syncs of round "
+          f"{ROUNDS_OBJ + 2}, B1 launches over its "
+          f"{ROUNDS_OBJ + 2} rounds, peak memory: " + "; ".join(lines)
+          + f"; hist_segment launches in all {launches}", flush=True)
+    X2, y2 = sim_boost(N_OBJ_CPU)
+    notes = []
+    for name, opts in _objective_runs():
+        lab = _objective_label(y2, opts["objective"])
+        # the gradients at the init score, whatever the trees do after
+        gh = [gpt.Booster({**BOOST, **opts}, gpt.Dataset(X2, label=lab),
+                          device=dev)._objective_gradients()
+              for dev in ("cuda", "cpu")]
+        gerr = max(float(torch.max(torch.abs(a.cpu() - b))
+                         / torch.max(torch.abs(b))) for a, b in zip(*gh))
+        if not gerr < 1e-12:
+            raise AssertionError(f"objective {name} card vs CPU: gradients "
+                                 f"differ by {gerr:.3g} of their largest")
+        bg, bc = (gpt.train({**BOOST, **opts}, gpt.Dataset(X2, label=lab),
+                            num_boost_round=ROUNDS_OBJ_CPU, device=dev)
+                  for dev in ("cuda", "cpu"))
+        if bg.init_score != bc.init_score:
+            raise AssertionError(f"objective {name} card vs CPU: init "
+                                 f"score {bg.init_score} {bc.init_score}")
+        k, note = _equal_prefix(f"objective {name} card vs CPU", bg, bc)
+        err = 0.0
+        if k:
+            err = float(np.max(np.abs(bg.predict(X2, num_iteration=k)
+                                      - bc.predict(X2, num_iteration=k))))
+        if not err < 1e-6:
+            raise AssertionError(f"objective {name} card vs CPU: "
+                                 f"predictions differ by {err:.3g}")
+        notes.append(f"{name}: grad/hess {gerr:.2g}, {note}, predictions "
+                     f"of {k} trees max |diff| {err:.3g}")
+    # the leaf renewal of l1, quantile and mape on one input: 31 leaves of
+    # n = 200,000 rows, unweighted and weighted
+    from gpboost_tpu_torch.boosting.gbdt import _segment_percentiles
+    rng = np.random.RandomState(SEED)
+    v, key, w = rng.randn(N_BOOST), rng.randint(0, 31, N_BOOST), \
+        rng.rand(N_BOOST)
+    counts = np.bincount(key, minlength=32)
+    for wt in (None, w):
+        ren = [_segment_percentiles(
+            torch.as_tensor(v, device=dev), torch.as_tensor(key, device=dev),
+            counts, None if wt is None else torch.as_tensor(wt, device=dev),
+            0.9).cpu() for dev in ("cuda", "cpu")]
+        if not torch.equal(*ren):
+            raise AssertionError("leaf renewal card vs CPU differs by "
+                                 f"{float((ren[0] - ren[1]).abs().max())}")
+    print(f"[objectives card-vs-cpu] n={N_OBJ_CPU} p={P_BOOST}, "
+          f"{ROUNDS_OBJ_CPU} rounds, init scores equal: " + "; ".join(notes)
+          + f"; leaf renewal of {N_BOOST} rows in 31 leaves (alpha 0.9, "
+          "unweighted and weighted) equal on both", flush=True)
+    return launches
+
+
+class _RoundClock:
+    """Splits a train() run's rounds into the update and the validation:
+    Booster.update is timed to its synchronize, and a callback (order -1,
+    the first to run after the round's evaluation) takes the time the
+    metrics took. A round the loop's early stopping ends has no callback:
+    its validation is not counted."""
+
+    def __init__(self, torch, gpt):
+        self.torch, self.cls = torch, gpt.Booster
+        self.update_s, self.valid_s, self._end = [], [], None
+
+    def __enter__(self):
+        self._update = update = self.cls.update
+        clock = self
+
+        def timed(bst):
+            t0 = time.perf_counter()
+            out = update(bst)
+            clock.torch.cuda.synchronize()
+            clock._end = time.perf_counter()
+            clock.update_s.append(clock._end - t0)
+            return out
+
+        self.cls.update = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self._update
+
+    def callback(self):
+        def cb(env):
+            self.valid_s.append(time.perf_counter() - self._end)
+        cb.order = -1
+        return cb
+
+    def txt(self):
+        v = f"{np.mean(self.valid_s):.4f} s" if self.valid_s else "none"
+        return (f"{len(self.update_s)} rounds, {np.mean(self.update_s):.4f} "
+                f"s a round without validation (the update), validation "
+                f"{v} a round more")
+
+
+def _steady_syncs(torch, train):
+    """Host syncs of a steady round: those of train(4) less train(1), over
+    3."""
+    return (_count_syncs(torch, lambda: train(4))[1]
+            - _count_syncs(torch, lambda: train(1))[1]) / 3.0
+
+
+def _grouped_valid(q, n_v, seed=SEED + 5):
+    """n_v rows from sim_grouped's model with its group effects: levels
+    0..q-1 as in training and 50 more never seen (their own effects)."""
+    rng = np.random.RandomState(SEED)
+    rng.rand(N_GROUPED, P_GROUPED)
+    rng.randint(0, q, N_GROUPED)
+    b = np.concatenate([0.8 * rng.randn(q),
+                        0.8 * np.random.RandomState(seed + 1).randn(50)])
+    rng = np.random.RandomState(seed)
+    Xv = rng.rand(n_v, P_GROUPED)
+    gv = rng.randint(0, q + 50, n_v)
+    F = 2 * Xv[:, 0] + 2 * np.sin(8 * Xv[:, 1]) + (Xv[:, 2] > 0.6)
+    return Xv, gv, F + b[gv] + 0.3 * rng.randn(n_v)
+
+
+def _lagaboost_valid(n, q, n_v, seed=SEED_LAGA + 7):
+    """n_v rows from sim_lagaboost's model with its group effects."""
+    rng = np.random.RandomState(SEED_LAGA)
+    rng.randint(0, q, n)
+    b = rng.randn(q)
+    rng = np.random.RandomState(seed)
+    gv = rng.randint(0, q, n_v)
+    Xv = rng.rand(n_v, P_LAGA)
+    F_true = 2.0 * np.sin(7 * Xv[:, 0]) + Xv[:, 1]
+    yv = (rng.rand(n_v) < 1 / (1 + np.exp(-(F_true - 1 + b[gv])))).astype(
+        float)
+    return Xv, gv, yv
+
+
+def phase_validation(torch, gpt, histogram, ds, y):
+    """Validation and early stopping at full width: (a) binary boosting on
+    phase 30's rows, a 50,000-row sim_boost(seed=3) validation set,
+    binary_logloss, lr 0.3, up to 150 rounds, early stopping 10; (b)
+    phase 10's grouped GPBoost with a 20,000-row validation set through
+    gp_valid_data (50 of its levels unseen), l2 and
+    test_neg_log_likelihood, up to 60 rounds, early stopping 5; (c)
+    w_gpboost1000 (n = 10,000, m = 20, float32) with 2,000 validation
+    points through gp_coords_pred, l2, 20 rounds, early stopping 5; (d)
+    phase 17's LaGaBoost with a 20,000-row validation set, binary_logloss,
+    5 rounds. Returns hist_segment's launches of (a)."""
+    from gpboost_tpu_torch.boosting.gbdt import _RunningScore
+    from gpboost_tpu_torch.engine import _metric_fn
+    med = np.median(y)
+    ds.label = (y > med).astype(float)
+    Xv, yv = sim_boost(N_VALID_BOOST, seed=3)
+    dv = gpt.Dataset(Xv, label=(yv > med).astype(float))
+    params = {**BOOST, "objective": "binary", "metric": "binary_logloss",
+              "learning_rate": 0.3}
+    ev = {}
+    _reset_launches(histogram)
+    with _RoundClock(torch, gpt) as clock:
+        bst = gpt.train(params, ds, num_boost_round=ROUNDS_VALID,
+                        valid_sets=[dv], early_stopping_rounds=STOP_VALID,
+                        evals_result=ev, callbacks=[clock.callback()],
+                        device="cuda")
+    launches = histogram.hist_segment.launches
+    vals = ev["valid_0"]["binary_logloss"]
+    best = bst.best_iteration
+    if best != int(np.argmin(vals)) + 1:
+        raise AssertionError(f"validation (a): best_iteration {best}, "
+                             f"argmin {int(np.argmin(vals)) + 1}")
+    again = _metric_fn("binary_logloss")(
+        dv.get_label(), bst.predict(Xv, num_iteration=best))
+    if not abs(again - vals[best - 1]) <= 1e-12:
+        raise AssertionError(f"validation (a): predict(num_iteration="
+                             f"{best}) gives {again!r}, recorded "
+                             f"{vals[best - 1]!r}")
+    if launches <= 0:
+        raise AssertionError("validation (a): no hist_segment launch")
+
+    def run(k, valid):
+        return gpt.train(params, ds, num_boost_round=k,
+                         valid_sets=[dv] if valid else None, device="cuda")
+
+    s_valid, s_plain = _steady_syncs(torch, lambda k: run(k, True)), \
+        _steady_syncs(torch, lambda k: run(k, False))
+    print(f"[validation] (a) binary boosting n={N_BOOST} p={P_BOOST}, "
+          f"validation n={N_VALID_BOOST}, lr 0.3, early stopping "
+          f"{STOP_VALID}: {clock.txt()}; best_iteration {best} = argmin + 1, "
+          f"best binary_logloss {bst.best_score:.6f}, predict(num_iteration="
+          f"{best}) gives it back to {abs(again - vals[best - 1]):.3g}; host "
+          f"syncs a steady round {s_valid:.1f} with validation, {s_plain:.1f}"
+          f" without; hist_segment launches {launches}", flush=True)
+
+    # (b) grouped GPBoost
+    X, group, yg = sim_grouped(N_GROUPED, Q_GROUPED)
+    Xgv, ggv, ygv = _grouped_valid(Q_GROUPED, N_VALID_GROUPED)
+    parts = []
+    for metric in ("l2", "test_neg_log_likelihood"):
+        dgv = gpt.Dataset(Xgv, label=ygv)
+        dgv.gp_valid_data = {"group_data_pred": ggv}
+        gp = gpt.GPModel(group_data=group, device="cuda")
+        ev = {}
+        with _RoundClock(torch, gpt) as clock:
+            bg = gpt.train({**GROUPED, "metric": metric},
+                           gpt.Dataset(X, label=yg), gp_model=gp,
+                           num_boost_round=ROUNDS_VALID_GP,
+                           valid_sets=[dgv], early_stopping_rounds=STOP_VALID_GP,
+                           evals_result=ev, callbacks=[clock.callback()],
+                           device="cuda")
+        v = ev["valid_0"][metric]
+        _finite(f"validation (b) {metric}", np.asarray(v), (len(v),))
+        if bg.best_iteration != int(np.argmin(v)) + 1:
+            raise AssertionError(f"validation (b) {metric}: best_iteration")
+        sc = _RunningScore(bg, Xgv)
+        _, syncs = _count_syncs(torch, lambda: bg._predict_output(
+            sc.advance(bg), predict_var=metric != "l2",
+            group_data_pred=ggv))
+        parts.append(f"{metric}: {clock.txt()} (the first round's GP fit "
+                     f"included), best_iteration {bg.best_iteration}, best "
+                     f"{bg.best_score:.6f}, {syncs} host syncs a validation "
+                     f"prediction")
+    print(f"[validation] (b) grouped GPBoost n={N_GROUPED} q={Q_GROUPED}, "
+          f"validation n={N_VALID_GROUPED} (50 levels unseen), early "
+          f"stopping {STOP_VALID_GP}: " + "; ".join(parts), flush=True)
+
+    # (c) Vecchia w_gpboost1000
+    coords, Xw, yw = sim_gpboost(N_FULL + N_VALID_VECCHIA)
+    tr = slice(0, N_FULL)
+    va = slice(N_FULL, N_FULL + N_VALID_VECCHIA)
+    gp = gpt.GPModel(gp_coords=coords[tr], cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=20, dtype="float32",
+                     device="cuda")
+    search, knn = [], gp._engine._knn_obs
+
+    def timed_knn(*a, **k):
+        t0 = time.perf_counter()
+        out = knn(*a, **k)
+        search.append(time.perf_counter() - t0)
+        return out
+
+    gp._engine._knn_obs = timed_knn
+    dwv = gpt.Dataset(Xw[va], label=yw[va])
+    dwv.gp_valid_data = {"gp_coords_pred": coords[va]}
+    ev = {}
+    with _RoundClock(torch, gpt) as clock:
+        bw = gpt.train({**PARAMS, "metric": "l2"}, gpt.Dataset(
+            Xw[tr], label=yw[tr]), gp_model=gp,
+            num_boost_round=ROUNDS_VALID_VECCHIA, valid_sets=[dwv],
+            early_stopping_rounds=5, evals_result=ev,
+            callbacks=[clock.callback()], device="cuda")
+    v = ev["valid_0"]["l2"]
+    _finite("validation (c)", np.asarray(v), (len(v),))
+    print(f"[validation] (c) w_gpboost1000 n={N_FULL} m=20 float32, "
+          f"validation {N_VALID_VECCHIA} points (order_obs_first_cond_obs_"
+          f"only): {clock.txt()} (the first round's GP fit included); "
+          f"neighbour search {np.mean(search):.4f} s a validation "
+          f"prediction ({len(search)} searches); best_iteration "
+          f"{bw.best_iteration}, l2 {min(v):.6f}", flush=True)
+
+    # (d) binary LaGaBoost
+    Xl, gl, yl = sim_lagaboost(N_LAGA, Q_LAGA)
+    Xlv, glv, ylv = _lagaboost_valid(N_LAGA, Q_LAGA, N_VALID_GROUPED)
+    dlv = gpt.Dataset(Xlv, label=ylv)
+    dlv.gp_valid_data = {"group_data_pred": glv}
+    gp = gpt.GPModel(group_data=gl, likelihood="bernoulli_logit",
+                     device="cuda")
+    ev = {}
+    with _RoundClock(torch, gpt) as clock:
+        bl = gpt.train({**LAGA, "metric": "binary_logloss"},
+                       gpt.Dataset(Xl, label=yl), gp_model=gp,
+                       num_boost_round=5, valid_sets=[dlv], evals_result=ev,
+                       callbacks=[clock.callback()], device="cuda")
+    v = ev["valid_0"]["binary_logloss"]
+    _finite("validation (d)", np.asarray(v), (5,))
+    print(f"[validation] (d) LaGaBoost n={N_LAGA} q={Q_LAGA} "
+          f"bernoulli_logit, validation n={N_VALID_GROUPED}: {clock.txt()} "
+          f"(the first round's GP fit included); binary_logloss by round "
+          f"{[round(x, 6) for x in v]}", flush=True)
+    return launches
+
+
+def _cv_card_cpu(gpt):
+    """cv and grid search of grouped GPBoost at n = 1,000 (q = 50) on the
+    card and the CPU: mean and stdv curves to 1e-6 over the rounds before
+    a float32 near-tie in any fold (phase 5's rule), best_iter and
+    best_params equal."""
+    X, group, y = sim_grouped(N_CV_CPU, Q_CV_CPU)
+    res, grids = {}, {}
+    for dev in ("cuda", "cpu"):
+        res[dev] = gpt.cv(GROUPED, gpt.Dataset(X, label=y),
+                          gp_model=gpt.GPModel(group_data=group, device=dev),
+                          num_boost_round=ROUNDS_CV_CPU, nfold=4, seed=3,
+                          metrics="l2", early_stopping_rounds=5,
+                          return_cvbooster=True, device=dev)
+        grids[dev] = gpt.grid_search_tune_parameters(
+            GRID, params=GROUPED, train_set=gpt.Dataset(X, label=y),
+            gp_model=gpt.GPModel(group_data=group, device=dev), nfold=4,
+            num_try_random=2, num_boost_round=5, seed=3, metrics="l2",
+            device=dev)
+    rg, rc = res["cuda"], res["cpu"]
+    k, notes = len(rg["l2-mean"]), []
+    for bg, bc in zip(rg["cvbooster"].boosters, rc["cvbooster"].boosters):
+        kf, note = _equal_prefix("cv card vs CPU", bg, bc)
+        k = min(k, kf)
+        notes.append(note)
+    err = max(float(np.max(np.abs(np.asarray(rg[c][:k])
+                                  - np.asarray(rc[c][:k]))))
+              if k else 0.0 for c in ("l2-mean", "l2-stdv"))
+    if not err < 1e-6:
+        raise AssertionError(f"cv card vs CPU: curves differ by {err:.3g}")
+    tie = any("near-tie" in s for s in notes)
+    if not tie and rg["best_iter"] != rc["best_iter"]:
+        raise AssertionError(f"cv card vs CPU: best_iter {rg['best_iter']} "
+                             f"{rc['best_iter']}")
+    if grids["cuda"]["best_params"] != grids["cpu"]["best_params"]:
+        raise AssertionError(f"grid search card vs CPU: {grids}")
+    return (f"folds: {'; '.join(notes)}; curves over {k} rounds max |diff| "
+            f"{err:.3g}; best_iter {rg['best_iter']} / {rc['best_iter']}; "
+            f"best_params {grids['cuda']['best_params']} on both, best score "
+            f"{grids['cuda']['best_score']:.6f} / "
+            f"{grids['cpu']['best_score']:.6f}")
+
+
+def phase_cv(torch, gpt, histogram):
+    """cv of grouped GPBoost on phase 10's generator at n = 20,000 (q =
+    1,000), 4 folds, l2, up to 40 rounds, early stopping 5; then
+    grid_search_tune_parameters over learning_rate x min_data_in_leaf, 2
+    random tries of 20 rounds; card against CPU at n = 1,000. Returns
+    hist_segment's launches of the cv run."""
+    X, group, y = sim_grouped(N_CV, Q_GROUPED)
+    _reset_launches(histogram)
+    t0 = time.perf_counter()
+    res = gpt.cv(GROUPED, gpt.Dataset(X, label=y),
+                 gp_model=gpt.GPModel(group_data=group, device="cuda"),
+                 num_boost_round=ROUNDS_CV, nfold=4, seed=3, metrics="l2",
+                 early_stopping_rounds=5, device="cuda")
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    launches = histogram.hist_segment.launches
+    rounds = len(res["l2-mean"])
+    _finite("cv l2-mean", np.asarray(res["l2-mean"]), (rounds,))
+    if res["best_iter"] != int(np.argmin(res["l2-mean"])) + 1:
+        raise AssertionError("cv: best_iter is not argmin + 1")
+    if launches <= 0:
+        raise AssertionError("cv: no hist_segment launch")
+    t0 = time.perf_counter()
+    best = gpt.grid_search_tune_parameters(
+        GRID, params=GROUPED, train_set=gpt.Dataset(X, label=y),
+        gp_model=gpt.GPModel(group_data=group, device="cuda"), nfold=4,
+        num_try_random=2, num_boost_round=ROUNDS_GRID, seed=3, metrics="l2",
+        device="cuda")
+    grid_s = time.perf_counter() - t0
+    if best["best_params"] is None or not np.isfinite(best["best_score"]):
+        raise AssertionError(f"grid search: {best}")
+    print(f"[cv] grouped GPBoost n={N_CV} q={Q_GROUPED}, 4 folds, l2, early "
+          f"stopping 5: {rounds} rounds in {cv_s:.3f} s "
+          f"({cv_s / (4 * rounds):.4f} s a fold-round, each fold's first GP "
+          f"fit included), best_iter {res['best_iter']}, l2 "
+          f"{min(res['l2-mean']):.6f}; hist_segment launches {launches}; "
+          f"grid search 2 of 4 combinations x {ROUNDS_GRID} rounds "
+          f"{grid_s:.3f} s, best {best}", flush=True)
+    print(f"[cv card-vs-cpu] n={N_CV_CPU} q={Q_CV_CPU}, {ROUNDS_CV_CPU} "
+          f"rounds, grid 2 x 5 rounds: {_cv_card_cpu(gpt)}", flush=True)
+    return launches
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
-          (25, 25), (26, 26), (27, 29))
+          (25, 25), (26, 26), (27, 29), (30, 32))
 
 
 def _groups(spec):
@@ -3026,6 +3522,7 @@ def main(argv=None):
     phase_device(torch)
     phase_build(histogram)
     segment, masked, block = {}, {}, {}
+    ds = None
     if (3, 8) in groups:
         segment = phase_kernel(torch, gpt, histogram)
         segment["launches"] = phase_slice(torch, gpt, histogram)
@@ -3100,6 +3597,19 @@ def main(argv=None):
             torch, gpt, histogram)
         print(f"[gaussian-rest] phases 27-29 in "
               f"{time.perf_counter() - t_g:.1f} s", flush=True)
+    if (30, 32) in groups:
+        t_m = time.perf_counter()
+        if ds is None:      # phases 6-8's binned Dataset
+            X, y = sim_boost()
+            ds = gpt.Dataset(X, label=y)
+            ds.construct()
+        segment["launches_objectives_n200k_p50"] = phase_objectives(
+            torch, gpt, histogram, ds, y)
+        segment["launches_validation_n200k_p50"] = phase_validation(
+            torch, gpt, histogram, ds, y)
+        segment["launches_cv_grouped_n20k"] = phase_cv(torch, gpt, histogram)
+        print(f"[model-selection] phases 30-32 in "
+              f"{time.perf_counter() - t_m:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

@@ -33,6 +33,20 @@ learners; `spawn_train` starts the local ranks from one process:
                            "tree_learner": "data"}, X, y,
                           num_boost_round=100, world_size=4)
 
+Plain boosting takes the LightGBM objectives (binary, poisson, gamma,
+tweedie, quantile, l1, huber, fair, mape, cross_entropy, ...), bagging and
+feature_fraction; model selection runs on validation sets with early
+stopping and callbacks, by cross-validation or by grid search:
+
+    bst = gpt.train({"objective": "binary", "metric": "binary_logloss"},
+                    gpt.Dataset(X, label=y), num_boost_round=500,
+                    valid_sets=[gpt.Dataset(X_val, label=y_val)],
+                    early_stopping_rounds=10)
+    prob = bst.predict(X_new, num_iteration=bst.best_iteration)
+    res = gpt.cv({"learning_rate": 0.1}, gpt.Dataset(X, label=y),
+                 gp_model=gpt.GPModel(group_data=group), nfold=4,
+                 num_boost_round=100, early_stopping_rounds=5)
+
 The histograms of the tree learners are hand-written CUDA kernels
 (csrc/histogram.cu, csrc/hist_masked.cu); everything else is plain torch.
 The package never imports jax or gpboost_tpu; `convert` reads the JAX
@@ -41,9 +55,13 @@ package's model dicts.
 
 from .gp_model import GPModel
 from .boosting import Dataset, Booster, train
+from .engine import cv, grid_search_tune_parameters
 from .parallel import spawn_train
+from .utils.log import Log, register_logger, set_log_level
+from . import callback
 
 __version__ = "0.1.0"
 
-__all__ = ["GPModel", "Dataset", "Booster", "train", "spawn_train",
-           "__version__"]
+__all__ = ["GPModel", "Dataset", "Booster", "train", "cv",
+           "grid_search_tune_parameters", "spawn_train", "callback", "Log",
+           "register_logger", "set_log_level", "__version__"]

@@ -1,21 +1,28 @@
-"""Booster for Gaussian regression boosting, alone or with a GP model (the
-GPBoost algorithm), and for non-Gaussian likelihoods with a GP model
+"""Booster for tree boosting alone (the LightGBM objectives), or combined
+with a Gaussian GP model (the GPBoost algorithm) or a non-Gaussian one
 (LaGaBoost); counterpart of gpboost_tpu/boosting/gbdt.py, host-loop path.
 
 One boosting round (gbdt.cpp:412 TrainOneIter with the GP hooks):
 
-  1. gradients at the current score F: without a GP model grad = F - y
-     and hess = 1, both times the Dataset weights if it has them
-     (gbdt.py:954-960, :1107-1108); with a Gaussian one, those of the
-     marginal NLL, grad = Psi~^-1 (F - y) / sigma2 through the GP model's
-     engine (dense, Woodbury or Vecchia); with a non-Gaussian one, the
-     gradient in F of the Laplace-approximated NLL at the current mode
-     (gbdt.py:1127-1139), in data order for every engine (grouped, dense
-     or Vecchia-Laplace); hess = 1;
-  2. one leaf-wise tree on them (tree_learner.py, histogram kernels);
-     with leaves_newton_update the leaf values are re-solved by GLS, with
-     line_search_step_length the tree is scaled by the 1-D GLS optimum;
-  3. F += learning_rate * tree output;
+  1. gradients at the current score F: without a GP model those of the
+     objective (gbdt.py:954-1109): the L2, quantile, L1, Huber, Fair, MAPE,
+     Tweedie, cross-entropy and LightGBM-binary formulas, or -d1 and -d2
+     of a likelihood of likelihoods/base.py (binary, poisson, gamma, ...),
+     on the device, times the Dataset weights if it has them; with a
+     Gaussian GP model, those of the marginal NLL, grad = Psi~^-1 (F - y) /
+     sigma2 through the GP model's engine (dense, Woodbury or Vecchia);
+     with a non-Gaussian one, the gradient in F of the Laplace-approximated
+     NLL at the current mode (gbdt.py:1127-1139), in data order for every
+     engine (grouped, dense or Vecchia-Laplace); hess = 1;
+  2. the bagging and feature-fraction draws (gbdt.py:1230-1256, the same
+     numpy RandomState draws), then one leaf-wise tree on the in-bag rows
+     and the drawn features (tree_learner.py, histogram kernels); for l1,
+     quantile and mape the leaf values are renewed to the residual
+     percentiles of their in-bag rows (RenewTreeOutput); with a Gaussian GP
+     model and leaves_newton_update the leaf values are re-solved by GLS,
+     with line_search_step_length the tree is scaled by the 1-D GLS
+     optimum;
+  3. F += learning_rate * tree output, for every row, in the bag or not;
   4. with a GP model, the covariance parameters are refitted on the new
      residuals (Gaussian) or at the new F (non-Gaussian): a full fit with
      the GP model's optimizer settings in the first round, warm-started
@@ -32,7 +39,14 @@ The objective of LaGaBoost is the GP model's likelihood, whatever the
 intercept-only Laplace fit at the initial covariance parameters
 (gbdt.py:857-887, FindInitialValueBoosting).
 
-Boosting without a GP model can grow its trees over a torch.distributed
+`train` takes validation sets, early stopping, callbacks and feval
+(gbdt.py:2443-2656). Each validation set keeps a running raw score that
+takes each new tree (`_RunningScore`, LightGBM's valid score updater), in
+the order `predict` sums, so the metric recorded after k rounds is that of
+`predict(num_iteration=k)` bit for bit; with a GP model and the set's
+`gp_valid_data`, the random-effect part is predicted anew each round.
+
+Gaussian-regression boosting can grow its trees over a torch.distributed
 group (num_parallel_devices = the group's size, tree_learner data, feature
 or voting); each rank then keeps the score of the rows its learner holds.
 
@@ -42,12 +56,13 @@ The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is each engine's
 `psi_tilde_inv_mat` here, on the device.
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
 `train` always runs the host loop. Every parameter of the reference's
-defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked:
-DART/GOSS/RF, sampling, constraints,
-missing-value options, the other objectives' settings, a GP model together
-with a parallel tree learner, and every objective other than Gaussian
-regression without a non-Gaussian GP model raise NotImplementedError.
-boost_from_average=False starts plain boosting from score 0.
+defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked; the
+options outside the port raise NotImplementedError naming the ROADMAP item
+that ports them: DART, GOSS, RF, multiclass, ranking, Grabit, mean-scale,
+constraints, categorical and missing-value options (A12), init_model
+(A14), a GP model or a non-Gaussian objective or sampling on a parallel
+tree learner (A15). boost_from_average=False starts plain boosting from
+score 0.
 """
 
 import numpy as np
@@ -55,6 +70,7 @@ import torch
 
 from .tree import Tree
 from .tree_learner import SerialTreeLearner
+from ..likelihoods.base import get_likelihood
 from ..models.jit_gd import gd_fit_engine, gd_fit_laplace_engine
 from ..parallel.group import default_group
 from ..utils.device import resolve_device
@@ -63,10 +79,38 @@ _OBJ_ALIASES = {
     "regression": "gaussian", "regression_l2": "gaussian", "l2": "gaussian",
     "mean_squared_error": "gaussian", "mse": "gaussian",
     "gaussian": "gaussian",
+    "binary": "bernoulli_logit", "binary_logloss": "bernoulli_logit",
+    "poisson": "poisson", "gamma": "gamma",
+    "multiclass": "multiclass", "softmax": "multiclass",
+    "quantile": "quantile",
+    "regression_l1": "l1", "l1": "l1", "mae": "l1",
+    "mean_absolute_error": "l1",
+    "huber": "huber", "fair": "fair",
+    "mape": "mape", "mean_absolute_percentage_error": "mape",
+    "tweedie": "tweedie",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+    "tobit": "tobit", "grabit": "tobit",
+    "mean_scale_regression": "mean_scale_regression",
+    "lambdarank": "lambdarank", "rank_xendcg": "rank_xendcg",
+    "xendcg": "rank_xendcg", "xe_ndcg": "rank_xendcg",
+    "xe_ndcg_mart": "rank_xendcg", "xendcg_mart": "rank_xendcg",
 }
+# objectives with their own gradient formulas instead of the likelihood
+# registry (regression_objective.hpp, binary_objective.hpp,
+# xentropy_objective.hpp)
+_SPECIAL_OBJECTIVES = ("quantile", "l1", "huber", "fair", "mape", "tweedie",
+                       "cross_entropy", "binary_lgb", "cross_entropy_lambda")
+# objectives outside the port (ROADMAP A12)
+_UNPORTED_OBJECTIVES = ("multiclass", "tobit", "mean_scale_regression",
+                        "lambdarank", "rank_xendcg")
+_BINARY_OBJECTIVES = ("bernoulli_logit", "bernoulli_probit", "cross_entropy",
+                      "binary_lgb")
 
 # the reference's defaults (gbdt.py:448-521): every parameter the port
-# reads or checks; a non-default value of the last two groups raises
+# reads or checks; a non-default value of the options outside the port
+# raises
 _BOOST_PARAM_DEFAULTS = dict(
     learning_rate=0.1, num_leaves=31, max_depth=-1, min_data_in_leaf=20,
     lambda_l2=0.0, lambda_l1=0.0, min_sum_hessian_in_leaf=1e-3,
@@ -77,30 +121,34 @@ _BOOST_PARAM_DEFAULTS = dict(
     line_search_step_length=False, use_nesterov_acc=False,
     nesterov_acc_rate=0.5, momentum_offset=0, momentum_schedule_version=1,
     boost_from_average=True,
+    # the objectives' settings (config.h alpha, sigmoid, is_unbalance,
+    # scale_pos_weight, fair_c, tweedie_variance_power)
+    alpha=0.9, sigmoid=1.0, is_unbalance=False, scale_pos_weight=1.0,
+    fair_c=1.0, tweedie_variance_power=1.5,
+    # bagging and feature subsampling with their seeds
     bagging_fraction=1.0, bagging_freq=0, feature_fraction=1.0,
+    bagging_seed=3, feature_fraction_seed=2,
     path_smooth=0.0, extra_trees=False, linear_tree=False,
     monotone_constraints=None, interaction_constraints=None,
     forcedsplits_filename="", cegb_penalty_split=0.0,
     cegb_penalty_feature_coupled=None, cegb_penalty_feature_lazy=None,
     num_parallel_devices=None, tree_learner="serial", top_k=20,
 )
-# the options of unported features (DART, GOSS, other objectives,
-# ranking, class weights, refit, categorical splits, sampling seeds, CEGB,
-# extra trees, missing values): only their defaults pass
+# the options of unported features (DART, GOSS, multiclass, ranking,
+# refit, categorical splits, CEGB, extra trees, missing values): only
+# their defaults pass
 _UNPORTED_DEFAULTS = dict(
     drop_rate=0.1, max_drop=50, skip_drop=0.5, drop_seed=4, top_rate=0.2,
-    other_rate=0.1, num_class=1, alpha=0.9, sigmoid=1.0,
-    lambdarank_norm=True, lambdarank_truncation_level=30,
-    is_unbalance=False, scale_pos_weight=1.0, refit_decay_rate=0.9,
+    other_rate=0.1, num_class=1, lambdarank_norm=True,
+    lambdarank_truncation_level=30, refit_decay_rate=0.9,
     cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,
     min_data_per_group=100, label_gain=None, objective_seed=5,
-    eval_at=(1, 2, 3, 4, 5), bagging_seed=3, feature_fraction_seed=2,
-    cegb_tradeoff=1.0, extra_seed=6, use_missing=True, zero_as_missing=False,
+    eval_at=(1, 2, 3, 4, 5), cegb_tradeoff=1.0, extra_seed=6,
+    use_missing=True, zero_as_missing=False,
 )
 _BOOST_PARAM_DEFAULTS.update(_UNPORTED_DEFAULTS)
 _UNPORTED_IF_CHANGED = (
-    "boosting", "bagging_fraction", "bagging_freq",
-    "feature_fraction", "path_smooth", "extra_trees", "linear_tree",
+    "boosting", "path_smooth", "extra_trees", "linear_tree",
     "monotone_constraints", "interaction_constraints",
     "forcedsplits_filename", "cegb_penalty_split",
     "cegb_penalty_feature_coupled", "cegb_penalty_feature_lazy") \
@@ -144,6 +192,70 @@ def _nesterov_schedule(i, version=1, rate=0.5, offset=0):
     return 0.0
 
 
+def _weighted_percentile(v, w, alpha):
+    """Common::Percentile / WeightedPercentileFun (utils/common.h:919-985):
+    percentile of v; the weighted variant accumulates sorted weights to the
+    alpha cut (gbdt.py:51-62)."""
+    v = np.asarray(v, dtype=np.float64)
+    if w is None:
+        return float(np.percentile(v, alpha * 100.0))
+    w = np.asarray(w, dtype=np.float64)
+    o = np.argsort(v)
+    cw = np.cumsum(w[o])
+    i = int(np.searchsorted(cw, alpha * cw[-1]))
+    return float(v[o[min(i, len(v) - 1)]])
+
+
+def _segment_percentiles(v, key, counts, w, alpha):
+    """`_weighted_percentile` of v over each segment of rows with the same
+    key, on the device, with no per-segment host work: one sort keyed by
+    (key, v), then per segment np.percentile's linear interpolation
+    (unweighted) or the first sorted row whose cumulative weight reaches
+    alpha times the segment's total (weighted). counts: host numpy, rows
+    per key. The cumulative weights are summed row by row within each
+    segment, as np.cumsum does, over a (segments, longest) zero-padded
+    matrix. The per-segment host values go up in one copy. Returns (k,)
+    values for the keys with rows, in key order."""
+    dev = v.device
+    o1 = torch.sort(v, stable=True).indices
+    order = o1[torch.sort(key[o1], stable=True).indices]
+    vs = v[order]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    keys = np.flatnonzero(counts > 0)
+    c = counts[keys].astype(np.int64)
+    if w is None:
+        # np.percentile, method "linear" (function_base _quantile): the
+        # virtual index (c - 1) q, its floor and ceiling, and _lerp, whose
+        # form flips at t = 0.5
+        q = (alpha * 100.0) / 100.0
+        virt = (c - 1).astype(np.float64) * q
+        prev = np.floor(virt)
+        top = virt >= c - 1
+        lo = np.where(top, c - 1, prev.astype(np.int64))
+        hi = np.where(top, c - 1, lo + 1)
+        t = np.where(top, 0.0, virt - prev)
+        up = torch.as_tensor(np.stack([starts[keys] + lo, starts[keys] + hi,
+                                       t, 1.0 - t]), device=dev)
+        a, b = vs[up[0].long()], vs[up[1].long()]
+        diff = b - a
+        return torch.where(up[2] >= 0.5, b - diff * up[3], a + diff * up[2])
+    m = int(c.sum())
+    up = torch.as_tensor(np.concatenate([starts, starts[keys], keys, c - 1]),
+                         device=dev)
+    nk = len(keys)
+    starts_d, kstart, keys_d, last = (up[:len(starts)],
+                                      up[len(starts):len(starts) + nk],
+                                      up[len(starts) + nk:-nk], up[-nk:])
+    ks = key[order][:m]
+    pos = torch.arange(m, device=dev) - starts_d[ks]
+    W = torch.zeros((len(counts), int(c.max())), dtype=torch.float64,
+                    device=dev)
+    W[ks, pos] = w[order][:m]
+    cw = torch.cumsum(W, dim=1)[keys_d]
+    i = torch.searchsorted(cw, (alpha * cw[:, -1])[:, None])[:, 0]
+    return vs[kstart + torch.minimum(i, last)]
+
+
 def _changed(value, default):
     """Whether a parameter differs from its default; sequences compare by
     their entries."""
@@ -153,8 +265,8 @@ def _changed(value, default):
 
 
 def _parse_params(raw, laplace=False):
-    """The booster's parameters; laplace: a non-Gaussian GP model sets the
-    objective, so any `objective` passes."""
+    """The booster's parameters, with the reference's aliases; laplace: a
+    non-Gaussian GP model sets the objective, so any `objective` passes."""
     p = dict(_BOOST_PARAM_DEFAULTS)
     for k, v in (raw or {}).items():
         p[_PARAM_ALIASES.get(k, k)] = v
@@ -163,24 +275,58 @@ def _parse_params(raw, laplace=False):
     changed = [k for k in _UNPORTED_IF_CHANGED
                if _changed(p[k], _BOOST_PARAM_DEFAULTS[k])]
     if changed:
-        raise NotImplementedError("not ported yet: " + ", ".join(
+        raise NotImplementedError("not ported yet (ROADMAP A12): " + ", ".join(
             f"{k}={p[k]!r}" for k in changed))
-    if not laplace and _OBJ_ALIASES.get(p["objective"]) != "gaussian":
-        raise NotImplementedError(
-            f"objective '{p['objective']}' is not ported yet (Gaussian "
-            "regression only)")
+    obj = p["objective"]
+    if not laplace and _OBJ_ALIASES.get(obj, obj) in _UNPORTED_OBJECTIVES:
+        raise NotImplementedError(f"objective '{obj}' is not ported yet "
+                                  "(ROADMAP A12)")
     if str(p["tree_learner"]) not in _TREE_LEARNERS:
         raise ValueError(f"Unknown tree_learner '{p['tree_learner']}'")
     return p
 
 
+def _raw_X(data):
+    X = np.asarray(data, dtype=np.float64)
+    return X[:, None] if X.ndim == 1 else X
+
+
+class _RunningScore:
+    """The raw ensemble score of one data set, advanced tree by tree as
+    the booster grows (LightGBM's ScoreUpdater of a validation set). Each
+    new tree is added, with the Nesterov recursion replayed, by the float
+    operations `Booster.predict` does, in its order (trees summed from 0,
+    the init score added last), so the score after k rounds equals
+    `predict(num_iteration=k, raw_score=True)` bit for bit."""
+
+    def __init__(self, booster, data):
+        self.X = _raw_X(data)
+        self.F = np.zeros(len(self.X))
+        self.lag = None
+        self.k = 0
+
+    def advance(self, booster):
+        """Take the trees grown since the last call; returns the raw score
+        with the init score."""
+        while self.k < len(booster.trees):
+            self.F, self.lag = booster._add_tree(self.F, self.lag, self.k,
+                                                 self.X)
+            self.k += 1
+        return self.F + booster.init_score
+
+
 class Booster:
-    """Tree-boosting model for Gaussian regression, alone or combined with
-    a GPModel, and for a non-Gaussian GPModel's likelihood (basic.py:2315
-    Booster)."""
+    """Tree-boosting model for the LightGBM objectives, alone or combined
+    with a GPModel, and for a non-Gaussian GPModel's likelihood
+    (basic.py:2315 Booster)."""
 
     def __init__(self, params=None, train_set=None, gp_model=None,
-                 model_dict=None, device=None):
+                 model_dict=None, device=None, init_model=None):
+        if init_model is not None:
+            raise NotImplementedError("init_model (continued training) is "
+                                      "not ported yet (ROADMAP A14)")
+        self.best_iteration = -1
+        self.best_score = None
         if model_dict is not None:
             self._load(model_dict, device)
             return
@@ -190,7 +336,8 @@ class Booster:
         if gp_model is not None:
             if int(p["num_parallel_devices"] or 1) > 1:
                 raise NotImplementedError("a GP model with a parallel tree "
-                                          "learner is not ported yet")
+                                          "learner is not ported yet "
+                                          "(ROADMAP A15)")
             group = None
         else:
             group = default_group(p["num_parallel_devices"])
@@ -204,7 +351,23 @@ class Booster:
         y = train_set.get_label()
         if y is None:
             raise ValueError("train_set has no label")
-        self.objective_name = gp_model.likelihood if laplace else "gaussian"
+        y = np.asarray(y, dtype=np.float64)
+        w = train_set.weight
+        self._lik = None
+        self._aux = None
+        self._binary_lw = None
+        if laplace:
+            self.objective_name = gp_model.likelihood
+        else:
+            self.objective_name = self._set_objective(y, w, gp_model)
+        if group is not None and (
+                self.objective_name != "gaussian"
+                or float(p["bagging_fraction"]) < 1.0
+                and int(p["bagging_freq"]) > 0
+                or float(p["feature_fraction"]) < 1.0):
+            raise NotImplementedError(
+                "a non-Gaussian objective, bagging or feature_fraction on a "
+                "parallel tree learner is not ported yet (ROADMAP A15)")
         self.learner = SerialTreeLearner(
             train_set, num_leaves=int(p["num_leaves"]),
             max_depth=int(p["max_depth"]),
@@ -220,35 +383,124 @@ class Booster:
             # the intercept-only Laplace fit, from the closed-form
             # intercept (FindInitialValueBoosting, re_model.cpp:634-690)
             c0 = gp_model._likelihood_obj.init_intercept(
-                np.asarray(y, dtype=np.float64), self._gp_total_re_var(y))
+                y, self._gp_total_re_var(y))
             self.init_score = self._find_init_score_gp(y, c0)
-        elif gp_model is None and not p["boost_from_average"]:
-            self.init_score = 0.0
         else:
-            # BoostFromScore for Gaussian regression, with or without a
-            # GP model: the response mean over all rows, unweighted as in
-            # the reference (regression_objective.hpp:239-283; gbdt.py:
-            # 900-902 honours boost_from_average=False without a GP model
-            # only)
-            self.init_score = float(np.mean(y))
+            self.init_score = self._boost_from_average(y, w)
         # the score and labels of the rows this rank's learner holds
-        self.y = torch.as_tensor(
-            np.asarray(y, dtype=np.float64)[self.learner.rows],
-            device=self.device)
+        self.y = torch.as_tensor(y[self.learner.rows], device=self.device)
         self.F = torch.full((self.learner.n,), self.init_score,
                             dtype=torch.float64, device=self.device)
         # Dataset weights scale grad and hess without a GP model
         # (gbdt.py:1107-1108); with one the reference ignores them
-        w = train_set.weight
         self._w = None if w is None or gp_model is not None \
             else torch.as_tensor(w[self.learner.rows], device=self.device)
+        if self._lik is not None:
+            self._aux = torch.as_tensor(self._lik.init_aux(y),
+                                        device=self.device)
         self._gp_init_pars = None
         self._gp_lr = 0.1
         self._gp_refit_iter = -1
         self._F_lag1 = None
         self.current_iteration_ = 0
+        self._bag_rng = np.random.RandomState(int(p["bagging_seed"]))
+        self._feat_rng = np.random.RandomState(int(p["feature_fraction_seed"]))
+        self._row_mask = None
 
     # ------------------------------------------------------------------
+    def _set_objective(self, y, w, gp_model):
+        """The objective without a non-Gaussian GP model, with its label
+        checks and state (gbdt.py:646-718): the binary label weights of
+        binary_lgb, the likelihood of a registry objective."""
+        p = self.params
+        obj = p["objective"]
+        name = _OBJ_ALIASES.get(obj, obj)
+        if gp_model is not None:
+            if name != "gaussian":
+                raise NotImplementedError(
+                    f"objective '{obj}' with a Gaussian GP model: the GP "
+                    "model's likelihood sets the objective")
+            return name
+        if name == "bernoulli_logit" and (
+                float(p["sigmoid"]) != 1.0 or bool(p["is_unbalance"])
+                or float(p["scale_pos_weight"]) != 1.0):
+            # LightGBM's binary loss with sigmoid scaling or class weights
+            # (binary_objective.hpp:27-33)
+            name = "binary_lgb"
+        if name == "cross_entropy":
+            if not np.all((y >= 0) & (y <= 1)):
+                raise ValueError("cross_entropy labels must be in [0, 1]")
+        elif name == "binary_lgb":
+            if not np.all((y == 0) | (y == 1)):
+                raise ValueError("binary labels must be 0 or 1")
+            npos = float(np.sum(y > 0))
+            nneg = float(len(y)) - npos
+            w0 = w1 = 1.0
+            if bool(p["is_unbalance"]):
+                if float(p["scale_pos_weight"]) != 1.0:
+                    raise ValueError("Cannot set is_unbalance and "
+                                     "scale_pos_weight at the same time")
+                if npos > 0 and nneg > 0:
+                    if npos > nneg:
+                        w0 = npos / nneg
+                    else:
+                        w1 = nneg / npos
+            w1 *= float(p["scale_pos_weight"])
+            self._binary_lw = (w0, w1)
+        elif name == "cross_entropy_lambda":
+            if not np.all((y >= 0) & (y <= 1)):
+                raise ValueError("cross_entropy_lambda labels must be in "
+                                 "[0, 1]")
+            if w is not None and np.any(np.asarray(w) <= 0):
+                raise ValueError("cross_entropy_lambda requires positive "
+                                 "weights")
+        elif name != "gaussian" and name not in _SPECIAL_OBJECTIVES:
+            self._lik = get_likelihood(name)
+            self._lik.check_y(y)
+        return name
+
+    def _boost_from_average(self, y, w):
+        """BoostFromScore (regression_objective.hpp:239-283; gbdt.py:
+        894-953): each objective's init score, 0 with
+        boost_from_average=False without a GP model."""
+        name = self.objective_name
+        p = self.params
+        if self.gp_model is not None:
+            return float(np.mean(y))
+        if not p["boost_from_average"]:
+            return 0.0
+        if name == "quantile":
+            return _weighted_percentile(y, w, float(p["alpha"]))
+        if name == "l1":
+            return _weighted_percentile(y, w, 0.5)
+        if name == "mape":
+            # weighted median with label weights 1/max(1,|y|) (*w)
+            # (regression_objective.hpp:744-751)
+            lw = 1.0 / np.maximum(1.0, np.abs(y))
+            return _weighted_percentile(y, lw if w is None else lw * w, 0.5)
+        if name in ("huber", "fair"):
+            return float(np.average(y, weights=w))
+        if name == "tweedie":
+            # RegressionPoissonLoss::BoostFromScore: SafeLog(weighted mean)
+            return float(np.log(max(np.average(y, weights=w), 1e-35)))
+        if name == "cross_entropy":
+            pbar = float(np.clip(np.mean(y), 1e-12, 1 - 1e-12))
+            return float(np.log(pbar / (1.0 - pbar)))
+        if name == "binary_lgb":
+            # binary_objective.hpp:140-160 (kEpsilon clip, /sigmoid)
+            pavg = float(np.clip(np.average(y > 0, weights=w),
+                                 1e-15, 1 - 1e-15))
+            return float(np.log(pavg / (1.0 - pavg))
+                         / float(p["sigmoid"]))
+        if name == "cross_entropy_lambda":
+            # xentropy_objective.hpp:244-265: log(exp(havg) - 1)
+            havg = float(np.average(y, weights=w))
+            return float(np.log(max(np.exp(havg) - 1.0, 1e-15)))
+        if self._lik is not None:
+            return self._lik.init_intercept(y, 1.0)
+        # Gaussian regression: the unweighted mean, as the reference
+        return float(np.mean(y))
+
     def _gp_init_cov_pars(self, y):
         gp = self.gp_model
         init = gp.params.init_cov_pars
@@ -294,9 +546,7 @@ class Booster:
     def _gradients(self):
         """(grad, hess) at the current score F, as device tensors."""
         if self.gp_model is None:
-            if self._w is None:
-                return self.F - self.y, torch.ones_like(self.F)
-            return (self.F - self.y) * self._w, self._w
+            return self._objective_gradients()
         # covariance parameters are refitted after each tree (update());
         # here only when no fit for the current F exists yet
         if self._gp_refit_iter != self.current_iteration_:
@@ -318,6 +568,88 @@ class Booster:
         resid = self.F - self.y
         grad = eng.psi_tilde_inv_mat(t, resid[:, None])[:, 0] / float(t[0])
         return grad, torch.ones_like(grad)
+
+    def _objective_gradients(self):
+        """The objective's (grad, hess) without a GP model (gbdt.py:
+        959-1109), elementwise on the device, times the Dataset weights
+        (inside the loss for cross_entropy_lambda)."""
+        F, y, w = self.F, self.y, self._w
+        name = self.objective_name
+        p = self.params
+        one = torch.ones_like(F)
+        if name == "gaussian":
+            if w is None:
+                return F - y, one
+            return (F - y) * w, w
+        if name == "quantile":
+            # pinball loss (regression_objective.hpp:601-616)
+            a = float(p["alpha"])
+            g = torch.where(F - y >= 0, _full(F, 1.0 - a), _full(F, -a))
+            h = one
+        elif name == "l1":
+            # RegressionL1loss (regression_objective.hpp:300-330)
+            g, h = torch.sign(F - y), one
+        elif name == "huber":
+            # RegressionHuberLoss (regression_objective.hpp:414-440)
+            a = float(p["alpha"])
+            g, h = torch.clamp(F - y, -a, a), one
+        elif name == "fair":
+            # RegressionFairLoss (regression_objective.hpp:466-482)
+            c = float(p["fair_c"])
+            d = F - y
+            g = c * d / (torch.abs(d) + c)
+            h = c * c / (torch.abs(d) + c) ** 2
+        elif name == "mape":
+            # RegressionMAPELOSS (regression_objective.hpp:724-740): label
+            # weight 1/max(1,|y|); the sample weight multiplies in below
+            lw = 1.0 / torch.clamp_min(torch.abs(y), 1.0)
+            g, h = torch.sign(F - y) * lw, one
+        elif name == "tweedie":
+            # RegressionTweedieLoss (regression_objective.hpp:840-856)
+            rho = float(p["tweedie_variance_power"])
+            e1 = torch.exp((1.0 - rho) * F)
+            e2 = torch.exp((2.0 - rho) * F)
+            g = -y * e1 + e2
+            h = torch.clamp_min(-y * (1.0 - rho) * e1 + (2.0 - rho) * e2,
+                                1e-12)
+        elif name == "cross_entropy" or (name == "cross_entropy_lambda"
+                                         and w is None):
+            # (xentropy_objective.hpp:84-85)
+            z = 1.0 / (1.0 + torch.exp(-F))
+            g, h = z - y, torch.clamp_min(z * (1.0 - z), 1e-12)
+            if name == "cross_entropy_lambda":
+                return g, h
+        elif name == "binary_lgb":
+            # (binary_objective.hpp:106-137)
+            sig = float(p["sigmoid"])
+            lab = torch.where(y > 0, _full(y, 1.0), _full(y, -1.0))
+            lw = torch.where(y > 0, _full(y, self._binary_lw[1]),
+                             _full(y, self._binary_lw[0]))
+            resp = -lab * sig / (1.0 + torch.exp(lab * sig * F))
+            ar = torch.abs(resp)
+            g = resp * lw
+            h = torch.clamp_min(ar * (sig - ar) * lw, 1e-12)
+        elif name == "cross_entropy_lambda":
+            # (xentropy_objective.hpp:192-216): the weight sits inside the
+            # loss and is not applied again
+            epf = torch.exp(F)
+            hhat = torch.log1p(epf)
+            z = 1.0 - torch.exp(-w * hhat)
+            g = (1.0 - y / z) * w / (1.0 + 1.0 / epf)
+            c = 1.0 / (1.0 - z)
+            d = 1.0 + epf
+            a = w * epf / (d * d)
+            d2 = c - 1.0
+            b = (c / (d2 * d2)) * (1.0 + w * epf - c)
+            return g, torch.clamp_min(a * (1.0 + y * b), 1e-12)
+        else:
+            # a likelihood of the registry: the derivatives of its log
+            # density (torch.func)
+            g = -self._lik.d1(y, F, self._aux)
+            h = torch.clamp_min(-self._lik.d2(y, F, self._aux), 1e-12)
+        if w is not None:
+            g, h = g * w, h * w
+        return g, h
 
     def _refit_gp_cov(self):
         """(Re-)estimate the covariance parameters on the residuals of the
@@ -421,6 +753,66 @@ class Booster:
             leaf_value_of_slot = leaf_value_of_slot * alpha
         return leaf_value_of_slot
 
+    # ------------------------------------------------------------------
+    def _sampling_masks(self):
+        """(row_mask, feat_mask) for this round, device tensors or None
+        (gbdt.py:1230-1256): every bagging_freq rounds a new
+        bagging_fraction subset of the rows (the tree grows on it, and
+        every row's score is updated); a new feature_fraction subset of the
+        features for every tree. The draws are the reference's numpy
+        RandomState draws."""
+        p = self.params
+        row_mask = None
+        bf = float(p["bagging_fraction"])
+        freq = int(p["bagging_freq"])
+        if bf < 1.0 and freq > 0:
+            if self._row_mask is None or self.current_iteration_ % freq == 0:
+                k = max(1, int(round(bf * self.n)))
+                sel = self._bag_rng.choice(self.n, size=k, replace=False)
+                m = np.zeros(self.n)
+                m[sel] = 1.0
+                self._row_mask = torch.as_tensor(m, device=self.device)
+            row_mask = self._row_mask
+        feat_mask = None
+        ff = float(p["feature_fraction"])
+        pfeat = self.learner.p
+        if ff < 1.0 and pfeat > 1:
+            k = max(1, int(round(ff * pfeat)))
+            sel = self._feat_rng.choice(pfeat, size=k, replace=False)
+            m = np.zeros(pfeat, dtype=np.float32)
+            m[sel] = 1.0
+            feat_mask = torch.as_tensor(m, device=self.device)
+        return row_mask, feat_mask
+
+    def _renew_leaf_values(self, tree, slot_of_row, leaf_value_of_slot,
+                           row_mask):
+        """RenewTreeOutput for l1, quantile and mape (serial_tree_learner.
+        cpp:685; regression_objective.hpp:351/:647/:755; gbdt.py:
+        1386-1410): each leaf's value becomes the (weighted) percentile of
+        the residuals y - F of its in-bag rows, on the device. Two host
+        reads: the rows per leaf, then the values."""
+        name = self.objective_name
+        alpha = float(self.params["alpha"]) if name == "quantile" else 0.5
+        w = self._w
+        if name == "mape":
+            lw = 1.0 / torch.clamp_min(torch.abs(self.y), 1.0)
+            w = lw if w is None else lw * w
+        nslot = len(leaf_value_of_slot)
+        # out-of-bag rows go to one more segment, which is not renewed
+        key = slot_of_row if row_mask is None else torch.where(
+            row_mask > 0, slot_of_row, torch.full_like(slot_of_row, nslot))
+        counts = torch.zeros(nslot + 1, dtype=torch.int64,
+                             device=key.device).index_add_(
+            0, key, torch.ones_like(key)).cpu().numpy()
+        counts[nslot] = 0
+        vals = _segment_percentiles(self.y - self.F, key, counts, w,
+                                    alpha).cpu().numpy()
+        for s_, v_ in zip(np.flatnonzero(counts > 0), vals):
+            leaf_value_of_slot[int(s_)] = v_
+            node = tree.slot_to_node.get(int(s_))
+            if node is not None:
+                tree.leaf_value[node] = v_
+
     def _momentum_mu(self, i):
         p = self.params
         return _nesterov_schedule(i, int(p["momentum_schedule_version"]),
@@ -441,7 +833,13 @@ class Booster:
             if self.gp_model is not None:
                 self._refit_gp_cov()
         grad, hess = self._gradients()
-        tree, slot_of_row, leaf_value_of_slot = self.learner.train(grad, hess)
+        row_mask, feat_mask = self._sampling_masks()
+        tree, slot_of_row, leaf_value_of_slot = self.learner.train(
+            grad, hess, row_mask=row_mask, feat_mask=feat_mask)
+        if self.gp_model is None and self.objective_name in (
+                "l1", "quantile", "mape"):
+            self._renew_leaf_values(tree, slot_of_row, leaf_value_of_slot,
+                                    row_mask)
         if self.gp_model is not None \
                 and self.gp_model._likelihood_obj is None:
             if self.params["leaves_newton_update"]:
@@ -463,31 +861,121 @@ class Booster:
         return False
 
     # ------------------------------------------------------------------
-    def predict(self, data, group_data_pred=None,
-                group_rand_coef_data_pred=None, gp_coords_pred=None,
-                cluster_ids_pred=None, predict_var=False,
-                predict_cov_mat=False, pred_latent=False, cov_pars=None):
+    def _add_tree(self, F, lag, it, X):
+        """Tree `it` added to the raw score F (the trees before it summed
+        from 0, no init score), with the Nesterov recursion replayed
+        (gbdt.py:2035-2050): returns the new (F, lag)."""
+        if self.params["use_nesterov_acc"]:
+            if it == 1:
+                lag = F.copy()
+            elif it > 1:
+                mu = self._momentum_mu(it)
+                F, lag = (1.0 + mu) * F - mu * lag, F
+        return F + self.trees[it].predict_raw(X), lag
+
+    def _raw_predict(self, X, start_iteration, num_iteration, pred_early_stop,
+                     pred_early_stop_freq, pred_early_stop_margin):
+        """The ensemble's raw score on X over trees [start_iteration,
+        start_iteration + num_iteration), the init score added when the
+        slice starts at 0 (gbdt.py:2031-2074)."""
+        s = int(start_iteration)
+        ntrees = len(self.trees) - s if num_iteration is None \
+            or num_iteration <= 0 else int(num_iteration)
+        used = range(s, min(s + ntrees, len(self.trees)))
+        F = np.zeros(len(X))
+        if self.params["use_nesterov_acc"]:
+            if s > 1 and len(used):
+                raise ValueError("use_nesterov_acc: the momentum recursion "
+                                 "needs the trees before start_iteration; "
+                                 "predict with start_iteration 0 or 1")
+            lag = None
+            for it in used:
+                F, lag = self._add_tree(F, lag, it, X)
+        elif pred_early_stop and self.objective_name in _BINARY_OBJECTIVES:
+            # per-row prediction early stopping: the binary margin is |raw
+            # score| with the init score (prediction_early_stop.cpp:60)
+            active = np.ones(len(X), dtype=bool)
+            freq = max(1, int(pred_early_stop_freq))
+            for i, it in enumerate(used):
+                if i and i % freq == 0:
+                    active[np.flatnonzero(active)[
+                        np.abs(F[active] + self.init_score)
+                        >= float(pred_early_stop_margin)]] = False
+                    if not active.any():
+                        break
+                F[active] += self.trees[it].predict_raw(X[active])
+        else:
+            for it in used:
+                F = F + self.trees[it].predict_raw(X)
+        if s == 0:
+            # the init score belongs to iteration 0, so raw slices over
+            # start_iteration sum to the full prediction
+            F = F + self.init_score
+        return F
+
+    def predict(self, data, start_iteration=0, num_iteration=None,
+                raw_score=False, pred_latent=False, pred_contrib=False,
+                group_data_pred=None, group_rand_coef_data_pred=None,
+                gp_coords_pred=None, cluster_ids_pred=None, predict_var=False,
+                predict_cov_mat=False, ignore_gp_model=False,
+                pred_early_stop=False, pred_early_stop_freq=10,
+                pred_early_stop_margin=10.0, cov_pars=None, pred_leaf=False):
         """Fixed effect from the trees plus the GP model's random effect
-        (basic.py:3455; gbdt.py:2095-2124 Gaussian branch);
-        random_effect_cov holds the covariance matrix with predict_cov_mat,
-        else the variances. Without a GP model, the raw score (n,) numpy."""
-        X = np.asarray(data, dtype=np.float64)
-        if X.ndim == 1:
-            X = X[:, None]
-        F_pred = np.zeros(len(X))
-        lag = None
-        for it, tree in enumerate(self.trees):
-            if self.params["use_nesterov_acc"]:
-                # the training-time momentum recursion
-                if it == 1:
-                    lag = F_pred.copy()
-                elif it > 1:
-                    mu = self._momentum_mu(it)
-                    F_pred, lag = (1.0 + mu) * F_pred - mu * lag, F_pred
-            F_pred = F_pred + tree.predict_raw(X)
-        F_pred = F_pred + self.init_score
-        if self.gp_model is None:
-            return F_pred
+        (basic.py:3455; gbdt.py:1890-2153). Without a GP model (or with
+        ignore_gp_model) the objective's output, (n,) numpy: the raw score
+        with raw_score, else its transform (probabilities for the binary
+        objectives, exp for tweedie and the log-link likelihoods). With a
+        GP model a dict: fixed_effect, random_effect_mean,
+        random_effect_cov (the covariance matrix with predict_cov_mat, else
+        the variances), random_effect_var, and the response's mean and
+        variance unless pred_latent. start_iteration / num_iteration slice
+        the trees (num_iteration None or <= 0: all of them; the best
+        iteration of early stopping is not applied by default, as in the
+        reference); pred_early_stop stops a binary model's rows whose
+        margin exceeds pred_early_stop_margin, checked every
+        pred_early_stop_freq trees."""
+        if pred_contrib or pred_leaf:
+            raise NotImplementedError("pred_contrib and pred_leaf are not "
+                                      "ported yet (ROADMAP A12)")
+        F_pred = self._raw_predict(
+            _raw_X(data), start_iteration, num_iteration, pred_early_stop,
+            pred_early_stop_freq, pred_early_stop_margin)
+        return self._predict_output(
+            F_pred, raw_score=raw_score, pred_latent=pred_latent,
+            group_data_pred=group_data_pred,
+            group_rand_coef_data_pred=group_rand_coef_data_pred,
+            gp_coords_pred=gp_coords_pred, cluster_ids_pred=cluster_ids_pred,
+            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
+            ignore_gp_model=ignore_gp_model, cov_pars=cov_pars)
+
+    def _predict_output(self, F_pred, raw_score=False, pred_latent=False,
+                        group_data_pred=None, group_rand_coef_data_pred=None,
+                        gp_coords_pred=None, cluster_ids_pred=None,
+                        predict_var=False, predict_cov_mat=False,
+                        ignore_gp_model=False, cov_pars=None):
+        """`predict` from the ensemble's raw score F_pred (gbdt.py:
+        2076-2153): the objective's output transform, or the GP model's
+        prediction around it."""
+        if self.gp_model is None or ignore_gp_model:
+            name = self.objective_name
+            if raw_score:
+                return F_pred
+            if name == "cross_entropy":
+                return 1.0 / (1.0 + np.exp(-F_pred))
+            if name == "tweedie":
+                # RegressionPoissonLoss::ConvertOutput (inherited)
+                return np.exp(F_pred)
+            if name == "binary_lgb":
+                return 1.0 / (1.0 + np.exp(
+                    -float(self.params["sigmoid"]) * F_pred))
+            if name == "cross_entropy_lambda":
+                # the exponential parameter lambda = log(1 + e^F), not a
+                # probability (xentropy_objective.hpp:218-237)
+                return np.log1p(np.exp(F_pred))
+            if self._lik is None:
+                return F_pred
+            return self._lik.cond_mean(
+                torch.as_tensor(F_pred), self._aux.cpu()).numpy()
         if self.gp_model._likelihood_obj is not None:
             return self._predict_laplace(
                 F_pred, group_data_pred, group_rand_coef_data_pred,
@@ -508,6 +996,16 @@ class Booster:
         if not pred_latent:
             out["response_var"] = pred["var"]
         return out
+
+    def _point_prediction(self, F_pred, **kwargs):
+        """The point prediction a metric scores: `_predict_output`'s value
+        without a GP model, its response mean (or the latent mean with
+        pred_latent) with one."""
+        pred = self._predict_output(F_pred, **kwargs)
+        if isinstance(pred, dict):
+            pred = pred.get("response_mean",
+                            pred["fixed_effect"] + pred["random_effect_mean"])
+        return np.asarray(pred)
 
     def _predict_laplace(self, F_pred, group_data_pred,
                          group_rand_coef_data_pred, gp_coords_pred,
@@ -549,8 +1047,38 @@ class Booster:
             predict_var=predict_var)
 
     # ------------------------------------------------------------------
+    def reset_parameter(self, params):
+        """Update training parameters between rounds (the reset_parameter
+        callback; basic.py Booster.reset_parameter), aliases resolved."""
+        for k, v in (params or {}).items():
+            self.params[_PARAM_ALIASES.get(k, k)] = v
+        return self
+
+    def num_trees(self):
+        return len(self.trees)
+
+    def current_iteration(self):
+        return self.current_iteration_
+
+    def eval_train(self):
+        """[("training", "l2", mean squared residual, False)] for Gaussian
+        regression, else [] (gbdt.py:2275)."""
+        if self.objective_name != "gaussian":
+            return []
+        return [("training", "l2",
+                 float(torch.mean((self.F - self.y) ** 2)), False)]
+
+    def _train_resid_var(self):
+        """The training residuals' variance, the plug-in predictive
+        variance of the variance metrics without a GP model
+        (regression_metric.hpp:473-480; gbdt.py:2541)."""
+        return float(np.var((self.y - self.F).cpu().numpy(), ddof=1))
+
+    # ------------------------------------------------------------------
     def model_to_dict(self):
-        """The reference's model dict (gbdt.py:2282) for this booster."""
+        """The reference's model dict (gbdt.py:2282) for this booster,
+        with the likelihood objective's aux parameters under
+        "likelihood_aux" (a key the reference does not read)."""
         d = {
             "init_score": self.init_score,
             "objective": self.objective_name,
@@ -561,6 +1089,10 @@ class Booster:
             "num_sets": 1,
             "init_score2": 0.0,
         }
+        if self._binary_lw is not None:
+            d["binary_label_weights"] = list(self._binary_lw)
+        if self._lik is not None:
+            d["likelihood_aux"] = self._aux.cpu().numpy().tolist()
         if self.gp_model is not None and self.gp_model.model_has_been_fitted:
             d["gp_model"] = self.gp_model.model_to_dict()
             d["residual_or_y"] = (
@@ -573,13 +1105,13 @@ class Booster:
         """Rebuild a booster that predicts from a model dict (gbdt.py:2330
         _load), with its GP model, if it has one, on `device`."""
         from ..gp_model import GPModel
-        unsupported = [k for k in ("efb", "init_scores", "pandas_categorical",
-                                   "binary_label_weights") if d.get(k)]
+        unsupported = [k for k in ("efb", "init_scores", "pandas_categorical")
+                       if d.get(k)]
         if int(d.get("num_sets", 1)) != 1:
             unsupported.append("num_sets")
         laplace = bool(d.get("has_gp_model")) \
             and d["gp_model"]["likelihood"] not in ("gaussian", "regression")
-        if d["objective"] != "gaussian" and not laplace:
+        if d["objective"] in _UNPORTED_OBJECTIVES:
             unsupported.append(f"objective '{d['objective']}'")
         if unsupported:
             raise NotImplementedError(
@@ -594,6 +1126,17 @@ class Booster:
         self.current_iteration_ = len(self.trees)
         self.device = resolve_device(device)
         self.gp_model = None
+        self._binary_lw = None
+        if d.get("binary_label_weights") is not None:
+            self._binary_lw = tuple(d["binary_label_weights"])
+        self._lik = None
+        self._aux = None
+        if not laplace and self.objective_name != "gaussian" \
+                and self.objective_name not in _SPECIAL_OBJECTIVES:
+            self._lik = get_likelihood(self.objective_name)
+            aux = d.get("likelihood_aux", self._lik.default_aux)
+            self._aux = torch.as_tensor(np.asarray(aux, dtype=np.float64),
+                                        device=self.device)
         if not d.get("has_gp_model"):
             return
         self.gp_model = GPModel(model_dict=d["gp_model"], device=self.device)
@@ -606,19 +1149,179 @@ class Booster:
         self.n = len(F)
 
 
+def _full(t, value):
+    return torch.full_like(t, value)
+
+
 def train(params, train_set, num_boost_round=100, gp_model=None,
+          valid_sets=None, valid_names=None, callbacks=None,
+          early_stopping_rounds=None, verbose_eval=False, init_model=None,
+          keep_training_booster=False, evals_result=None, feval=None,
           device=None):
     """Train a boosting model, with or without a GP model (engine.py:22
-    train), with the host loop: one `Booster.update` per round. Run inside
-    an initialised torch.distributed group with num_parallel_devices equal
-    to its size, the trees grow over the group (tree_learner data, feature
-    or voting). Validation sets and callbacks are not ported yet."""
+    train; gbdt.py:2443-2656), with the host loop: one `Booster.update` a
+    round, then the validation metrics and the callbacks.
+
+    valid_sets: Datasets with labels, scored after every round by the
+    `metric` parameter (or feval(preds, dataset) -> (name, value,
+    higher_better)); with early_stopping_rounds, training stops when the
+    first set's metric has not improved (by more than 1e-15) for that many
+    rounds, and best_iteration is the round of its best value. Predictions
+    go through the GP model when use_gp_model_for_validation and the set
+    carries the GP model's prediction inputs as a dict in .gp_valid_data;
+    the metrics neg_log_likelihood and approx_neg_marginal_log_likelihood
+    read the GP model's training NLL, test_neg_log_likelihood and
+    crps_gaussian the predictive variance. evals_result collects every
+    value; verbose_eval (True or a period) logs them. Callbacks run before
+    (reset_parameter) and after each round (log_evaluation,
+    record_evaluation, early_stopping, in their order). predict uses every
+    tree unless given num_iteration, as in the reference.
+
+    Run inside an initialised torch.distributed group with
+    num_parallel_devices equal to its size, Gaussian-regression trees grow
+    over the group (tree_learner data, feature or voting).
+    init_model and keep_training_booster wait (ROADMAP A14)."""
+    from ..callback import CallbackEnv, EarlyStopException, log_evaluation
+    from ..engine import (_GP_TRAIN_METRICS, _METRIC_ALIASES, _RANK_METRICS,
+                          _VAR_METRICS, _metric_fn, _var_metric_fn,
+                          metric_higher_better)
+    if keep_training_booster:
+        raise NotImplementedError("keep_training_booster is not ported yet "
+                                  "(ROADMAP A14)")
     raw = dict(params or {})
+    nbr = num_boost_round
     for k in list(raw):
         if _PARAM_ALIASES.get(k, k) == "num_boost_round":
-            num_boost_round = int(raw.pop(k))
+            nbr = int(raw.pop(k))
     booster = Booster(params=raw, train_set=train_set, gp_model=gp_model,
-                      device=device)
-    for _ in range(num_boost_round):
+                      device=device, init_model=init_model)
+
+    vsets = []
+    if valid_sets is not None:
+        vsets = valid_sets if isinstance(valid_sets, (list, tuple)) \
+            else [valid_sets]
+        vsets = [v for v in vsets if v is not train_set]
+    names = valid_names or [f"valid_{i}" for i in range(len(vsets))]
+    chosen = raw.get("metric")
+    if isinstance(chosen, (list, tuple)):
+        chosen = chosen[0] if chosen else None
+    chosen_canon = _METRIC_ALIASES.get(chosen, chosen) if chosen else None
+    if chosen_canon in _RANK_METRICS:
+        raise NotImplementedError(f"metric '{chosen}' (ranking) is not "
+                                  "ported yet (ROADMAP A12)")
+    if vsets and chosen_canon in _GP_TRAIN_METRICS and gp_model is None:
+        raise ValueError(f"metric '{chosen}' requires a gp_model")
+    # each validation set's running raw score, advanced once a round
+    scores = [_RunningScore(booster, v.data) for v in vsets]
+
+    def _metric(y, p):
+        if chosen:
+            return chosen, _metric_fn(chosen)(y, p)
+        if booster.objective_name == "gaussian":
+            return "l2", float(np.mean((y - p) ** 2))
+        if "bernoulli" in booster.objective_name:
+            pc = np.clip(p, 1e-15, 1 - 1e-15)
+            return "binary_logloss", float(-np.mean(
+                y * np.log(pc) + (1 - y) * np.log(1 - pc)))
+        return "rmse", float(np.sqrt(np.mean((y - p) ** 2)))
+
+    def _var_metric(yv, F_raw, pk, use_gp):
+        """test_neg_log_likelihood / crps_gaussian of one set
+        (regression_metric.hpp:373-494; gbdt.py:2514-2543)."""
+        if use_gp:
+            if gp_model.likelihood == "gaussian":
+                pred = booster._predict_output(F_raw, predict_var=True, **pk)
+                return _var_metric_fn(chosen_canon)(
+                    yv, pred["response_mean"], pred["response_var"])
+            # non-Gaussian: adaptive Gauss-Hermite log predictive density
+            # over the latent predictive distribution (likelihoods.h:10157)
+            if chosen_canon == "crps_gaussian":
+                raise ValueError("crps_gaussian requires a Gaussian "
+                                 "likelihood")
+            pred = booster._predict_output(F_raw, pred_latent=True,
+                                           predict_var=True, **pk)
+            return float(gp_model._likelihood_obj.test_neg_log_likelihood(
+                yv, pred["fixed_effect"] + pred["random_effect_mean"],
+                pred["random_effect_var"], gp_model._fit_result.aux_pars))
+        # no GP model (or not used): a plug-in Gaussian with the training
+        # residuals' variance (regression_metric.hpp:473-480)
+        return _var_metric_fn(chosen_canon)(yv, F_raw,
+                                            booster._train_resid_var())
+
+    maximize = metric_higher_better(chosen) if chosen else False
+    maximize_feval = None       # feval's direction, from its first value
+    cbs = list(callbacks or [])
+    if verbose_eval is True or (not isinstance(verbose_eval, bool)
+                                and int(verbose_eval) > 0):
+        cbs.append(log_evaluation(1 if verbose_eval is True
+                                  else int(verbose_eval)))
+    cbs = sorted(cbs, key=lambda c: getattr(c, "order", 0))
+    cbs_before = [c for c in cbs if getattr(c, "before_iteration", False)]
+    cbs_after = [c for c in cbs if not getattr(c, "before_iteration", False)]
+    best_score = -np.inf if maximize else np.inf
+    best_iter = -1
+    rounds_no_improve = 0
+    if evals_result is not None:
+        for nm in names:
+            evals_result.setdefault(nm, {})
+    for it in range(nbr):
+        for cb in cbs_before:
+            cb(CallbackEnv(model=booster, params=booster.params, iteration=it,
+                           begin_iteration=0, end_iteration=nbr,
+                           evaluation_result_list=[]))
         booster.update()
+        eval_list = []
+        if vsets:
+            for v, nm, sc in zip(vsets, names, scores):
+                pk = dict(getattr(v, "gp_valid_data", None) or {})
+                use_gp = (gp_model is not None
+                          and booster.params["use_gp_model_for_validation"]
+                          and bool(pk))
+                yv = v.get_label()
+                if chosen_canon in _GP_TRAIN_METRICS:
+                    mname = chosen
+                    score = float(gp_model._fit_result.neg_log_likelihood)
+                elif chosen_canon in _VAR_METRICS:
+                    mname = chosen
+                    score = _var_metric(yv, sc.advance(booster), pk, use_gp)
+                elif feval is not None:
+                    mname, score, hib = feval(booster._point_prediction(
+                        sc.advance(booster), ignore_gp_model=not use_gp,
+                        **pk), v)
+                    if maximize_feval is None:
+                        maximize_feval = bool(hib)
+                        maximize = maximize_feval
+                        best_score = -np.inf if maximize else np.inf
+                else:
+                    mname, score = _metric(yv, booster._point_prediction(
+                        sc.advance(booster), ignore_gp_model=not use_gp,
+                        **pk))
+                if evals_result is not None:
+                    evals_result[nm].setdefault(mname, []).append(score)
+                eval_list.append((nm, mname, score, maximize))
+                if nm == names[0]:
+                    improved = (score > best_score + 1e-15) if maximize \
+                        else (score < best_score - 1e-15)
+                    if improved:
+                        best_score = score
+                        best_iter = it + 1
+                        rounds_no_improve = 0
+                    else:
+                        rounds_no_improve += 1
+            if early_stopping_rounds \
+                    and rounds_no_improve >= early_stopping_rounds:
+                break
+        if cbs_after:
+            try:
+                for cb in cbs_after:
+                    cb(CallbackEnv(model=booster, params=booster.params,
+                                   iteration=it, begin_iteration=0,
+                                   end_iteration=nbr,
+                                   evaluation_result_list=eval_list))
+            except EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                booster.best_score = best_score if vsets else None
+                return booster
+    booster.best_iteration = best_iter if vsets else -1
+    booster.best_score = best_score if vsets else None
     return booster

@@ -32,8 +32,9 @@ own:
 The port keeps n rows with no padding: the kernels mask their ragged edge
 themselves. Numeric features only; categorical features, missing-value
 bins, monotone constraints, path smoothing, CEGB, extra_trees, forced
-splits, interaction constraints and bagging/feature sampling raise
-NotImplementedError.
+splits and interaction constraints raise NotImplementedError. Bagging and
+feature subsampling (`train`'s row_mask and feat_mask) run on the
+single-device path; on the masked one they wait (ROADMAP A15).
 """
 
 import numpy as np
@@ -472,21 +473,40 @@ class SerialTreeLearner:
         self.min_sum_hessian = float(min_sum_hessian_in_leaf)
         self.min_gain = float(min_gain_to_split)
 
-    def train(self, grad, hess):
+    def train(self, grad, hess, row_mask=None, feat_mask=None):
         """Grow one tree on grad/hess (numpy arrays or tensors of this
-        rank's rows, `self.rows`, in row order). Returns (tree, slot_of_row
-        (n,) int64 tensor on the device, leaf_value_of_slot (L + 8,) float64
-        numpy)."""
+        rank's rows, `self.rows`, in row order). row_mask (n,) 0/1
+        (bagging): an out-of-bag row adds nothing to the histograms (grad,
+        hess and count 0) but keeps its leaf, so every row's score is
+        updated (tree_learner.py:1193-1220). feat_mask (p,) 0/1 (feature
+        fraction): only its features split. Returns (tree, slot_of_row
+        (n,) int64 tensor on the device, leaf_value_of_slot (L + 8,)
+        float64 numpy)."""
         if self.group is not None:
+            if row_mask is not None or feat_mask is not None:
+                raise NotImplementedError(
+                    "bagging and feature_fraction on a parallel tree "
+                    "learner are not ported yet (ROADMAP A15)")
             return self._train_masked(grad, hess)
         stats = torch.ones((self.n, 3), dtype=torch.float32,
                            device=self.device)
-        stats[:, 0] = torch.as_tensor(grad, device=self.device)
-        stats[:, 1] = torch.as_tensor(hess, device=self.device)
+        grad = torch.as_tensor(grad, device=self.device)
+        hess = torch.as_tensor(hess, device=self.device)
+        if row_mask is None:
+            stats[:, 0] = grad
+            stats[:, 1] = hess
+        else:
+            rm = torch.as_tensor(row_mask, device=self.device)
+            stats[:, 0] = grad * rm
+            stats[:, 1] = hess * rm
+            stats[:, 2] = (rm > 0).to(torch.float32)
+        if feat_mask is not None:
+            feat_mask = torch.as_tensor(feat_mask, device=self.device)
         rec, leaf_values, node, rec_gain = grow_tree_partitioned(
             self.bins_pos, stats, self.num_bins, self.num_leaves,
             self.max_depth, self.lambda_l2, self.min_data_in_leaf,
-            self.min_sum_hessian, self.min_gain, lambda_l1=self.lambda_l1)
+            self.min_sum_hessian, self.min_gain, feat_mask=feat_mask,
+            lambda_l1=self.lambda_l1)
         # rows per slot; bincount would read the largest slot back first
         cnt = torch.zeros(self.num_leaves + 8, dtype=torch.int64,
                           device=node.device).index_add_(

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .gaussian_base import chol
-from .grouped_re import SegmentSum
+from .grouped_re import SegmentSum, pred_incidence, zsz_diag
 from .laplace import MAXIT_MODE_NEWTON, LaplaceEngineBase
 
 
@@ -374,33 +374,46 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
             def h_solve(rhs):
                 return sla.cho_solve(cho, rhs)
 
-        n_pred = pred_data["n_pred"]
-        Zp = np.zeros((n_pred, self.q))
-        prior_var = np.zeros((n_pred, n_pred))
-        for j, pd in enumerate(pred_data["comps"]):
-            codes = pd["codes_pred"]
-            zp = pd.get("z_pred")
-            zp = np.ones(n_pred) if zp is None \
-                else np.asarray(zp, dtype=np.float64)
-            seen = codes < self.block_sizes[j]
-            rows = np.where(seen)[0]
-            Zp[rows, self.level_off[j] + codes[rows]] += zp[rows]
-            un = np.where(~seen)[0]
-            if len(un):
-                same = codes[un][:, None] == codes[un][None, :]
-                prior_var[np.ix_(un, un)] += pars_orig[j] * same * \
-                    np.outer(zp[un], zp[un])
-        mu = Zp @ b_np
+        cov = var = None
+        if predict_cov_mat:
+            n_pred = pred_data["n_pred"]
+            Zp = np.zeros((n_pred, self.q))
+            prior_var = np.zeros((n_pred, n_pred))
+            for j, pd in enumerate(pred_data["comps"]):
+                codes = pd["codes_pred"]
+                zp = pd.get("z_pred")
+                zp = np.ones(n_pred) if zp is None \
+                    else np.asarray(zp, dtype=np.float64)
+                seen = codes < self.block_sizes[j]
+                rows = np.where(seen)[0]
+                Zp[rows, self.level_off[j] + codes[rows]] += zp[rows]
+                un = np.where(~seen)[0]
+                if len(un):
+                    same = codes[un][:, None] == codes[un][None, :]
+                    prior_var[np.ix_(un, un)] += pars_orig[j] * same * \
+                        np.outer(zp[un], zp[un])
+            mu = Zp @ b_np
+            cov = Zp @ h_solve(Zp.T) + prior_var
+            var = np.diagonal(cov).copy()
+        else:
+            # the mean and the variances as gathers from b_hat and H^-1,
+            # with no (n_pred, q) matrix
+            cols, zps, prior = pred_incidence(
+                pred_data, self.block_sizes, self.level_off, pars_orig)
+            mu = sum(np.where(cols[j] >= 0, zps[j] * b_np[cols[j].clip(0)],
+                              0.0) for j in range(len(cols)))
+            if predict_var or predict_response:
+                if self.diag_path:
+                    # H is diagonal and the components' columns disjoint
+                    var = prior + sum(
+                        np.where(cols[j] >= 0, zps[j] ** 2
+                                 / h_diag[cols[j].clip(0)], 0.0)
+                        for j in range(len(cols)))
+                else:
+                    var = zsz_diag(h_solve(np.eye(self.q)), cols, zps) \
+                        + prior
         mu_tot = mu if F_pred is None \
             else mu + np.asarray(F_pred, dtype=np.float64)
-        cov = var = None
-        if predict_var or predict_cov_mat or predict_response:
-            V = h_solve(Zp.T)
-            if predict_cov_mat:
-                cov = Zp @ V + prior_var
-                var = np.diagonal(cov).copy()
-            else:
-                var = np.einsum("pq,qp->p", Zp, V) + np.diagonal(prior_var)
         out = {}
         if predict_response:
             m, v = self.likelihood.response_mean_var(

@@ -51,6 +51,43 @@ from ..ops.iterative import make_cg_solve, make_slq_logdet
 from .gaussian_base import GaussianEngineBase, chol
 
 
+def pred_incidence(pred_data, block_sizes, level_off, variances):
+    """The prediction rows' incidence in sparse form: (cols (J, n_pred)
+    int64, each row's column of Z_pred per component, -1 for a level not
+    seen in training; zp (J, n_pred) float64, its value (1, or the random
+    slope's covariate); prior (n_pred,), the prior variance of the unseen
+    levels, sum_j variances[j] zp_j^2). Z_pred has one entry per row and
+    component, and the components' columns are disjoint, so the diagonal
+    of Z_pred S Z_pred' is sum_{j,k} zp_j zp_k S[cols_j, cols_k]."""
+    n_pred = pred_data["n_pred"]
+    J = len(pred_data["comps"])
+    cols = np.full((J, n_pred), -1, dtype=np.int64)
+    zps = np.ones((J, n_pred))
+    prior = np.zeros(n_pred)
+    for j, pd in enumerate(pred_data["comps"]):
+        codes = np.asarray(pd["codes_pred"])
+        if pd.get("z_pred") is not None:
+            zps[j] = np.asarray(pd["z_pred"], dtype=np.float64)
+        seen = codes < block_sizes[j]
+        cols[j, seen] = level_off[j] + codes[seen]
+        prior = prior + np.where(seen, 0.0, variances[j] * zps[j] ** 2)
+    return cols, zps, prior
+
+
+def zsz_diag(S, cols, zps):
+    """diag(Z_pred S Z_pred') from `pred_incidence`'s cols and zp, for S
+    a (q, q) numpy array or tensor and cols, zp of the same kind."""
+    out = 0.0
+    for j in range(len(cols)):
+        for k in range(len(cols)):
+            seen = (cols[j] >= 0) & (cols[k] >= 0)
+            sjk = S[cols[j].clip(0), cols[k].clip(0)] if isinstance(
+                cols, np.ndarray) else S[cols[j].clamp_min(0),
+                                         cols[k].clamp_min(0)]
+            out = out + zps[j] * zps[k] * sjk * seen
+    return out
+
+
 class SegmentSum:
     """out[g] = sum of v[r] over the rows r with codes[r] == g, for g < q,
     without atomics: rows sorted by code once; level 1 sums chunks of up to
@@ -342,10 +379,33 @@ class WoodburyGaussianEngine(GaussianEngineBase):
                 predict_cov_mat=False, predict_response=False):
         """Posterior mean and covariance at prediction incidences;
         pred_data["comps"][j] holds "codes_pred" (codes >= m_j are unseen
-        levels) and an optional "z_pred"."""
+        levels) and an optional "z_pred". Without predict_cov_mat the mean
+        and the variances are gathers from A^-1 Z' resid and A^-1
+        (`pred_incidence`), with no (n_pred, q) or (n_pred, n_pred)
+        matrix."""
         pars_orig = np.asarray(pars_orig, dtype=np.float64)
         sigma2 = pars_orig[0]
         n_pred = pred_data["n_pred"]
+        if not predict_cov_mat:
+            cols, zps, prior = pred_incidence(
+                pred_data, self.block_sizes, self.level_off, pars_orig[1:])
+            with torch.no_grad():
+                L, bhat = self._posterior(pars_orig, y_resid)
+                up = torch.as_tensor(np.concatenate([cols, zps, prior[None]]),
+                                     device=self.device)
+                J = len(cols)
+                cols_d, zps_d = up[:J].long(), up[J:2 * J].to(self.dtype)
+                mu = sum(torch.where(cols_d[j] >= 0, zps_d[j]
+                                     * bhat[cols_d[j].clamp_min(0)], 0.0)
+                         for j in range(J))
+                if not predict_var:
+                    return {"mu": self._host(mu)[0]}
+                var = sigma2 * zsz_diag(torch.cholesky_inverse(L), cols_d,
+                                        zps_d) + up[-1].to(self.dtype)
+                if predict_response:
+                    var = var + sigma2
+                mu, var = self._host(mu, var)
+            return {"mu": mu, "var": var}
         Zp = np.zeros((n_pred, self.q))
         prior_var = np.zeros((n_pred, n_pred))
         for j, pd in enumerate(pred_data["comps"]):
@@ -365,17 +425,15 @@ class WoodburyGaussianEngine(GaussianEngineBase):
             L, bhat = self._posterior(pars_orig, y_resid)
             Zp_d = self._t(Zp)
             out = {"mu": self._host(Zp_d @ bhat)[0]}
-            if predict_var or predict_cov_mat:
-                cov = sigma2 * (Zp_d @ self._cho_solve(L, Zp_d.T)) \
-                    + self._t(prior_var)
-                if predict_response:
-                    cov = cov + sigma2 * torch.eye(
-                        n_pred, dtype=cov.dtype, device=cov.device)
-                cov = self._host(cov)[0]
-                if predict_cov_mat:
-                    out["cov"] = cov
-                if predict_var:
-                    out["var"] = np.diagonal(cov).copy()
+            cov = sigma2 * (Zp_d @ self._cho_solve(L, Zp_d.T)) \
+                + self._t(prior_var)
+            if predict_response:
+                cov = cov + sigma2 * torch.eye(
+                    n_pred, dtype=cov.dtype, device=cov.device)
+            cov = self._host(cov)[0]
+            out["cov"] = cov
+            if predict_var:
+                out["var"] = np.diagonal(cov).copy()
         return out
 
     def psi_tilde_inv_mat(self, pars_internal, M):

@@ -218,6 +218,8 @@ class VecchiaGaussianEngine(GaussianEngineBase):
             else np.asarray(cluster_ids)
         self._clusters_ord = None if self.cluster_ids is None \
             else self.cluster_ids[perm]
+        # the prediction search's tree and its last result (_knn_obs)
+        self._kdtree = self._knn_last = None
         idx = mask = None
         if self.n >= 20000 and self.coords_ord.shape[1] == 2 \
                 and self._clusters_ord is None:
@@ -410,17 +412,29 @@ class VecchiaGaussianEngine(GaussianEngineBase):
 
     # ------------------------------------------------------------------
     def _knn_obs(self, coords_pred, k):
-        """k nearest observed points per prediction point (host cKDTree)."""
+        """k nearest observed points per prediction point (host cKDTree
+        over the observed points, built once). The search does not depend
+        on the parameters: the last one is kept and returned again for the
+        same points and k (a validation set, predicted every boosting
+        round)."""
         if self._clusters_ord is not None:
             raise NotImplementedError(
                 "prediction with cluster_ids under gp_approx='vecchia' is "
                 "not implemented (training and the NLL are); predict with "
                 "the dense engine (gp_approx='none') for clustered models")
-        from scipy.spatial import cKDTree
-        dist, idx = cKDTree(self.coords_ord).query(np.asarray(coords_pred),
-                                                   k=k)
+        coords_pred = np.asarray(coords_pred)
+        last = self._knn_last
+        if last is not None and last[0] == k \
+                and np.array_equal(last[1], coords_pred):
+            return last[2], last[3]
+        if self._kdtree is None:
+            from scipy.spatial import cKDTree
+            self._kdtree = cKDTree(self.coords_ord)
+        dist, idx = self._kdtree.query(coords_pred, k=k)
         p = len(coords_pred)
-        return idx.reshape(p, -1), dist.reshape(p, -1)
+        self._knn_last = (k, coords_pred.copy(), idx.reshape(p, -1),
+                          dist.reshape(p, -1))
+        return self._knn_last[2], self._knn_last[3]
 
     def _joint_neighbors(self, coords_pred, k):
         """Neighbour sets of the prediction points among [obs; preceding

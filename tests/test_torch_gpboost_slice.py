@@ -102,10 +102,11 @@ def test_jax_model_dict_predicts_the_same_in_the_port(trained):
 def test_unported_jax_model_dicts_raise(trained, change):
     d = trained[0].model_to_dict()
     if change == "no_gp_model":
-        # a booster without a GP model loads (test_torch_parallel_learner);
-        # one of an objective other than Gaussian regression does not
+        # a booster without a GP model loads (test_torch_parallel_learner),
+        # with the ported objectives too (test_torch_objectives.py); one of
+        # an objective outside the port does not
         d["has_gp_model"] = 0
-        d["objective"] = "bernoulli_logit"
+        d["objective"] = "multiclass"
     elif change == "dense_gp":
         # a dense GP loads, with cluster_ids too
         # (tests/test_torch_weights_clusters.py); one with GP random
@@ -143,13 +144,13 @@ def test_float32_engine_trains():
         "response_mean"]))
 
 
-# use_nesterov_acc is ported (tests/test_torch_weights_clusters.py);
-# extra_trees is not
+# use_nesterov_acc is ported (tests/test_torch_weights_clusters.py), and
+# bagging with a GP model (tests/test_torch_objectives.py); extra_trees and
+# linear trees are not
 @pytest.mark.parametrize("params", [{"boosting": "dart"},
                                     {"extra_trees": True},
                                     {"objective": "binary"},
-                                    {"bagging_fraction": 0.5,
-                                     "bagging_freq": 1}])
+                                    {"linear_tree": True}])
 def test_unported_booster_options_raise(params):
     coords, X, y = _data(n=300, seed=6)
     gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
@@ -200,22 +201,24 @@ def test_plain_boosting_options_match_jax(case):
         assert bp.init_score == 0.0
 
 
+# bagging, feature_fraction, is_unbalance, alpha and the sampling seeds
+# are ported (tests/test_torch_objectives.py)
 @pytest.mark.parametrize("params,key", [
-    ({"subsample": 0.5, "subsample_freq": 1}, "bagging_fraction"),
-    ({"subsample_freq": 1}, "bagging_freq"),
-    ({"sub_row": 0.5}, "bagging_fraction"),
-    ({"bagging": 0.5}, "bagging_fraction"),
-    ({"colsample_bytree": 0.5}, "feature_fraction"),
-    ({"sub_feature": 0.5}, "feature_fraction"),
+    ({"boosting_type": "goss"}, "boosting"),
+    ({"boost": "rf"}, "boosting"),
+    ({"top_rate": 0.3}, "top_rate"),
+    ({"other_rate": 0.2}, "other_rate"),
+    ({"max_drop": 10}, "max_drop"),
+    ({"skip_drop": 0.2}, "skip_drop"),
     ({"monotone_constraint": [1, 0, 0, 0]}, "monotone_constraints"),
-    ({"unbalance": True}, "is_unbalance"),
-    ({"unbalanced_sets": True}, "is_unbalance"),
+    ({"lambdarank_norm": False}, "lambdarank_norm"),
+    ({"cat_smooth": 5.0}, "cat_smooth"),
     ({"zero_as_missing": True}, "zero_as_missing"),
     ({"use_missing": False}, "use_missing"),
     ({"drop_rate": 0.2}, "drop_rate"),
-    ({"alpha": 0.5}, "alpha"),
+    ({"extra_seed": 9}, "extra_seed"),
     ({"eval_at": [1, 3]}, "eval_at"),
-    ({"bagging_seed": 7}, "bagging_seed"),
+    ({"refit_decay_rate": 0.5}, "refit_decay_rate"),
 ])
 def test_plain_boosting_unported_options_raise(params, key):
     X, y, _ = _plain_data()

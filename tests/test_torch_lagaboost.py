@@ -142,6 +142,8 @@ def test_objective_inferred_and_fisher_rejected(data):
     with pytest.raises(ValueError):
         gpt.train({**BOOST, "objective": "binary"}, ds, num_boost_round=1,
                   gp_model=gp)
-    # without a non-Gaussian GP model other objectives still raise
+    # without a GP model the objectives outside the port still raise (the
+    # ported ones: tests/test_torch_objectives.py)
     with pytest.raises(NotImplementedError):
-        gpt.train({**BOOST, "objective": "binary"}, ds, num_boost_round=1)
+        gpt.train({**BOOST, "objective": "multiclass"}, ds,
+                  num_boost_round=1)
