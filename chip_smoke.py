@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phases 23-26 [--vlb-maxit 0]
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
-                                     # 24, 25, 26 each alone, 27-29 and
-                                     # 30-32); no result lines
+                                     # 24, 25, 26 each alone, 27-29, 30-32
+                                     # and 33-35); no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -227,7 +227,38 @@ Phases; any failure exits non-zero and prints no result line:
      min_data_in_leaf {20, 100}, 2 random tries of 20 rounds; card
      against CPU at n = 1,000 (q = 50): cv mean and stdv curves to 1e-6
      over the rounds before any near-tie, best_iter and grid search's
-     best_params equal.
+     best_params equal;
+ 33. FITC at the headline's width: sim_vecchia n = 100,000 (2-D), 500
+     kmeans++ inducing points, float64: the host kmeans++ seconds (the
+     JAX package's centres, draw for draw) within the setup, a fit
+     (device L-BFGS, init_cov_pars [0.5, 1.0, 0.1]: seconds, iterations,
+     host syncs, peak memory), predictions with variances at 10,000
+     points; card against CPU at n = 2,000 (NLL at fixed parameters, a
+     30-iteration gradient-descent fit, predictions; relative 1e-8, equal
+     iterations); FITC GPBoost on w_gpboost1000's data (n = 10,000,
+     p = 5, 31 leaves, float64) for 10 rounds: seconds a round, host syncs
+     of round 11, device busy share of rounds 12-13, hist_segment launches
+     (must be positive);
+ 34. FITC-Laplace: bernoulli_probit on sim_lagab (seed 4) at n = 50,000
+     with 500 kmeans++ inducing points, maxit 20: kmeans++, fit seconds,
+     iterations, Newton steps, host syncs, peak memory; FITC LaGaBoost on
+     the same data for 3 rounds (31 leaves), each round's seconds,
+     hist_segment launches (must be positive); Poisson card against CPU at
+     n = 1,000 with 100 inducing points (NLL, g_u, g_F and predictions
+     1e-8 relative, equal Newton steps);
+ 35. tapering, full-scale tapering and full-scale Vecchia (distance- and
+     correlation-based) on the dense engine, card against CPU at
+     n = 2,000 (NLL and predictions at fixed parameters, 1e-8 relative),
+     GPBoost with Newton leaves on the full-scale tapering adapter (taper
+     range 0.1, 100 inducing points) on w_gpboost1000's generator at
+     n = 2,000 for 3 rounds card against CPU (phase 12's rule: trees,
+     parameters, scores and predictions to 1e-4),
+     tapering and full-scale tapering at a taper range of 1e6 equal to the
+     exact engine's NLL (1e-10); the iterative full-scale tapering (taper
+     range 0.02, shape 1, 100 inducing points) and full-scale Vecchia
+     (100 inducing points, 30 neighbours) fits at n = 20,000 (lbfgs,
+     maxit 20): kmeans++, seconds, iterations, host syncs, peak memory,
+     CG solves, iterations and those at cg_max_num_it.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -396,11 +427,12 @@ def _time_ms(torch, fn, reps=25):
 
 
 def _device_ms(torch, fn, reps=25, kernel="hist_"):
-    """The kernel's own device time in ms per call of fn(): the summed
-    durations of the device kernels whose name holds `kernel` under
-    torch.profiler, over reps calls. A trace without such a kernel (seen
-    once at n = 50,000 after phase 24's trace) prints what it held, and a
-    second trace is taken; None when neither has one."""
+    """The kernel's own device time in ms per call of fn(), which launches
+    one kernel whose name holds `kernel`: the mean duration of those
+    kernels under torch.profiler over reps calls. The trace drops some
+    calls' kernels (0-25 of 25 seen, most after phase 24's trace); one
+    with fewer than 5 prints what it held, and a second trace is taken;
+    None when neither has 5."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -415,10 +447,11 @@ def _device_ms(torch, fn, reps=25, kernel="hist_"):
         dev = [e for e in events if str(e.device_type).endswith("CUDA")]
         spans = [e.time_range.end - e.time_range.start for e in dev
                  if kernel in e.name]
-        if spans:
-            return sum(spans) * 1e-3 / reps
+        if len(spans) >= 5:
+            return sum(spans) * 1e-3 / len(spans)
         names = sorted({e.name[:50] for e in dev})
-        print(f"[profiler] trace {attempt + 1} holds no '{kernel}' kernel: "
+        print(f"[profiler] trace {attempt + 1} holds {len(spans)} '{kernel}' "
+              f"kernels for {reps} calls: "
               f"{len(events)} events, {len(dev)} on the device "
               f"({names[:6]}), host events naming it "
               f"{sum(kernel in e.name for e in events)}", flush=True)
@@ -2304,7 +2337,7 @@ def _operator_times(torch, eng, u, y, b):
         from gpboost_tpu_torch.models.grouped_re import SegmentSum
         k = eng.num_rand_vec_trace
         T = eng._t(np.random.RandomState(SEED).randn(n, k))
-        seg = SegmentSum(eng._flat_idx.cpu().numpy(), n, eng.device)
+        seg = SegmentSum(eng._nb._flat_idx.cpu().numpy(), n, eng.device)
 
         def bw_seg():
             return T - seg((A[:, :, None] * T[:, None, :]).reshape(-1, k))
@@ -3486,10 +3519,325 @@ def phase_cv(torch, gpt, histogram):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 33-35: the inducing-point and tapering approximations (FITC,
+# FITC-Laplace, tapering, full-scale tapering, full-scale Vecchia)
+N_FITC, M_FITC, N_FITC_PRED, N_FITCL, N_FITCL_CPU, M_FITCL_CPU = \
+    100_000, 500, 10_000, 50_000, 1_000, 100
+ROUNDS_FITCL, ROUNDS_FSA_BOOST = 3, 3
+N_FSA, TAPER_FSA, M_FSA, NN_FSVA, MAXIT_FSA = 20_000, 0.02, 100, 30, 20
+FITC_FIT = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1]}
+
+
+def _timed_kmeans(gpt, build):
+    """(build(), seconds of kmeans++ inside it): the host kmeans++ of
+    models/fitc.py, timed by wrapping it while build() runs."""
+    from gpboost_tpu_torch.models import fitc
+    secs, orig = [], fitc.kmeanspp_indices
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    fitc.kmeanspp_indices = timed
+    try:
+        out = build()
+    finally:
+        fitc.kmeanspp_indices = orig
+    return out, sum(secs)
+
+
+def _fitc_model(gpt, coords, device, m=M_FITC, **kw):
+    return gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                       gp_approx="fitc", num_ind_points=m, device=device,
+                       **kw)
+
+
+def phase_fitc(torch, gpt, histogram):
+    """FITC at the headline's width (sim_vecchia, n = 100,000, 2-D), 500
+    kmeans++ inducing points, float64: kmeans++ and setup seconds, a fit
+    (seconds, iterations, optimizer path, host syncs, peak memory), 10,000
+    predictions with variances; card against CPU at n = 2,000; then FITC
+    GPBoost on w_gpboost1000's data for 10 rounds. Returns hist_segment's
+    launches of that run."""
+    coords, y = sim_vecchia(N_FITC)
+    t0 = time.perf_counter()
+    model, km_s = _timed_kmeans(gpt, lambda: _fitc_model(gpt, coords,
+                                                         "cuda"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _, fit_s, syncs, peak = _timed(torch, lambda: model.fit(
+        y=y, params=FITC_FIT))
+    r = model._fit_result
+    cov = model.get_cov_pars()
+    _finite("fitc cov pars", cov, (3,), positive=True)
+    rng = np.random.RandomState(SEED + 33)
+    cp = rng.rand(N_FITC_PRED, 2)
+    pred, pred_s, pred_syncs, pred_peak = _timed(
+        torch, lambda: model.predict(gp_coords_pred=cp, predict_var=True))
+    _finite("fitc mu", pred["mu"], (N_FITC_PRED,))
+    _finite("fitc var", pred["var"], (N_FITC_PRED,), positive=True)
+    print(f"[fitc] sim_vecchia n={N_FITC} m={M_FITC} kmeans++ float64: "
+          f"kmeans++ (host) {km_s:.3f} s of setup {setup_s:.3f} s; fit "
+          f"({r.optimizer}) {r.num_it} iterations in {fit_s:.3f} s, {syncs} "
+          f"host syncs, peak {peak:.2f} GiB, nll "
+          f"{r.neg_log_likelihood:.4f}, cov pars {cov.tolist()}; predict "
+          f"{N_FITC_PRED} points with variances {pred_s:.3f} s, "
+          f"{pred_syncs} host syncs, peak {pred_peak:.2f} GiB", flush=True)
+    # card against CPU at n = 2,000: NLL at fixed parameters, a
+    # gradient-descent fit, predictions
+    c2, y2 = sim_vecchia(N_CPU, seed=SEED)
+    cp2 = c2[:200] + 0.004
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m2 = _fitc_model(gpt, c2, dev)
+        nll = m2.neg_log_likelihood([0.3, 1.0, 0.2], y2)
+        m2.fit(y=y2, params={"optimizer_cov": "gradient_descent",
+                             "maxit": 30})
+        out[dev] = (nll, m2.get_cov_pars(), m2.get_num_optim_iter(),
+                    m2.predict(gp_coords_pred=cp2, predict_var=True))
+    (ng, cg, ig, pg), (nc, cc, ic, pc) = out["cuda"], out["cpu"]
+    errs = {"nll": abs(ng / nc - 1.0), "cov": _rel_max(cg, cc),
+            "mu": _rel_max(pg["mu"], pc["mu"]),
+            "var": _rel_max(pg["var"], pc["var"])}
+    if max(errs.values()) > 1e-8 or ig != ic:
+        raise AssertionError(f"fitc card vs CPU: {errs}, iterations "
+                             f"{ig} / {ic}")
+    print(f"[fitc card-vs-cpu] n={N_CPU} m={M_FITC} float64: relative "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; {ig} GD iterations on both", flush=True)
+    # FITC GPBoost on w_gpboost1000's data
+    coords, X, y = sim_gpboost(N_FULL)
+    gp = _fitc_model(gpt, coords, "cuda")
+    bst = gpt.Booster(dict(PARAMS), gpt.Dataset(X, label=y), gp_model=gp,
+                      device="cuda")
+    _reset_launches(histogram)
+    secs = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = histogram.hist_segment.launches
+    if len(bst.trees) != ROUNDS or launches <= 0:
+        raise AssertionError(f"fitc gpboost: {len(bst.trees)} trees, "
+                             f"{launches} launches")
+    _, syncs = _count_syncs(torch, bst.update)
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)])
+    Xn, cn = new_points(N_PRED)
+    pred = bst.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    for k in ("response_mean", "response_var"):
+        _finite(f"fitc gpboost {k}", pred[k], (N_PRED,))
+    print(f"[fitc gpboost] w_gpboost1000's data n={N_FULL} p={P}, FITC "
+          f"m={M_FITC} float64, 31 leaves, {ROUNDS} rounds: round 1 (with "
+          f"the first GP fit) {secs[0]:.3f} s, rounds 2-{ROUNDS} mean "
+          f"{np.mean(secs[1:]):.4f} s; host syncs of round {ROUNDS + 1} "
+          f"{syncs}; device busy over rounds {ROUNDS + 2}-{ROUNDS + 3} "
+          f"{_busy_txt(busy, wall, hist_s)}; cov pars "
+          f"{gp.get_cov_pars().tolist()}; hist_segment launches {launches}",
+          flush=True)
+    return launches
+
+
+def _pois_fitc_data(n, seed=SEED + 34):
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2)
+    lat = 0.8 * np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1])
+    return coords, rng.poisson(np.exp(0.3 + lat)).astype(float)
+
+
+def phase_fitc_laplace(torch, gpt, histogram):
+    """bernoulli_probit FITC-Laplace on sim_lagab at n = 50,000 with 500
+    kmeans++ inducing points (fit seconds, iterations, Newton steps, host
+    syncs, peak memory); FITC LaGaBoost for 3 rounds on the same data;
+    Poisson card against CPU at n = 1,000. Returns hist_segment's launches
+    of the LaGaBoost run."""
+    coords, X, y = sim_lagab(N_FITCL)
+    kw = dict(likelihood="bernoulli_probit")
+    model, km_s = _timed_kmeans(gpt, lambda: _fitc_model(gpt, coords, "cuda",
+                                                         **kw))
+    model._engine.total_num_mode_it = 0
+    _, fit_s, syncs, peak = _timed(torch, lambda: model.fit(
+        y=y, params={"maxit": 20}))
+    r = model._fit_result
+    _finite("fitc-laplace cov pars", r.cov_pars, (2,), positive=True)
+    newton = model._engine.total_num_mode_it
+    print(f"[fitc-laplace] sim_lagab n={N_FITCL} m={M_FITC} "
+          f"bernoulli_probit float64: kmeans++ {km_s:.3f} s; fit "
+          f"({r.optimizer}, maxit 20) {r.num_it} iterations in {fit_s:.3f} "
+          f"s, {newton} Newton steps, {syncs} host syncs, peak {peak:.2f} "
+          f"GiB, nll {r.neg_log_likelihood:.4f}, cov pars "
+          f"{r.cov_pars.tolist()}", flush=True)
+    gp = _fitc_model(gpt, coords, "cuda", **kw)
+    bst = gpt.Booster({**VLB, "num_leaves": 31}, gpt.Dataset(X, label=y),
+                      gp_model=gp, device="cuda")
+    _reset_launches(histogram)
+    secs = []
+    for _ in range(ROUNDS_FITCL):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = histogram.hist_segment.launches
+    if len(bst.trees) != ROUNDS_FITCL or launches <= 0:
+        raise AssertionError(f"fitc lagaboost: {len(bst.trees)} trees, "
+                             f"{launches} launches")
+    Xn, cn = new_points(N_PRED, seed=SEED + 35)
+    pred = bst.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    _finite("fitc lagaboost response", pred["response_mean"], (N_PRED,))
+    print(f"[fitc lagaboost] sim_lagab n={N_FITCL} p={P_VLB}, FITC-Laplace "
+          f"m={M_FITC}, 31 leaves, {ROUNDS_FITCL} rounds: round 1 (with the "
+          f"first GP fit) {secs[0]:.3f} s, then "
+          + ", ".join(f"{s:.3f}" for s in secs[1:])
+          + f" s; cov pars {gp.get_cov_pars().tolist()}; hist_segment "
+          f"launches {launches}", flush=True)
+    # Poisson card against CPU at n = 1,000
+    c2, y2 = _pois_fitc_data(N_FITCL_CPU)
+    cp2 = c2[:100] + 0.004
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m2 = _fitc_model(gpt, c2, dev, m=M_FITCL_CPU, likelihood="poisson")
+        e = m2._engine
+        res = e.laplace_vag_F(np.log([1.0, 5.0]), y2, np.zeros(len(y2)),
+                              e.zero_mode())
+        steps = e.last_num_mode_it
+        pr = m2.predict(y=y2, gp_coords_pred=cp2, cov_pars=[1.0, 0.2],
+                        predict_var=True, predict_response=False)
+        out[dev] = (res[0], res[1], res[2], steps, pr)
+    (ng, gug, gFg, sg, pg), (nc, guc, gFc, sc, pc) = out["cuda"], out["cpu"]
+    errs = {"nll": abs(ng / nc - 1.0), "g_u": _rel_max(gug, guc),
+            "g_F": _rel_max(gFg, gFc), "mu": _rel_max(pg["mu"], pc["mu"]),
+            "var": _rel_max(pg["var"], pc["var"])}
+    # the same port code on both devices, as in phases 33 and 35
+    if max(errs.values()) > 1e-8 or sg != sc:
+        raise AssertionError(f"fitc-laplace card vs CPU: {errs}, Newton "
+                             f"steps {sg} / {sc}")
+    print(f"[fitc-laplace card-vs-cpu] poisson n={N_FITCL_CPU} "
+          f"m={M_FITCL_CPU}: relative "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; {sg} Newton steps on both", flush=True)
+    return launches
+
+
+def _iter_fit(torch, gpt, coords, y, approx, **kw):
+    """One iterative fit at n = 20,000: (model, seconds, syncs, peak,
+    kmeans++ seconds)."""
+    model, km_s = _timed_kmeans(gpt, lambda: gpt.GPModel(
+        gp_coords=coords, cov_function="exponential", gp_approx=approx,
+        num_ind_points=M_FSA, matrix_inversion_method="iterative",
+        device="cuda", **kw))
+    eng = model._engine
+    eng.cg_stats(reset=True)
+    _, secs, syncs, peak = _timed(torch, lambda: model.fit(
+        y=y, params={"optimizer_cov": "lbfgs", "maxit": MAXIT_FSA,
+                     "init_cov_pars": [0.5, 1.0, 0.1]}))
+    return model, secs, syncs, peak, km_s
+
+
+def phase_taper(torch, gpt):
+    """The dense adapters (tapering, full-scale tapering, full-scale
+    Vecchia, correlation-based) card against CPU at n = 2,000, GPBoost on
+    the full-scale tapering adapter card against CPU, the adapters against
+    the exact engine at a taper range of 1e6; the iterative full-scale
+    tapering (taper range 0.02, shape 1, 100 inducing points) and
+    full-scale Vecchia (100 inducing points, 30 neighbours) fits at
+    n = 20,000."""
+    c2, y2 = sim_vecchia(N_CPU, seed=SEED)
+    cp2 = c2[:100] + 0.004
+    pars = [0.3, 1.0, 0.2]
+    approxes = (("tapering", dict(cov_fct_taper_range=0.1)),
+                ("full_scale_tapering", dict(cov_fct_taper_range=0.1,
+                                             num_ind_points=100)),
+                ("full_scale_vecchia", dict(num_ind_points=100,
+                                            num_neighbors=NN_FSVA)),
+                ("full_scale_vecchia_correlation_based",
+                 dict(num_ind_points=100, num_neighbors=NN_FSVA)))
+    for approx, kw in approxes:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = gpt.GPModel(gp_coords=c2, cov_function="exponential",
+                            gp_approx=approx, device=dev, **kw)
+            t0 = time.perf_counter()
+            nll = m.neg_log_likelihood(pars, y2)
+            p = m.predict(y=y2, gp_coords_pred=cp2, cov_pars=pars,
+                          predict_var=True)
+            out[dev] = (nll, p, time.perf_counter() - t0)
+        (ng, pg, tg), (nc, pc, tc) = out["cuda"], out["cpu"]
+        errs = {"nll": abs(ng / nc - 1.0), "mu": _rel_max(pg["mu"], pc["mu"]),
+                "var": _rel_max(pg["var"], pc["var"])}
+        if max(errs.values()) > 1e-8:
+            raise AssertionError(f"{approx} card vs CPU: {errs}")
+        print(f"[taper card-vs-cpu] {approx} n={N_CPU} (dense engine): "
+              f"relative " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                       errs.items())
+              + f"; NLL and predictions card {tg:.3f} s, cpu {tc:.3f} s",
+              flush=True)
+    # GPBoost on the FSA adapter at the same taper range: the taper and
+    # the low rank reach Psi~^-1 in the gradients and the Newton leaves
+    c3, X3, y3 = sim_gpboost(N_CPU)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        gp = gpt.GPModel(gp_coords=c3, cov_function="exponential",
+                         gp_approx="full_scale_tapering",
+                         cov_fct_taper_range=0.1, num_ind_points=100,
+                         device=dev)
+        gp.set_optim_params({"optimizer_cov": "gradient_descent",
+                             "maxit": 10})
+        t0 = time.perf_counter()
+        bst = gpt.train({**PARAMS, "leaves_newton_update": True},
+                        gpt.Dataset(X3, label=y3),
+                        num_boost_round=ROUNDS_FSA_BOOST, gp_model=gp,
+                        device=dev)
+        runs[dev] = (bst, gp, time.perf_counter() - t0)
+    (bg, gg, tg), (bc, gc, tc) = runs["cuda"], runs["cpu"]
+    Xn, cn = new_points(200)
+    txt = _card_cpu_boosters("fsa gpboost card-vs-cpu", bc, bg, gc, gg, Xn,
+                             dict(gp_coords_pred=cn))
+    print(f"[fsa gpboost card-vs-cpu] w_gpboost n={N_CPU}, "
+          f"full_scale_tapering (taper range 0.1, 100 inducing points) "
+          f"float64, Newton leaves, {ROUNDS_FSA_BOOST} rounds: {txt}; train "
+          f"card {tg:.3f} s, cpu {tc:.3f} s", flush=True)
+    exact = gpt.GPModel(gp_coords=c2, cov_function="exponential",
+                        device="cuda").neg_log_likelihood(pars, y2)
+    for approx in ("tapering", "full_scale_tapering"):
+        nll = gpt.GPModel(gp_coords=c2, cov_function="exponential",
+                          gp_approx=approx, cov_fct_taper_range=1e6,
+                          num_ind_points=100, device="cuda"
+                          ).neg_log_likelihood(pars, y2)
+        if abs(nll / exact - 1.0) > 1e-10:
+            raise AssertionError(f"{approx} at taper range 1e6: {nll} vs "
+                                 f"exact {exact}")
+    print(f"[taper] tapering and full_scale_tapering at taper range 1e6 "
+          f"equal the exact engine's NLL {exact:.6f} to 1e-10", flush=True)
+    coords, y = sim_vecchia(N_FSA, seed=SEED + 35)
+    for approx, kw in (("full_scale_tapering",
+                        dict(cov_fct_taper_range=TAPER_FSA,
+                             cov_fct_taper_shape=1.0)),
+                       ("full_scale_vecchia", dict(num_neighbors=NN_FSVA))):
+        model, secs, syncs, peak, km_s = _iter_fit(torch, gpt, coords, y,
+                                                   approx, **kw)
+        eng = model._engine
+        st = eng.cg_stats()
+        r = model._fit_result
+        _finite(f"{approx} cov pars", r.cov_pars, (3,), positive=True)
+        extra = f"taper neighbours k={eng.k}, " if hasattr(eng, "k") else ""
+        print(f"[{approx} iterative] sim_vecchia n={N_FSA} m_ip={M_FSA} "
+              f"{extra}float64, lbfgs maxit {MAXIT_FSA} ({r.optimizer}): "
+              f"kmeans++ {km_s:.3f} s; fit {r.num_it} iterations in "
+              f"{secs:.3f} s, {syncs} host syncs, peak {peak:.2f} GiB; CG "
+              f"{st['solves']} solves, {st['iterations']} iterations, "
+              f"{st['at_maxit']} at cg_max_num_it; nll "
+              f"{r.neg_log_likelihood:.4f}, cov pars {r.cov_pars.tolist()}",
+              flush=True)
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
-          (25, 25), (26, 26), (27, 29), (30, 32))
+          (25, 25), (26, 26), (27, 29), (30, 32), (33, 35))
 
 
 def _groups(spec):
@@ -3610,6 +3958,15 @@ def main(argv=None):
         segment["launches_cv_grouped_n20k"] = phase_cv(torch, gpt, histogram)
         print(f"[model-selection] phases 30-32 in "
               f"{time.perf_counter() - t_m:.1f} s", flush=True)
+    if (33, 35) in groups:
+        t_a = time.perf_counter()
+        segment["launches_fitc_gpboost_n10k"] = phase_fitc(torch, gpt,
+                                                           histogram)
+        segment["launches_fitc_lagaboost_n50k"] = phase_fitc_laplace(
+            torch, gpt, histogram)
+        phase_taper(torch, gpt)
+        print(f"[approximations] phases 33-35 in "
+              f"{time.perf_counter() - t_a:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

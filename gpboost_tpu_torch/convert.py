@@ -5,8 +5,10 @@ return plain numpy/JSON values: the likelihood with its additional
 parameter, the covariance, aux and coefficient estimates, the
 model-defining data (grouping variables, slopes, coordinates, cluster ids,
 observation weights, covariates, the Vecchia ordering seed and neighbour
-count), the response, and for a booster the trees, the init score, the
-training score and the training residuals (the labels for LaGaBoost). The port reads the same schema, so no array crosses between the
+count, the inducing points' count, selection and seed, the taper's range
+and shape), the response, and for a booster the trees, the init score,
+the training score and the training residuals (the labels for
+LaGaBoost). The port reads the same schema, so no array crosses between the
 frameworks: the port rebuilds every engine from that data, as the reference
 did. The port's own dicts load in the JAX package the same way.
 """
@@ -19,10 +21,14 @@ def gp_model_from_jax_dict(d, device=None):
     """The port's GPModel from a JAX `GPModel.model_to_dict()`, ready to
     `predict` on `device` (default: the first CUDA card). Gaussian models
     with grouped random effects, an exact GP (alone or with grouped random
-    effects) or a Vecchia GP, and models of the 16 likelihoods of
-    likelihoods/base.py with grouped random effects, one exact GP or one
-    Vecchia GP (the dense-precision Vecchia-Laplace path), are ported; any
-    other model raises NotImplementedError."""
+    effects), a Vecchia GP or a GP under FITC, tapering, full-scale
+    tapering or full-scale Vecchia, and models of the 16 likelihoods of
+    likelihoods/base.py with grouped random effects or one GP (exact,
+    Vecchia, FITC or a tapering adapter), are ported; any other model
+    raises NotImplementedError. The inducing points are not in the dict:
+    both packages draw them again from the coordinates, the seed,
+    num_ind_points and ind_points_selection, and kmeans++ places the same
+    centres in both."""
     return GPModel(model_dict=d, device=device)
 
 

@@ -33,6 +33,24 @@ gaussian_latent; gp_model.py:468-495), by the Laplace approximation:
     ops/iterative.py); as in the reference, "auto" takes the matrix-free
     one above n = 8,000.
 
+The approximations other than Vecchia (gp_model.py:190-233, :273-335,
+:407-466), with one GP, num_ind_points (500) inducing points chosen by
+ind_points_selection ("kmeans++", the JAX package's centres, or
+"random") and a Wendland taper of cov_fct_taper_range and
+cov_fct_taper_shape (0, 1 or 2):
+
+  * gp_approx="fitc": models/fitc.py for the Gaussian likelihood (with
+    weights), models/fitc_laplace.py for the 16 likelihoods;
+  * "tapering", "full_scale_tapering" (and its "_pred_var_exact" and
+    "_pred_var_exact_stable" variants), "full_scale_vecchia" and
+    "full_scale_vecchia_correlation_based": the kernel adapters of
+    ops/taper.py on the dense Gaussian or dense Laplace engine; for the
+    Gaussian likelihood with one isotropic GP, no weights and no
+    cluster_ids, matrix_inversion_method="iterative" (or "auto" above
+    n = 8,000) takes the matrix-free engines models/fsa_iterative.py and
+    models/fsva_iterative.py (CG and SLQ, whose settings
+    set_optim_params takes).
+
 GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
 every optimizer of models/optimize.py (gradient descent, Fisher scoring,
 Newton, L-BFGS on the host or on the device, Nelder-Mead; for the Laplace
@@ -42,14 +60,17 @@ parameters. Prediction takes group_data_pred, group_rand_coef_data_pred,
 gp_coords_pred, X_pred and cluster_ids_pred, with the response's mean and
 variance (predict_response) for the non-Gaussian likelihoods;
 `model_to_dict` writes the reference's state dict and a dict of either
-package loads here. The likelihoods of likelihoods/families.py, other
-approximations, a GP combined with grouped effects for a non-Gaussian
-likelihood, GP random coefficients and posterior sampling raise
-NotImplementedError. The iterative engines (the Woodbury engine's
-iterative branch, which "auto" takes above q = 20,000, and the matrix-free
-Vecchia-Laplace engine) read the reference's CG keys of
-`set_optim_params`; `get_num_cg_steps` and `get_total_num_cg_steps` read
-their counts.
+package loads here. The likelihoods of likelihoods/families.py, a Vecchia
+GP combined with grouped random effects (models/vecchia_grouped.py),
+gp_approx="vecchia_latent", a GP combined with grouped effects for a
+non-Gaussian likelihood, GP random coefficients and posterior sampling
+raise NotImplementedError. The iterative engines (the Woodbury engine's
+iterative branch, which "auto" takes above q = 20,000, the matrix-free
+Vecchia-Laplace engine and the iterative FSA / FSVA engines) read the
+reference's CG keys of `set_optim_params`; `get_num_cg_steps` and
+`get_total_num_cg_steps` read the Vecchia-Laplace engine's counts.
+cover_tree_radius, free_raw_data and likelihood_learning_rate are
+accepted without effect, as in the reference.
 
 device: where the engine's tensors live (default: the first CUDA card; it
 raises without one, and the CPU runs only when device="cpu" is passed).
@@ -68,10 +89,16 @@ from .models.grouped_re import WoodburyGaussianEngine
 from .models.laplace import LaplaceDenseEngine
 from .models.optimize import (OptimConfig, OptimResult, optimize_gaussian,
                               optimize_laplace)
+from .models.fitc import FITCGaussianEngine, select_inducing_points
+from .models.fitc_laplace import FITCLaplaceEngine
+from .models.fsa_iterative import FSAIterativeGaussianEngine
+from .models.fsva_iterative import FSVAIterativeGaussianEngine
 from .models.vecchia import VecchiaGaussianEngine
 from .models.vecchia_laplace import (VecchiaLaplaceEngine,
                                      VecchiaLaplaceIterativeEngine)
-from .ops.cov_fcts import CovarianceFunction
+from .ops.cov_fcts import SUPPORTED_COV_FUNCTIONS, CovarianceFunction
+from .ops.taper import (FSACovarianceFunction, TaperedCovarianceFunction,
+                        VIFCovarianceFunction)
 from .ops.distances import pairwise_dist
 from .utils.device import resolve_device, resolve_dtype
 
@@ -86,6 +113,13 @@ _OPTIM_PARAM_KEYS = set(OptimConfig.__dataclass_fields__) | set(_CG_KEYS) \
        "trace", "cg_max_num_it_tridiag", "reuse_rand_vec_trace",
        "init_coef_aux_pars_from_iid_model"}
 _WOODBURY_MAX_Q = 20000
+_TAPER_APPROXES = ("tapering", "full_scale_tapering",
+                   "full_scale_tapering_pred_var_exact",
+                   "full_scale_tapering_pred_var_exact_stable")
+_FSVA_APPROXES = ("full_scale_vecchia",
+                  "full_scale_vecchia_correlation_based")
+_GP_APPROXES = ("none", "vecchia", "fitc") + _TAPER_APPROXES \
+    + _FSVA_APPROXES
 
 
 class GPModel:
@@ -104,18 +138,25 @@ class GPModel:
                  cov_function="matern",
                  cov_fct_shape=1.5,
                  gp_approx="none",
+                 cov_fct_taper_range=1.0,
+                 cov_fct_taper_shape=1.0,
                  num_neighbors=None,
                  vecchia_ordering="random",
+                 ind_points_selection="kmeans++",
+                 num_ind_points=500,
+                 cover_tree_radius=1.0,
                  matrix_inversion_method="auto",
                  seed=0,
                  cluster_ids=None,
-                 weights=None,
-                 num_parallel_devices=None,
+                 likelihood_additional_param=None,
+                 free_raw_data=False,
                  model_file=None,
                  model_dict=None,
+                 likelihood_learning_rate=1.0,
                  dtype="float64",
-                 device=None,
-                 likelihood_additional_param=None):
+                 weights=None,
+                 num_parallel_devices=None,
+                 device=None):
         self.device = resolve_device(device)
         if model_file is not None or model_dict is not None:
             self._init_from_dict(model_file, model_dict)
@@ -127,14 +168,14 @@ class GPModel:
         if likelihood != "gaussian":
             self._likelihood_obj = get_likelihood(
                 likelihood, likelihood_additional_param)
-            if gp_approx not in ("none", "vecchia"):
-                raise NotImplementedError(
-                    f"gp_approx '{gp_approx}' with likelihood "
-                    f"'{likelihood}' (FITC-Laplace) is not ported yet")
-        if gp_approx not in ("none", "vecchia"):
+        if gp_approx not in _GP_APPROXES:
             raise NotImplementedError(
-                f"gp_approx '{gp_approx}' is not ported yet ('none', "
-                "'vecchia')")
+                f"gp_approx '{gp_approx}' is not ported yet (ported: "
+                f"{', '.join(_GP_APPROXES)})")
+        if cov_function not in SUPPORTED_COV_FUNCTIONS:
+            raise NotImplementedError(
+                f"cov_function '{cov_function}' is not ported yet "
+                f"(supported: {SUPPORTED_COV_FUNCTIONS})")
         unsupported = [nm for nm, v in (
             ("gp_rand_coef_data", gp_rand_coef_data),
             ("num_parallel_devices", num_parallel_devices)) if v is not None]
@@ -147,15 +188,25 @@ class GPModel:
         if group_data is None and gp_coords is None:
             raise ValueError("Both group_data and gp_coords are None. "
                              "Provide at least one random effect.")
+        if weights is not None and gp_approx not in ("none", "vecchia",
+                                                     "fitc"):
+            raise NotImplementedError(
+                "weights are currently supported for gp_approx in "
+                "('none', 'vecchia', 'fitc')")
         self._dtype = resolve_dtype(dtype)
         self.likelihood = likelihood
         self.likelihood_additional_param = likelihood_additional_param
+        self.likelihood_learning_rate = likelihood_learning_rate
         self.weights = None if weights is None \
             else np.asarray(weights, dtype=np.float64)
         self._aux_override = None
         self.gp_approx = gp_approx
         self.cov_function_name = cov_function
         self.cov_fct_shape = cov_fct_shape
+        self.cov_fct_taper_range = cov_fct_taper_range
+        self.cov_fct_taper_shape = cov_fct_taper_shape
+        self.num_ind_points = num_ind_points
+        self.ind_points_selection = ind_points_selection
         self.matrix_inversion_method = matrix_inversion_method
         self.seed = seed
         self.num_neighbors = num_neighbors
@@ -201,8 +252,7 @@ class GPModel:
             if gp_coords.ndim == 1:
                 gp_coords = gp_coords[:, None]
             self.gp_coords = gp_coords
-            cov_fn = CovarianceFunction(cov_function, shape=cov_fct_shape,
-                                        dim=gp_coords.shape[1])
+            cov_fn = self._gp_cov_fn(gp_coords, cov_function, cov_fct_shape)
             self.components.append(GPComponent(gp_coords, cov_fn, name="GP"))
             self._par_names.extend(["GP_var", "GP_range"])
 
@@ -211,16 +261,49 @@ class GPModel:
         self.cluster_ids = None if cluster_ids is None \
             else np.asarray(cluster_ids)
         self._vecchia = gp_approx == "vecchia"
+        self._use_woodbury = all(c.kind == "grouped" for c in self.components)
         if self._vecchia and (len(self.components) != 1
                               or self.components[0].kind != "gp"):
             raise NotImplementedError(
-                "gp_approx='vecchia' with grouped random effects is not "
-                "ported yet")
-        self._use_woodbury = all(c.kind == "grouped" for c in self.components)
-        if self._likelihood_obj is not None and self._vecchia:
+                "gp_approx='vecchia' with grouped random effects (the "
+                "combined Vecchia and grouped-effects engine, "
+                "models/vecchia_grouped.py) is not ported yet (ROADMAP A10)")
+        mim = matrix_inversion_method
+        iterative = mim == "iterative" or (mim == "auto"
+                                           and self.num_data > 8000)
+        single_gp = (len(self.components) == 1
+                     and self.components[0].kind == "gp"
+                     and self.components[0].z is None
+                     and self.cluster_ids is None and self.weights is None)
+        if gp_approx in _TAPER_APPROXES + _FSVA_APPROXES \
+                and self._likelihood_obj is None and single_gp \
+                and self.components[0].cov_fn.base.is_isotropic \
+                and iterative:
+            # the n-scaling paths (gp_model.py:273-335): the sparse tapered
+            # residual with CG and SLQ, or the FSVA congruence
+            engine = FSAIterativeGaussianEngine \
+                if gp_approx in _TAPER_APPROXES \
+                else FSVAIterativeGaussianEngine
+            self._engine = engine(self.components, self.num_data,
+                                  dtype=self._dtype, device=self.device)
+        elif gp_approx == "fitc":
+            # gp_model.py:407-466: FITC for the Gaussian likelihood, the
+            # FITC-Laplace engine otherwise
+            fitc_kw = dict(num_ind_points=num_ind_points,
+                           ind_points_selection=ind_points_selection,
+                           seed=seed, dtype=self._dtype,
+                           weights=self.weights, device=self.device)
+            if self._likelihood_obj is not None:
+                self._engine = FITCLaplaceEngine(
+                    self.components, self.num_data, self._likelihood_obj,
+                    **fitc_kw)
+            else:
+                self._engine = FITCGaussianEngine(
+                    self.components, self.num_data, **fitc_kw)
+            self._use_woodbury = False
+        elif self._likelihood_obj is not None and self._vecchia:
             # the reference's rule (gp_model.py:426-434): the matrix-free
             # path above n = 8,000, the dense-precision Cholesky below
-            mim = matrix_inversion_method
             if mim == "auto":
                 mim = "iterative" if self.num_data > 8000 else "cholesky"
             engine = VecchiaLaplaceIterativeEngine if mim == "iterative" \
@@ -245,6 +328,8 @@ class GPModel:
                     "a GP combined with grouped random effects for a "
                     "non-Gaussian likelihood is not ported yet")
             else:
+                # with a tapering / FSA / VIF adapter as the GP's kernel
+                # (gp_model.py:329-335)
                 self._engine = LaplaceDenseEngine(
                     self.components, self.num_data, self._likelihood_obj,
                     cluster_ids=self.cluster_ids, dtype=self._dtype,
@@ -263,7 +348,6 @@ class GPModel:
                 # the cluster id
                 for comp in self.components:
                     comp.refine_by_cluster(self.cluster_ids)
-            mim = matrix_inversion_method
             if mim == "auto":
                 q_tot = sum(c.num_groups for c in self.components)
                 mim = "iterative" if q_tot > _WOODBURY_MAX_Q else "cholesky"
@@ -272,6 +356,8 @@ class GPModel:
                 matrix_inversion_method=mim, device=self.device,
                 weights=self.weights)
         else:
+            # an exact GP, or a tapering / FSA / VIF adapter riding the
+            # dense engine
             self._engine = DenseGaussianEngine(
                 self.components, self.num_data, dtype=self._dtype,
                 device=self.device, cluster_ids=self.cluster_ids,
@@ -284,6 +370,41 @@ class GPModel:
         self.y = None
         self.X = None
         self.model_has_been_fitted = False
+
+    def _gp_cov_fn(self, coords, cov_function, cov_fct_shape):
+        """The GP's covariance function, wrapped in the approximation's
+        kernel adapter for the tapering, FSA and VIF approximations
+        (gp_model.py:163-225)."""
+        dim = coords.shape[1]
+        # taper smoothness mu = (1 + dim)/2 + taper_shape + 0.5
+        # (re_comp.h:1812-1815 GetTaperMu)
+        taper_kw = dict(taper_range=self.cov_fct_taper_range,
+                        taper_shape=self.cov_fct_taper_shape,
+                        taper_mu=(1.0 + dim) / 2.0
+                        + self.cov_fct_taper_shape + 0.5)
+        cov_fn = CovarianceFunction(cov_function, shape=cov_fct_shape,
+                                    dim=dim)
+        approx = self.gp_approx
+        if approx not in _TAPER_APPROXES + _FSVA_APPROXES:
+            return cov_fn
+        if approx == "tapering":
+            return TaperedCovarianceFunction(cov_fn, CovarianceFunction(
+                "wendland", **taper_kw))
+        ip = select_inducing_points(coords, self.num_ind_points,
+                                    self.ind_points_selection, self.seed)
+        if approx in _TAPER_APPROXES:
+            return FSACovarianceFunction(cov_fn, CovarianceFunction(
+                "wendland", **taper_kw), ip)
+        corr_based = approx.endswith("correlation_based")
+        init_al = None
+        if corr_based:
+            init_al = cov_fn.range_to_transformed(np.asarray(
+                _init_ranges(GPComponent(coords, cov_fn))))
+        return VIFCovarianceFunction(
+            cov_fn, ip, coords,
+            self.num_neighbors if self.num_neighbors else 30,
+            correlation_based=corr_based, init_alphas=init_al,
+            device=self.device)
 
     # ------------------------------------------------------------------
     def set_optim_params(self, params):
@@ -746,8 +867,11 @@ class GPModel:
             "vecchia_ordering": self.vecchia_ordering,
             "vecchia_pred_type": self.vecchia_pred_type,
         }
-        if self.num_neighbors is not None:
-            d["num_neighbors"] = self.num_neighbors
+        for attr in ("num_neighbors", "num_ind_points",
+                     "ind_points_selection", "cov_fct_taper_range",
+                     "cov_fct_taper_shape"):
+            if getattr(self, attr) is not None:
+                d[attr] = getattr(self, attr)
         if self.num_neighbors_pred is not None:
             d["num_neighbors_pred"] = self.num_neighbors_pred
         if self.likelihood_additional_param is not None:
@@ -803,7 +927,9 @@ class GPModel:
                   weights=arr("weights"),
                   likelihood_additional_param=d.get(
                       "likelihood_additional_param"))
-        for attr in ("num_neighbors", "vecchia_ordering"):
+        for attr in ("num_neighbors", "vecchia_ordering", "num_ind_points",
+                     "ind_points_selection", "cov_fct_taper_range",
+                     "cov_fct_taper_shape"):
             if d.get(attr) is not None:
                 kw[attr] = d[attr]
         if d.get("group_rand_coef_data") is not None:

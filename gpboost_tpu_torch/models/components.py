@@ -9,6 +9,7 @@ host as numpy; the engines move what they need to their device.
 import numpy as np
 
 from ..ops.cov_fcts import CovarianceFunction
+from ..ops.taper import _like
 
 
 class GPComponent:
@@ -38,6 +39,32 @@ class GPComponent:
     @property
     def num_range_par(self):
         return self.cov_fn.num_range_par
+
+    def corr(self, D_or_none, alphas):
+        """Correlation matrix of the training data at transformed ranges
+        alphas: from the distances D of an isotropic kernel, else from the
+        coordinates, or an approximation adapter's own training block
+        (`corr_train`, the full-scale Vecchia one)."""
+        if hasattr(self.cov_fn, "corr_train"):
+            return self.cov_fn.corr_train(alphas)
+        if self.cov_fn.is_isotropic:
+            return self.cov_fn.corr_from_dist(D_or_none, alphas)
+        c = _like(self.coords, alphas)
+        return self.cov_fn.corr_from_coords(c, c, alphas)
+
+    def cross_corr(self, coords_pred, alphas):
+        """(n, n_pred) correlations between training and new points of an
+        approximation adapter (an isotropic kernel's come from distances,
+        models/gaussian_gp.py assemble_pred_covs)."""
+        c = _like(self.coords, alphas)
+        return self.cov_fn.corr_from_coords(
+            c, _like(coords_pred, alphas), alphas)
+
+    def pred_corr(self, coords_pred, alphas):
+        """(n_pred, n_pred) correlations among the new points, as
+        cross_corr."""
+        cp = _like(coords_pred, alphas)
+        return self.cov_fn.corr_from_coords(cp, cp, alphas)
 
 
 class GroupedComponent:

@@ -54,10 +54,16 @@ def assemble_pred_covs(components, par_offsets, comp_vars, theta_log,
         else:
             alphas = torch.exp(theta_log[off + 1: off + comp.num_cov_par])
             cp = pd["coords_pred"]
-            Kc = comp.cov_fn.corr_from_dist(
-                _dist(comp.coords, cp, dtype, device), alphas)
-            Kp = comp.cov_fn.corr_from_dist(_dist(cp, cp, dtype, device),
-                                            alphas)
+            if comp.cov_fn.is_isotropic:
+                Kc = comp.cov_fn.corr_from_dist(
+                    _dist(comp.coords, cp, dtype, device), alphas)
+                Kp = comp.cov_fn.corr_from_dist(
+                    _dist(cp, cp, dtype, device), alphas)
+            else:
+                # an approximation adapter (ops/taper.py) evaluates its own
+                # cross and prediction blocks (components.py:54-84)
+                Kc = comp.cross_corr(cp, alphas)
+                Kp = comp.pred_corr(cp, alphas)
         K_cross = K_cross + float(v) * Kc
         K_pred = K_pred + float(v) * Kp
     if pred_data.get("cross_cluster_mask") is not None:
@@ -97,7 +103,7 @@ class DenseSigmaAssembly:
                 if comp.z is not None:
                     W = W * np.outer(comp.z, comp.z)
                 W = torch.as_tensor(W, device=device).to(dtype)
-            else:
+            elif comp.cov_fn.is_isotropic:
                 D = _dist(comp.coords, comp.coords, dtype, device)
             if self._cluster_mask is not None:
                 W = self._cluster_mask if W is None \
@@ -116,7 +122,9 @@ class DenseSigmaAssembly:
                 K = static["W"]
             else:
                 alphas = torch.exp(theta_log[off + 1: off + comp.num_cov_par])
-                K = comp.cov_fn.corr_from_dist(static["D"], alphas)
+                # without distances (an approximation adapter) the
+                # component evaluates its kernel (gaussian_gp.py:119-130)
+                K = comp.corr(static["D"], alphas)
                 if static["W"] is not None:
                     K = K * static["W"]
             M = M + v * K
@@ -138,7 +146,7 @@ def report_matrices(assembly, theta_log):
                                 device=assembly.device).to(assembly.dtype)
         else:
             alphas = torch.exp(theta_log[off + 1: off + comp.num_cov_par])
-            R = comp.cov_fn.corr_from_dist(static["D"], alphas)
+            R = comp.corr(static["D"], alphas)
         if assembly._cluster_mask is not None:
             R = R * assembly._cluster_mask
         if comp.z is not None:

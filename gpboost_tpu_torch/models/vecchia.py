@@ -45,6 +45,7 @@ from .gaussian_base import GaussianEngineBase, chol
 from ..ops.batched_chol import cho_solve_batched
 from ..ops.cov_fcts import _safe_sqrt
 from ..ops.iterative import _cg
+from ..ops.neighbor_bags import bag_sums
 
 LATENT_CG_TOL = 1e-8
 LATENT_CG_MAXIT = 1000
@@ -63,15 +64,6 @@ def _corr_sets(cov_fn, cn, ci, alphas, d_nn=None, d_ni=None):
         d_ni = _safe_sqrt(((cn - ci[:, None, :]) ** 2).sum(-1))
     return cov_fn.corr_from_dist(d_nn, alphas), cov_fn.corr_from_dist(d_ni,
                                                                        alphas)
-
-
-def _bags(t, idx, offs, w):
-    """out[i] = sum of w[r] t[idx[r]] over bag i's slots r, t (n,) or
-    (n, k): a weighted `embedding_bag` sum, one thread an output, no
-    atomics."""
-    t2 = t if t.ndim == 2 else t.view(-1, 1)
-    return torch.embedding_bag(t2, idx, offs, False, 0, False, w, False,
-                               None)[0].view(t.shape)
 
 
 def _col(d, v):
@@ -173,11 +165,11 @@ class _JointBags:
 
     def a(self, t, w):
         """A t: out[i] = sum over row i's slots of w[r] t[idx[r]]."""
-        return _bags(t, self.idx, self.offs, w)
+        return bag_sums(t, self.idx, self.offs, w)
 
     def at(self, t, wt):
         """A' t for wt = w[t_order]."""
-        return _bags(t, self.t_rows, self.t_offs, wt)
+        return bag_sums(t, self.t_rows, self.t_offs, wt)
 
 
 class VecchiaGaussianEngine(GaussianEngineBase):

@@ -54,7 +54,8 @@ from .gaussian_gp import _dist
 from .grouped_re import SegmentSum
 from .laplace import (DELTA_CONV_MODE, MAXIT_MODE_NEWTON, LaplaceEngineBase,
                       _LaplaceNLL)
-from .vecchia import VecchiaGaussianEngine, _bags, _col
+from .vecchia import VecchiaGaussianEngine, _col
+from ..ops.neighbor_bags import NeighborBags, _At, _Att
 
 
 class _Permute(torch.autograd.Function):
@@ -487,13 +488,10 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
 # The matrix-free (iterative) path: no n x n matrix is formed.
 #
 # Q v = B'(D^-1 (B v)) with B = I - A, A the (n, m) neighbour coefficients;
-# A t and A' t act on a vector (n,) or on columns (n, k). Both are weighted
-# `embedding_bag` sums over fixed bags: A t over each row's m slots, A' t
-# over each point's slots of the transposed pattern, sorted once on the
-# host. One thread sums one output in the bag's order: no atomics, so
-# every evaluation, its gradient and the CG counts are deterministic.
-# `_At` and `_Att` carry the two products' gradients, each the other's
-# product for t (no scatter either).
+# A t and A' t act on a vector (n,) or on columns (n, k): weighted
+# `embedding_bag` sums over the neighbour pattern and its transpose
+# (ops/neighbor_bags.py), without atomics, so every evaluation, its
+# gradient and the CG counts are deterministic.
 #
 # Preconditioners (re_model_template.h:5859-5867) for the CG solves of
 # (Q + W):
@@ -521,51 +519,6 @@ _PRECONDITIONERS = ("vadu", "pivoted_cholesky", "vecchia_response",
                     "diagonal", "none")
 
 
-def _slot_products(t, g, eng):
-    """d/dA of g' (A t), (n, m): g[i] t[idx[i, j]] summed over columns."""
-    tg = t.index_select(0, eng._flat_idx).view(eng._idx_shape + t.shape[1:])
-    return g[:, None] * tg if t.ndim == 1 \
-        else torch.einsum("nk,nmk->nm", g, tg)
-
-
-class _At(torch.autograd.Function):
-    """A t over the engine's neighbour bags; backward: A' g for t, row
-    slots g[i] t[idx[i, j]] for A."""
-
-    @staticmethod
-    def forward(ctx, A, t, eng):
-        ctx.eng = eng
-        ctx.save_for_backward(A, t)
-        return eng._a_bags(t, A.reshape(-1))
-
-    @staticmethod
-    def backward(ctx, g):
-        A, t = ctx.saved_tensors
-        eng = ctx.eng
-        gA = _slot_products(t, g, eng) if ctx.needs_input_grad[0] else None
-        gt = _Att.apply(A, g, eng) if ctx.needs_input_grad[1] else None
-        return gA, gt, None
-
-
-class _Att(torch.autograd.Function):
-    """A' t over the transposed bags; backward: A g for t, slots
-    t[i] g[idx[i, j]] for A."""
-
-    @staticmethod
-    def forward(ctx, A, t, eng):
-        ctx.eng = eng
-        ctx.save_for_backward(A, t)
-        return eng._at_bags(t, eng._t_weights(A))
-
-    @staticmethod
-    def backward(ctx, g):
-        A, t = ctx.saved_tensors
-        eng = ctx.eng
-        gA = _slot_products(g, t, eng) if ctx.needs_input_grad[0] else None
-        gt = _At.apply(A, g, eng) if ctx.needs_input_grad[1] else None
-        return gA, gt, None
-
-
 class VecchiaLaplaceIterativeEngine(_VecchiaLaplaceBase):
     """Laplace-approximated NLL, gradients and prediction with the Vecchia
     latent precision, matrix-free: Newton with preconditioned CG solves,
@@ -587,21 +540,9 @@ class VecchiaLaplaceIterativeEngine(_VecchiaLaplaceBase):
                            vecchia_ordering, seed, dtype, weights,
                            cluster_ids, device)
         self.matrix_inversion_method = "iterative"
-        idx = self._vecchia._nn_idx
-        self._idx_shape = tuple(idx.shape)
-        self._flat_idx = idx.reshape(-1)
-        # the bags of B v and B'w: row i's slots [i m, (i + 1) m), and
-        # point l's slots of the transposed pattern, sorted once (their
-        # rows)
-        flat = idx.reshape(-1).cpu().numpy()
-        order = np.argsort(flat, kind="stable")
-        counts = np.bincount(flat, minlength=self.n)
-        m, dev = idx.shape[1], self.device
-        self._a_offs = torch.arange(0, flat.size, m, device=dev)
-        self._t_order = torch.as_tensor(order, device=dev)
-        self._t_rows = torch.as_tensor(order // m, device=dev)
-        self._t_offs = torch.as_tensor(
-            np.concatenate([[0], np.cumsum(counts)[:-1]]), device=dev)
+        # the bags of B v and B'w: row i's slots, and point l's slots of
+        # the transposed pattern, sorted once
+        self._nb = NeighborBags(self._vecchia._nn_idx_np, self.device)
         self._cg_acc = None
         self._coords_d = torch.as_tensor(self._vecchia.coords_ord,
                                          dtype=dtype, device=self.device)
@@ -641,46 +582,29 @@ class VecchiaLaplaceIterativeEngine(_VecchiaLaplaceBase):
 
     # ------------------------------------------------------------------
     # matrix-free Vecchia operators; v (n,) or columns (n, k)
-    def _a_bags(self, t, w):
-        """A t for A's slots w = A.reshape(-1), no graph; one column as a
-        gather and a row sum (the JAX package's order, and faster than
-        bags of width one)."""
-        if t.ndim == 1:
-            return torch.sum(w.view(self._idx_shape) * t.index_select(
-                0, self._flat_idx).view(self._idx_shape), 1)
-        return _bags(t, self._flat_idx, self._a_offs, w)
-
-    def _at_bags(self, t, wt):
-        """A' t for wt = `_t_weights(A)`, no graph."""
-        return _bags(t, self._t_rows, self._t_offs, wt)
-
-    def _t_weights(self, A):
-        """A's slots in the transposed bags' order."""
-        return A.reshape(-1).index_select(0, self._t_order)
-
     def _Bv(self, A, v):
-        return v - _At.apply(A, v, self)
+        return v - _At.apply(A, v, self._nb)
 
     def _Btv(self, A, w):
-        return w - _Att.apply(A, w, self)
+        return w - _Att.apply(A, w, self._nb)
 
     def _Qv(self, A, D, v):
         return self._Btv(A, self._Bv(A, v) / _col(D, v))
 
     def _diag_Q(self, A, D):
-        return 1.0 / D + _Att.apply(A * A, 1.0 / D, self)
+        return 1.0 / D + _Att.apply(A * A, 1.0 / D, self._nb)
 
     def _SJ(self, A, v):
         """S_J v, S_J = I + A + ... + A^J ~= B^-1 (no graph)."""
         w, t = A.reshape(-1), v
         for _ in range(NEUMANN_J):
-            t = v + self._a_bags(t, w)
+            t = v + self._nb._a_bags(t, w)
         return t
 
     def _SJt(self, A, w):
-        wt, t = self._t_weights(A), w
+        wt, t = self._nb._t_weights(A), w
         for _ in range(NEUMANN_J):
-            t = w + self._at_bags(t, wt)
+            t = w + self._nb._at_bags(t, wt)
         return t
 
     def _count_cg(self, it, maxit=None):

@@ -11,6 +11,11 @@ Only the closed forms are ported: exponential, and matern with shape 0.5,
 alpha = c / rho with c = 1, sqrt(3), sqrt(5) for the three shapes. Any other
 kernel (or a general matern shape, which needs the Bessel-K path) raises
 NotImplementedError. Gradients come from torch.autograd.
+
+"wendland" is only the compact-support taper of the tapering
+approximations (`_wendland_taper`, cov_fcts.h:1957-1986), with
+taper_range, taper_shape 0, 1 or 2 and the smoothness
+taper_mu = (1 + dim)/2 + taper_shape + 0.5 (re_comp.h:1812 GetTaperMu).
 """
 
 import math
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 SUPPORTED_COV_FUNCTIONS = ("exponential", "matern")
+_TAPER = "wendland"
 
 
 def _safe_sqrt(s):
@@ -31,8 +37,9 @@ def _safe_sqrt(s):
 class CovarianceFunction:
     """One isotropic GP correlation function (variance excluded)."""
 
-    def __init__(self, cov_fct_type, shape=None, dim=None):
-        if cov_fct_type not in SUPPORTED_COV_FUNCTIONS:
+    def __init__(self, cov_fct_type, shape=None, dim=None, taper_range=1.0,
+                 taper_shape=1.0, taper_mu=2.0):
+        if cov_fct_type not in SUPPORTED_COV_FUNCTIONS + (_TAPER,):
             raise NotImplementedError(
                 f"cov_function '{cov_fct_type}' is not ported yet "
                 f"(supported: {SUPPORTED_COV_FUNCTIONS})")
@@ -45,7 +52,11 @@ class CovarianceFunction:
         self.cov_fct_type = cov_fct_type
         self.shape = shape
         self.dim = dim
+        self.taper_range = taper_range
+        self.taper_shape = taper_shape
+        self.taper_mu = taper_mu
 
+    is_isotropic = True
     num_range_par = 1
 
     @property
@@ -81,3 +92,21 @@ class CovarianceFunction:
         if abs(self.shape - 1.5) < 1e-10:
             return (1.0 + rd) * torch.exp(-rd)
         return (1.0 + rd + rd * rd / 3.0) * torch.exp(-rd)
+
+    def _wendland_taper(self, D):
+        """Compact-support Wendland correlation (cov_fcts.h:1957-1986)."""
+        x = D / self.taper_range
+        one_minus = torch.clamp_min(1.0 - x, 0.0)
+        mu = self.taper_mu
+        if abs(self.taper_shape - 0.0) < 1e-10:
+            val = torch.pow(one_minus, mu)
+        elif abs(self.taper_shape - 1.0) < 1e-10:
+            val = torch.pow(one_minus, mu + 1.0) * (1.0 + x * (mu + 1.0))
+        elif abs(self.taper_shape - 2.0) < 1e-10:
+            val = torch.pow(one_minus, mu + 2.0) * (
+                1.0 + x * (mu + 2.0) + x * x * (mu * mu + 4.0 * mu + 3.0)
+                / 3.0)
+        else:
+            raise NotImplementedError(
+                f"wendland taper_shape {self.taper_shape}")
+        return torch.where(x < 1.0, val, torch.zeros_like(val))

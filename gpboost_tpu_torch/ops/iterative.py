@@ -334,23 +334,27 @@ class _CGSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, b, *p):
-        matvec, precond_of_p, tol, maxit = spec
+        matvec, precond_of_p, tol, maxit, count = spec
         pre = None if precond_of_p is None else precond_of_p(p)
-        x = pcg(lambda v: matvec(p, v), b, precond=pre, tol=tol,
-                maxit=maxit)
+        x, it = pcg_it(lambda v: matvec(p, v), b, precond=pre, tol=tol,
+                       maxit=maxit)
+        if count is not None:
+            count(it, maxit)
         ctx.spec = spec
         ctx.save_for_backward(x, *p)
         return x
 
     @staticmethod
     def backward(ctx, ct):
-        matvec, precond_of_p, tol, maxit = ctx.spec
+        matvec, precond_of_p, tol, maxit, count = ctx.spec
         x, *p = ctx.saved_tensors
         need = ctx.needs_input_grad[2:]
         with torch.no_grad():
             pre = None if precond_of_p is None else precond_of_p(p)
-            lam = pcg(lambda v: matvec(p, v), ct, precond=pre, tol=tol,
-                      maxit=maxit)
+            lam, it = pcg_it(lambda v: matvec(p, v), ct, precond=pre,
+                             tol=tol, maxit=maxit)
+            if count is not None:
+                count(it, maxit)
         gp = [None] * len(p)
         if any(need):
             with torch.enable_grad():
@@ -364,15 +368,18 @@ class _CGSolve(torch.autograd.Function):
         return (None, lam) + tuple(gp)
 
 
-def make_cg_solve_precond(matvec_of_p, precond_of_p, tol=1e-6, maxit=1000):
+def make_cg_solve_precond(matvec_of_p, precond_of_p, tol=1e-6, maxit=1000,
+                          count=None):
     """solve(p, b) = A(p)^-1 b for a tuple of parameter tensors p, with a
     P-preconditioned CG (precond_of_p(p) -> r -> P^-1 r) and the implicit
-    gradient (CG_utils.h:505 with re_model_template.h's gradients)."""
-    spec = (matvec_of_p, precond_of_p, tol, maxit)
+    gradient (CG_utils.h:505 with re_model_template.h's gradients);
+    count(it, maxit), when given, receives the per-column CG iterations of
+    every solve, forward and adjoint."""
+    spec = (matvec_of_p, precond_of_p, tol, maxit, count)
     return lambda p, b: _CGSolve.apply(spec, b, *p)
 
 
 def make_cg_solve(matvec_of_theta, tol=1e-6, maxit=1000):
     """solve(theta, b) = A(theta)^-1 b with the implicit gradient."""
-    spec = (lambda p, v: matvec_of_theta(p[0], v), None, tol, maxit)
+    spec = (lambda p, v: matvec_of_theta(p[0], v), None, tol, maxit, None)
     return lambda theta, b: _CGSolve.apply(spec, b, theta)

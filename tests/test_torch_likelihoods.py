@@ -252,6 +252,10 @@ def test_port_never_imports_jax(path):
 
 def test_import_check_covers_the_slice_modules():
     """The AST check above reaches every module of the port by its glob,
-    the Laplace slices' engines among them."""
-    for mod in ("laplace", "grouped_laplace", "vecchia_laplace"):
-        assert f"gpboost_tpu_torch/models/{mod}.py" in _PORT_FILES
+    the Laplace slices' engines and the approximation engines and
+    adapters among them."""
+    for mod in ("models/laplace", "models/grouped_laplace",
+                "models/vecchia_laplace", "models/fitc",
+                "models/fitc_laplace", "models/fsa_iterative",
+                "models/fsva_iterative", "ops/taper", "ops/neighbor_bags"):
+        assert f"gpboost_tpu_torch/{mod}.py" in _PORT_FILES

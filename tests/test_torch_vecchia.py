@@ -182,7 +182,9 @@ def test_lbfgs_fit_matches(data):
 
 @pytest.mark.parametrize("kwargs", [
     dict(cov_function="gaussian"), dict(cov_fct_shape=1.0),
-    dict(gp_approx="fitc"),
+    # FITC is ported (tests/test_torch_fitc.py); a Vecchia GP with grouped
+    # random effects (the combined engine) is not
+    dict(group_data=np.arange(N) % 5),
     dict(likelihood="bernoulli_probit", matrix_inversion_method="iterative",
          cluster_ids=np.zeros(N)),
     # cluster_ids are ported (tests/test_torch_vecchia_pred.py); GP random

@@ -36,6 +36,7 @@ from gpboost_tpu_torch.convert import (booster_from_jax_dict,
                                        gp_model_from_jax_dict)
 from gpboost_tpu_torch.likelihoods.base import get_likelihood as port_lik
 from gpboost_tpu_torch.models.components import GPComponent
+from gpboost_tpu_torch.models.fitc_laplace import FITCLaplaceEngine
 from gpboost_tpu_torch.models.vecchia_laplace import VecchiaLaplaceEngine
 from gpboost_tpu_torch.ops.cov_fcts import CovarianceFunction
 
@@ -421,5 +422,7 @@ def test_unported_parts_raise():
         VecchiaLaplaceEngine(
             [GPComponent(coords, CovarianceFunction("exponential"))], 50,
             lik, device="cpu")
-    with pytest.raises(NotImplementedError, match="FITC"):
-        gpt.GPModel(**{**kw, "gp_approx": "fitc"})
+    # gp_approx="fitc" takes the FITC-Laplace engine (tests/test_torch_
+    # fitc.py holds it to the JAX package)
+    assert isinstance(gpt.GPModel(**{**kw, "gp_approx": "fitc"})._engine,
+                      FITCLaplaceEngine)
