@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phases 23-26 [--vlb-maxit 0]
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
-                                     # 24, 25, 26 each alone, 27-29, 30-32
-                                     # and 33-35); no result lines
+                                     # 24, 25, 26 each alone, 27-29, 30-32,
+                                     # 33-35 and 36-38); no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -258,7 +258,36 @@ Phases; any failure exits non-zero and prints no result line:
      range 0.02, shape 1, 100 inducing points) and full-scale Vecchia
      (100 inducing points, 30 neighbours) fits at n = 20,000 (lbfgs,
      maxit 20): kmeans++, seconds, iterations, host syncs, peak memory,
-     CG solves, iterations and those at cg_max_num_it.
+     CG solves, iterations and those at cg_max_num_it;
+ 36. the combined Vecchia GP + grouped random effects engine at full
+     width: binary LaGaBoost on sim_combined (n = 50,000 rows on 10,000
+     sites, q = 1,000 groups, seed 4; bernoulli_probit, exponential, 20
+     neighbours, float64, "auto" = the iterative formulation, vadu; 31
+     leaves, learning rate 0.1) for 3 rounds with the GP model's first fit
+     capped at 5 iterations (phase 25's cut): the fit's seconds,
+     iterations, Newton steps, CG iterations and solves at cg_max_num_it,
+     host syncs and peak device memory; seconds a round and each round's
+     GD refit, the device busy share of one gradient, hist_segment launches
+     (must be positive); then 1,000 predictions with variances, half in
+     unseen groups (whose latent variance must be the larger);
+ 37. GPBoost with a Gaussian response on the combined model (LaGaBoost
+     over gaussian_latent, iterative) at n = 20,000: the first fit capped
+     at 3 iterations, then 2 rounds with the parameters held
+     (train_gp_model_cov_pars False), hist_segment launches (must be
+     positive);
+     the dense and the iterative formulation at
+     n = 2,000 (NLL within 5e-3 relative); two crossed groupings
+     (q = 1,000 and 200) at n = 20,000: ssor's Newton CG iterations no more
+     than vadu's, NLLs to 1e-4; an exact GP with a grouped effect, gamma,
+     n = 2,000, on the dense Laplace engine (maxit 20);
+ 38. card against CPU, float64, relative 1e-8: the combined engine's dense
+     formulation (gamma) and iterative one (probit, the same probes) at
+     n = 1,000 (NLL, g_u, g_F, Newton steps, CG iterations, predictions
+     with variances; the iterative variances, a batched CG, to 1e-6), the
+     exact GP with a grouped effect (probit,
+     n = 500), a Gaussian Vecchia Newton fit (n = 1,000, iterations
+     equal), one combined LaGaBoost round (n = 1,000; the init score and
+     the first fit to 1e-8, then phase 12's rule).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3834,10 +3863,436 @@ def phase_taper(torch, gpt):
               flush=True)
 
 
+# ----------------------------------------------------------------------
+# phases 36-38: the combined Vecchia GP + grouped random effects engine
+N_CB, SITES_CB, Q_CB, Q_CB2, MAXIT_CB, ROUNDS_CB = \
+    50_000, 10_000, 1_000, 200, 5, 3
+N_CB_GAUSS, MAXIT_CB_GAUSS, ROUNDS_CB_GAUSS = 20_000, 3, 2
+N_CB_SMALL, N_CB_CPU, N_CB_EXACT_CPU = 2_000, 1_000, 500
+CB_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
+            "num_neighbors": M_VL}
+
+
+def sim_combined(n, n_sites, q, seed=SEED_VLB, q2=None):
+    """sim_lagab's latent predictor on n rows at n_sites sites (5 rows a
+    site at the default sizes) plus a grouped effect of q levels, probit;
+    with q2 a second, crossed grouping from a stream of its own (seed + 1),
+    so that the first stream's draws stay those of one grouping. Returns
+    (coords, groups (n,) or (n, 2), X, latent, y)."""
+    from scipy.stats import norm
+    rng = np.random.RandomState(seed)
+    sites = rng.rand(n_sites, 2)
+    coords = sites[rng.randint(0, n_sites, n)]
+    group = rng.randint(0, q, n)
+    b = 0.7 * rng.randn(q)
+    X = rng.rand(n, P_VLB)
+    lat = (np.sin(3 * X[:, 0]) + X[:, 1] ** 2 - 1.0
+           + 0.8 * np.sin(6 * coords[:, 0]) * np.cos(4 * coords[:, 1])
+           + b[group])
+    if q2 is not None:
+        rng2 = np.random.RandomState(seed + 1)
+        group2 = rng2.randint(0, q2, n)
+        lat = lat + 0.5 * rng2.randn(q2)[group2]
+        group = np.c_[group, group2]
+    y = (rng.rand(n) < norm.cdf(lat)).astype(float)
+    return coords, group, X, lat, y
+
+
+def _combined_pred_points(q, n_pred, seed=SEED_VLB + 1):
+    """n_pred new points in the unit square, half in groups of the
+    training data, half in unseen ones (codes q and above)."""
+    rng = np.random.RandomState(seed)
+    cn, Xn = rng.rand(n_pred, 2), rng.rand(n_pred, P_VLB)
+    gn = np.where(np.arange(n_pred) < n_pred // 2,
+                  rng.randint(0, q, n_pred), q + rng.randint(0, 50, n_pred))
+    return cn, Xn, gn
+
+
+def phase_combined(torch, gpt, histogram):
+    """Binary LaGaBoost over the combined model at full width: sim_combined
+    n = 50,000 rows on 10,000 sites, q = 1,000 groups, bernoulli_probit,
+    exponential, 20 neighbours, float64, "auto" (the iterative formulation
+    above n = 8,000), vadu; 31 leaves, learning rate 0.1, 3 rounds, the GP
+    model's first fit capped at 5 iterations (phase 25's cut). The first
+    fit's seconds, iterations, Newton steps, CG iterations and solves at
+    cg_max_num_it, host syncs and peak device memory; seconds a round with
+    each round's GD refit, the device busy share of one gradient in F,
+    hist_segment
+    launches (must be positive); then 1,000 predictions with variances,
+    half in unseen groups. Returns hist_segment's launches over the 3
+    rounds."""
+    from gpboost_tpu_torch.models.vecchia_grouped import \
+        VecchiaGroupedLaplaceEngine
+    coords, group, X, _, y = sim_combined(N_CB, SITES_CB, Q_CB)
+    gp = gpt.GPModel(gp_coords=coords, group_data=group,
+                     likelihood="bernoulli_probit", dtype="float64",
+                     device="cuda", **CB_MODEL)
+    eng = gp._engine
+    if not (isinstance(eng, VecchiaGroupedLaplaceEngine)
+            and eng.matrix_inversion_method == "iterative"
+            and eng.cg_preconditioner_type == "vadu"):
+        raise AssertionError(f"combined: engine {type(eng).__name__} "
+                             f"{eng.matrix_inversion_method}")
+    gp.set_optim_params(params={"maxit": MAXIT_CB})
+    fit, rec = gp.fit, {}
+
+    def timed_fit(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.cg_stats(reset=True)
+        newton0 = getattr(eng, "total_num_mode_it", 0)
+        t = time.perf_counter()
+        out, rec["syncs"] = _count_syncs(torch, lambda: fit(*args, **kwargs))
+        torch.cuda.synchronize()
+        rec["secs"] = time.perf_counter() - t
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["cg"] = eng.cg_stats(reset=True)
+        rec["newton"] = eng.total_num_mode_it - newton0
+        return out
+
+    _reset_launches(histogram)
+    gp.fit = timed_fit
+    with _RefitLog(torch) as log:
+        t0 = time.perf_counter()
+        bst = gpt.Booster(VLB, gpt.Dataset(X, label=y), gp_model=gp,
+                          device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        secs = []
+        for _ in range(ROUNDS_CB):
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    gp.fit = fit
+    secs[0] -= rec["secs"]
+    launches = histogram.hist_segment.launches
+    cg_rounds = eng.cg_stats(reset=True)
+    r = gp._fit_result
+    # a round's trace is too long to hold (its CG loops): the busy share
+    # of one gradient in F, the work of a round's refit evaluations
+    u = eng._u_from_pars(r.cov_pars, r.aux_pars, gp.y)
+    busy, wall, _ = _device_busy_s(torch, lambda: eng.vag_F_device(
+        u, bst.y, bst.F, r.mode_state, value=False))
+    eng.cg_stats(reset=True)
+    for line in log.lines():
+        print(f"[combined lagaboost] {line}", flush=True)
+    cn, Xn, gn = _combined_pred_points(Q_CB, n_pred=N_PRED)
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, gp_coords_pred=cn, group_data_pred=gn,
+                       predict_var=True)
+    pred_s = time.perf_counter() - t0
+    cg_pred = eng.cg_stats(reset=True)
+    for k in ("response_mean", "response_var", "random_effect_var"):
+        _finite(f"combined {k}", pred[k], (N_PRED,), positive=True)
+    if not np.all(pred["response_mean"] < 1):
+        raise AssertionError("combined: probabilities outside (0, 1)")
+    new = gn >= Q_CB
+    # an unseen group adds its prior variance to the latent variance
+    v_new = float(np.mean(pred["random_effect_var"][new]))
+    v_old = float(np.mean(pred["random_effect_var"][~new]))
+    cov = gp.get_cov_pars()
+    at_maxit = rec["cg"]["at_maxit"] + cg_rounds["at_maxit"] \
+        + cg_pred["at_maxit"]
+    if not (np.all(np.isfinite(cov)) and np.all(cov > 0) and launches > 0
+            and at_maxit == 0 and v_new > v_old):
+        raise AssertionError(
+            f"combined lagaboost: cov pars {cov}, {launches} hist_segment "
+            f"launches, {at_maxit} CG solves at cg_max_num_it, latent "
+            f"variance new groups {v_new} vs seen {v_old}")
+    print(f"[combined fit] n={N_CB} sites={SITES_CB} (n_u={eng.n_u}) "
+          f"q={Q_CB} m={M_VL} bernoulli_probit iterative vadu float64, the "
+          f"booster's first GP fit (maxit {MAXIT_CB}): {rec['secs']:.3f} s, "
+          f"{gp.get_num_optim_iter()} iterations ({r.optimizer}), "
+          f"{rec['newton']} Newton steps, CG {rec['cg']['iterations']} "
+          f"iterations in {rec['cg']['solves']} solved columns "
+          f"({rec['cg']['at_maxit']} at cg_max_num_it), {rec['syncs']} host "
+          f"syncs, peak device memory {rec['peak'] / 2 ** 30:.2f} GiB",
+          flush=True)
+    print(f"[combined lagaboost] {ROUNDS_CB} rounds, 31 leaves: booster "
+          f"with init score {init_s:.3f} s (includes the fit); per round "
+          f"{', '.join(f'{x:.3f}' for x in secs)} s; device busy over one "
+          f"gradient {_busy_txt(busy, wall)}; CG over the rounds "
+          f"{cg_rounds['iterations']} iterations in {cg_rounds['solves']} "
+          f"columns ({cg_rounds['at_maxit']} at maxit); cov pars "
+          f"{cov.tolist()}; hist_segment launches {launches}", flush=True)
+    print(f"[combined predict] {N_PRED} points, {int(new.sum())} in unseen "
+          f"groups, with variances: {pred_s:.3f} s, CG "
+          f"{cg_pred['iterations']} iterations in {cg_pred['solves']} "
+          f"columns; mean latent variance unseen groups {v_new:.4f}, seen "
+          f"{v_old:.4f}", flush=True)
+    return launches
+
+
+def _cb_nll(gpt, coords, group, y, pars, device, **kw):
+    """(NLL at pars, engine) of a combined model."""
+    gp = gpt.GPModel(gp_coords=coords, group_data=group, device=device,
+                     **{**CB_MODEL, "likelihood": "bernoulli_probit", **kw})
+    return gp.neg_log_likelihood(pars, y), gp._engine
+
+
+def phase_combined_more(torch, gpt, histogram):
+    """GPBoost with a Gaussian response on the combined model at
+    n = 20,000 (LaGaBoost over gaussian_latent, iterative; the first fit
+    capped at 3 iterations, then 2 rounds with the parameters held); the
+    dense and the iterative
+    formulation at n = 2,000 (NLL within 5e-3 relative, the SLQ's bound);
+    two crossed groupings (q = 1,000 and 200) at n = 20,000, where ssor
+    takes no more CG iterations than vadu and the NLLs agree to 1e-4; the
+    exact GP with a grouped effect, gamma, at n = 2,000 on the dense
+    Laplace engine. Returns hist_segment's launches over the GPBoost
+    rounds."""
+    coords, group, X, lat, _ = sim_combined(N_CB_GAUSS, N_CB_GAUSS // 5,
+                                            Q_CB)
+    yg = lat + 0.5 * np.random.RandomState(SEED_VLB + 3).randn(N_CB_GAUSS)
+    gp = gpt.GPModel(gp_coords=coords, group_data=group, device="cuda",
+                     **CB_MODEL)
+    gp.set_optim_params(params={"maxit": MAXIT_CB_GAUSS})
+    eng = gp._engine
+    fit, fit_s = gp.fit, []
+
+    def timed_fit(*args, **kwargs):
+        t = time.perf_counter()
+        out = fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t)
+        return out
+
+    gp.fit = timed_fit
+    _reset_launches(histogram)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the parameters are held after the first fit: a Gaussian response's
+    # GD refit takes ~47 s a round here (142 CG iterations a column);
+    # phases 36 and 38 run the combined engine's refit
+    bst = gpt.Booster({**VLB, "objective": "regression",
+                       "train_gp_model_cov_pars": False},
+                      gpt.Dataset(X, label=yg), gp_model=gp, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(ROUNDS_CB_GAUSS):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    gp.fit = fit
+    secs[0] -= fit_s[0]
+    launches = histogram.hist_segment.launches
+    cg = eng.cg_stats(reset=True)
+    aux = gp.get_aux_pars()
+    if not (gp.likelihood == bst.objective_name == "gaussian_latent"
+            and eng.matrix_inversion_method == "iterative"
+            and np.all(gp.get_cov_pars() > 0) and aux[0] > 0
+            and cg["at_maxit"] == 0 and launches > 0):
+        raise AssertionError(f"combined gaussian: {gp.likelihood}, cov "
+                             f"{gp.get_cov_pars()}, aux {aux}, CG {cg}, "
+                             f"{launches} hist_segment launches")
+    print(f"[combined gpboost] n={N_CB_GAUSS} (n_u={eng.n_u}) q={Q_CB} "
+          f"Gaussian as gaussian_latent, iterative float64, 31 leaves, "
+          f"parameters held after the first fit: "
+          f"booster with init score {init_s:.3f} s, first GP fit (maxit "
+          f"{MAXIT_CB_GAUSS}) {fit_s[0]:.3f} s, "
+          f"{gp.get_num_optim_iter()} iterations; per round "
+          f"{', '.join(f'{x:.3f}' for x in secs)} s; {eng.total_num_mode_it} "
+          f"Newton steps and CG {cg['iterations']} iterations in "
+          f"{cg['solves']} columns over the run; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; cov pars "
+          f"{gp.get_cov_pars().tolist()} (names {gp.get_cov_par_names()}), "
+          f"error variance {aux[0]:.5f} (simulated 0.25); hist_segment "
+          f"launches {launches}", flush=True)
+    coords, group, _, _, y = sim_combined(N_CB_SMALL, N_CB_SMALL // 5, 50)
+    pars = [0.5, 1.0, 0.1]
+    nd, _ = _cb_nll(gpt, coords, group, y, pars, "cuda",
+                    matrix_inversion_method="cholesky")
+    ni, ei = _cb_nll(gpt, coords, group, y, pars, "cuda",
+                     matrix_inversion_method="iterative")
+    rel = abs(ni / nd - 1.0)
+    if not rel < 5e-3:
+        raise AssertionError(f"combined dense {nd} vs iterative {ni}")
+    print(f"[combined dense-vs-iterative] n={N_CB_SMALL} q=50: NLL dense "
+          f"{nd:.6f}, iterative {ni:.6f} ({ei.num_rand_vec_trace} probes), "
+          f"relative {rel:.3g} (bound 5e-3)", flush=True)
+    coords, group, _, _, y = sim_combined(N_CB_GAUSS, N_CB_GAUSS // 5, Q_CB,
+                                          q2=Q_CB2)
+    pars = [0.5, 0.25, 1.0, 0.1]
+    out = {}
+    for pc in ("vadu", "ssor"):
+        gp = gpt.GPModel(gp_coords=coords, group_data=group, device="cuda",
+                         likelihood="bernoulli_probit", **CB_MODEL)
+        gp.set_optim_params({"cg_preconditioner_type": pc})
+        e = gp._engine
+        t0 = time.perf_counter()
+        nll = gp.neg_log_likelihood(pars, y)
+        out[pc] = (nll, e.cg_stats(reset=True), e.last_num_mode_it,
+                   time.perf_counter() - t0)
+    (nv, cv, sv, tv), (ns, cs, ss, ts) = out["vadu"], out["ssor"]
+    if not (abs(ns / nv - 1.0) < 1e-4 and cs["iterations"]
+            <= cv["iterations"]):
+        raise AssertionError(f"combined crossed: vadu {out['vadu']}, ssor "
+                             f"{out['ssor']}")
+    print(f"[combined crossed] n={N_CB_GAUSS} q={Q_CB}+{Q_CB2} iterative: "
+          f"NLL vadu {nv:.6f}, ssor {ns:.6f} (relative "
+          f"{abs(ns / nv - 1.0):.3g}); Newton CG iterations vadu "
+          f"{cv['iterations']} ({sv} steps), ssor {cs['iterations']} "
+          f"({ss} steps); {tv:.3f} s and {ts:.3f} s", flush=True)
+    rng = np.random.RandomState(SEED_VLB + 4)
+    c2 = rng.rand(N_CB_SMALL, 2)
+    g2 = rng.randint(0, 50, N_CB_SMALL)
+    f = np.sin(6 * c2[:, 0]) * np.cos(4 * c2[:, 1]) + 0.5 * rng.randn(50)[g2]
+    yg = rng.gamma(2.0, np.exp(f) / 2.0)
+    gm = gpt.GPModel(gp_coords=c2, group_data=g2, likelihood="gamma",
+                     cov_function="exponential", device="cuda")
+    t0 = time.perf_counter()
+    gm.fit(y=yg, params={"maxit": 20})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cov = gm.get_cov_pars()
+    if not (type(gm._engine).__name__ == "LaplaceDenseEngine"
+            and np.all(cov > 0) and np.all(np.isfinite(gm.get_aux_pars()))):
+        raise AssertionError(f"exact GP + grouped gamma: {cov}")
+    print(f"[exact gp + grouped gamma] n={N_CB_SMALL} q=50 exponential, the "
+          f"dense Laplace engine, float64, maxit 20: {secs:.3f} s, "
+          f"{gm.get_num_optim_iter()} iterations, cov pars {cov.tolist()}, "
+          f"shape {gm.get_aux_pars().tolist()}", flush=True)
+    return launches
+
+
+def _rel_errs(a, b):
+    """max relative differences of matching entries of two tuples."""
+    return [float(np.max(np.abs(np.asarray(x) - np.asarray(y)))
+                  / max(np.max(np.abs(np.asarray(y))), 1e-300))
+            for x, y in zip(a, b)]
+
+
+def phase_combined_card_vs_cpu(torch, gpt):
+    """Card against CPU, float64, relative 1e-8: the combined engine's
+    dense formulation (gamma, n = 1,000) and its iterative one (probit,
+    n = 1,000, the same SLQ probes): NLL, g_u, g_F, Newton steps and CG
+    iterations equal, predictions with variances (the iterative ones, a
+    batched CG at tol 1e-6, to 1e-6 as phase 27's latent CG); the exact
+    GP with a
+    grouped effect on the dense Laplace engine (probit, n = 500); a
+    Gaussian Vecchia Newton fit (n = 1,000): iterations equal, parameters;
+    one combined LaGaBoost round (n = 1,000) with the default GD refit:
+    the init score and the first fit (before the tree) to 1e-8, then
+    phase 12's rule for the tree, the refitted parameters, the training
+    score and the predictions (1e-4)."""
+    coords, group, X, lat, y = sim_combined(N_CB_CPU, N_CB_CPU // 5, 20)
+    yg = np.random.RandomState(SEED_VLB + 5).gamma(2.0, np.exp(lat) / 2.0)
+    F = 0.3 * np.sin(np.arange(N_CB_CPU))
+    cn, Xn, gn = _combined_pred_points(20, n_pred=50)
+    cases = (("dense gamma", "gamma", "cholesky", yg, [0.5, 1.0, 0.1]),
+             ("iterative probit", "bernoulli_probit", "iterative", y,
+              [0.5, 1.0, 0.1]))
+    for what, lik, mim, yy, pars in cases:
+        ev, t0 = {}, time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            gp = gpt.GPModel(gp_coords=coords, group_data=group, device=dev,
+                             **{**CB_MODEL, "likelihood": lik,
+                                "matrix_inversion_method": mim})
+            eng = gp._engine
+            u = eng._u_from_pars(pars, None, yy)
+            nll, gu, gF, _ = eng.laplace_vag_F(u, yy, F, eng.zero_mode())
+            gp.set_optim_params(params={"init_aux_pars": [2.0]}
+                                if lik == "gamma" else {})
+            p = gp.predict(y=yy, cov_pars=pars, gp_coords_pred=cn,
+                           group_data_pred=gn, predict_var=True,
+                           predict_response=False)
+            ev[dev] = ((nll, gu, gF, p["mu"], p["var"]),
+                       (eng.last_num_mode_it,
+                        getattr(eng, "last_num_cg_it", None)))
+        errs = _rel_errs(ev["cuda"][0], ev["cpu"][0])
+        # the iterative variances come from a batched CG (tol 1e-6), held
+        # to 1e-6 as phase 27's latent CG
+        lims = [1e-8] * 4 + [1e-6 if mim == "iterative" else 1e-8]
+        if not (all(e < lim for e, lim in zip(errs, lims))
+                and ev["cuda"][1] == ev["cpu"][1]):
+            raise AssertionError(f"combined {what} card vs CPU: {errs}, "
+                                 f"(Newton, CG) {ev['cuda'][1]} vs "
+                                 f"{ev['cpu'][1]}")
+        print(f"[combined card-vs-cpu] {what} n={N_CB_CPU} float64: max "
+              f"relative " + ", ".join(f"{k} {v:.3g}" for k, v in zip(
+                  ("nll", "g_u", "g_F", "mu", "var"), errs))
+              + f"; (Newton steps, CG iterations) {ev['cuda'][1]} both; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    c5, g5 = coords[:N_CB_EXACT_CPU], group[:N_CB_EXACT_CPU]
+    ev, t0 = {}, time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        gp = gpt.GPModel(gp_coords=c5, group_data=g5, device=dev,
+                         likelihood="bernoulli_probit",
+                         cov_function="exponential")
+        eng = gp._engine
+        u = eng._u_from_pars([0.5, 1.0, 0.1], None, y[:N_CB_EXACT_CPU])
+        nll, gu, gF, _ = eng.laplace_vag_F(u, y[:N_CB_EXACT_CPU],
+                                           F[:N_CB_EXACT_CPU],
+                                           eng.zero_mode())
+        p = gp.predict(y=y[:N_CB_EXACT_CPU], cov_pars=[0.5, 1.0, 0.1],
+                       gp_coords_pred=cn, group_data_pred=gn,
+                       predict_var=True, predict_response=False)
+        ev[dev] = (nll, gu, gF, p["mu"], p["var"])
+    errs = _rel_errs(ev["cuda"], ev["cpu"])
+    if not max(errs) < 1e-8:
+        raise AssertionError(f"exact GP + grouped card vs CPU: {errs}")
+    print(f"[exact gp + grouped card-vs-cpu] probit n={N_CB_EXACT_CPU}: max "
+          f"relative " + ", ".join(f"{k} {v:.3g}" for k, v in zip(
+              ("nll", "g_u", "g_F", "mu", "var"), errs))
+          + f"; {time.perf_counter() - t0:.3f} s", flush=True)
+    cv, yv = sim_vecchia(N_CB_CPU, seed=SEED)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        m = gpt.GPModel(gp_coords=cv, cov_function="exponential",
+                        gp_approx="vecchia", num_neighbors=M_VL, device=dev)
+        t0 = time.perf_counter()
+        m.fit(y=yv, params={"optimizer_cov": "newton"})
+        fits[dev] = (m.get_cov_pars(), m.get_num_optim_iter(),
+                     m.get_current_neg_log_likelihood(),
+                     time.perf_counter() - t0)
+    (cg_, ig, ng, tg), (cc, ic, nc, tc) = fits["cuda"], fits["cpu"]
+    rel = float(np.max(np.abs(cg_ / cc - 1.0)))
+    if not (rel < 1e-8 and ig == ic and abs(ng / nc - 1.0) < 1e-8):
+        raise AssertionError(f"vecchia newton card {cg_} ({ig}) cpu {cc} "
+                             f"({ic})")
+    print(f"[vecchia newton card-vs-cpu] sim_vecchia n={N_CB_CPU} m={M_VL} "
+          f"float64, optimizer_cov newton: {ig} iterations both, cov pars "
+          f"max rel diff {rel:.3g}, nll {ng:.8f}; card {tg:.3f} s, cpu "
+          f"{tc:.3f} s", flush=True)
+    runs, t0 = {}, time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        gp = gpt.GPModel(gp_coords=coords, group_data=group, device=dev,
+                         likelihood="bernoulli_probit", **CB_MODEL)
+        gp.set_optim_params(params={"maxit": MAXIT_CB})
+        fit, first = gp.fit, []
+
+        def kept_fit(*args, _fit=fit, _gp=gp, _first=first, **kwargs):
+            out = _fit(*args, **kwargs)
+            _first.append(_gp.get_cov_pars())
+            return out
+
+        gp.fit = kept_fit
+        bst = gpt.Booster(VLB, gpt.Dataset(X, label=y), gp_model=gp,
+                          device=dev)
+        bst.update()
+        gp.fit = fit
+        runs[dev] = (bst, gp, (bst.init_score, first[0]))
+    (bg, gg, fg), (bc, gc, fc) = runs["cuda"], runs["cpu"]
+    errs = _rel_errs(fg, fc)
+    if not max(errs) < 1e-8:
+        raise AssertionError(f"combined lagaboost card vs CPU: init score "
+                             f"and first fit {errs}")
+    txt = _card_cpu_boosters("combined lagaboost card-vs-cpu", bc, bg, gc,
+                             gg, Xn[:50], dict(gp_coords_pred=cn,
+                                               group_data_pred=gn))
+    print(f"[combined lagaboost card-vs-cpu] n={N_CB_CPU} q=20 "
+          f"bernoulli_probit cholesky, 1 round with its GD refit: init score "
+          f"and first fit's cov pars max rel diff {max(errs):.3g}; {txt}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
-          (25, 25), (26, 26), (27, 29), (30, 32), (33, 35))
+          (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38))
 
 
 def _groups(spec):
@@ -3967,6 +4422,15 @@ def main(argv=None):
         phase_taper(torch, gpt)
         print(f"[approximations] phases 33-35 in "
               f"{time.perf_counter() - t_a:.1f} s", flush=True)
+    if (36, 38) in groups:
+        t_c = time.perf_counter()
+        segment["launches_lagaboost_combined_n50k"] = phase_combined(
+            torch, gpt, histogram)
+        segment["launches_gpboost_combined_n20k"] = phase_combined_more(
+            torch, gpt, histogram)
+        phase_combined_card_vs_cpu(torch, gpt)
+        print(f"[combined] phases 36-38 in "
+              f"{time.perf_counter() - t_c:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

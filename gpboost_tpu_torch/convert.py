@@ -22,10 +22,11 @@ def gp_model_from_jax_dict(d, device=None):
     `predict` on `device` (default: the first CUDA card). Gaussian models
     with grouped random effects, an exact GP (alone or with grouped random
     effects), a Vecchia GP or a GP under FITC, tapering, full-scale
-    tapering or full-scale Vecchia, and models of the 16 likelihoods of
-    likelihoods/base.py with grouped random effects or one GP (exact,
-    Vecchia, FITC or a tapering adapter), are ported; any other model
-    raises NotImplementedError. The inducing points are not in the dict:
+    tapering or full-scale Vecchia, a Vecchia GP with grouped random
+    effects, and models of the 16 likelihoods of likelihoods/base.py with
+    grouped random effects, an exact GP (with grouped effects too) or a
+    Vecchia, FITC or tapering GP (a Vecchia one with grouped effects too),
+    are ported; any other model raises NotImplementedError. The inducing points are not in the dict:
     both packages draw them again from the coordinates, the seed,
     num_ind_points and ind_points_selection, and kmeans++ places the same
     centres in both."""

@@ -24,14 +24,24 @@ gaussian_latent; gp_model.py:468-495), by the Laplace approximation:
 
   * grouped random effects only: models/grouped_laplace.py, with slopes,
     crossed groupings, cluster_ids and observation weights;
-  * one GP, gp_approx="none": the dense engine of models/laplace.py,
-    with observation weights;
+  * a GP, gp_approx="none", alone or with grouped random effects: the
+    dense engine of models/laplace.py, with observation weights;
   * one GP, gp_approx="vecchia": the Vecchia-Laplace engines
     (models/vecchia_laplace.py), with observation weights: the
     dense-precision one (matrix_inversion_method="cholesky") or the
     matrix-free one ("iterative": CG solves and SLQ log-determinants of
     ops/iterative.py); as in the reference, "auto" takes the matrix-free
     one above n = 8,000.
+
+A Vecchia GP with grouped random effects (gp_model.py:370-400) runs the
+joint latent vector through models/vecchia_grouped.py, for a Gaussian
+response as gaussian_latent (the error variance is then an aux
+parameter), with observation weights and duplicate coordinates, its dense
+joint Hessian or, "iterative" ("auto" above n = 8,000), the matrix-free
+one with the vadu, ssor, diagonal or none preconditioner; cluster_ids
+raise NotImplementedError there. gp_approx="vecchia_euclidean" is
+"vecchia"; gp_approx="vecchia_latent" takes a Gaussian response through
+the Vecchia-Laplace engines as gaussian_latent.
 
 The approximations other than Vecchia (gp_model.py:190-233, :273-335,
 :407-466), with one GP, num_ind_points (500) inducing points chosen by
@@ -60,15 +70,14 @@ parameters. Prediction takes group_data_pred, group_rand_coef_data_pred,
 gp_coords_pred, X_pred and cluster_ids_pred, with the response's mean and
 variance (predict_response) for the non-Gaussian likelihoods;
 `model_to_dict` writes the reference's state dict and a dict of either
-package loads here. The likelihoods of likelihoods/families.py, a Vecchia
-GP combined with grouped random effects (models/vecchia_grouped.py),
-gp_approx="vecchia_latent", a GP combined with grouped effects for a
-non-Gaussian likelihood, GP random coefficients and posterior sampling
-raise NotImplementedError. The iterative engines (the Woodbury engine's
-iterative branch, which "auto" takes above q = 20,000, the matrix-free
-Vecchia-Laplace engine and the iterative FSA / FSVA engines) read the
-reference's CG keys of `set_optim_params`; `get_num_cg_steps` and
-`get_total_num_cg_steps` read the Vecchia-Laplace engine's counts.
+package loads here. The likelihoods of likelihoods/families.py, GP random
+coefficients and posterior sampling raise NotImplementedError. The
+iterative engines (the Woodbury engine's iterative branch, which "auto"
+takes above q = 20,000, the matrix-free Vecchia-Laplace and combined
+engines and the iterative FSA / FSVA engines) read the reference's CG
+keys of `set_optim_params`; `get_num_cg_steps` and
+`get_total_num_cg_steps` read the Vecchia-Laplace and combined engines'
+counts.
 cover_tree_radius, free_raw_data and likelihood_learning_rate are
 accepted without effect, as in the reference.
 
@@ -94,6 +103,7 @@ from .models.fitc_laplace import FITCLaplaceEngine
 from .models.fsa_iterative import FSAIterativeGaussianEngine
 from .models.fsva_iterative import FSVAIterativeGaussianEngine
 from .models.vecchia import VecchiaGaussianEngine
+from .models.vecchia_grouped import VecchiaGroupedLaplaceEngine
 from .models.vecchia_laplace import (VecchiaLaplaceEngine,
                                      VecchiaLaplaceIterativeEngine)
 from .ops.cov_fcts import SUPPORTED_COV_FUNCTIONS, CovarianceFunction
@@ -118,8 +128,8 @@ _TAPER_APPROXES = ("tapering", "full_scale_tapering",
                    "full_scale_tapering_pred_var_exact_stable")
 _FSVA_APPROXES = ("full_scale_vecchia",
                   "full_scale_vecchia_correlation_based")
-_GP_APPROXES = ("none", "vecchia", "fitc") + _TAPER_APPROXES \
-    + _FSVA_APPROXES
+_GP_APPROXES = ("none", "vecchia", "vecchia_latent", "vecchia_euclidean",
+                "fitc") + _TAPER_APPROXES + _FSVA_APPROXES
 
 
 class GPModel:
@@ -260,14 +270,20 @@ class GPModel:
             else len(self.gp_coords)
         self.cluster_ids = None if cluster_ids is None \
             else np.asarray(cluster_ids)
-        self._vecchia = gp_approx == "vecchia"
+        # the Vecchia aliases (gp_model.py:336-353): distance-based
+        # neighbours are the Vecchia engine's own; vecchia_latent runs a
+        # Gaussian response through the Laplace engines with the error
+        # variance as the likelihood's aux parameter
+        if gp_approx == "vecchia_latent":
+            if likelihood != "gaussian":
+                raise ValueError("gp_approx='vecchia_latent' requires "
+                                 "likelihood='gaussian'")
+            self._to_latent_gaussian()
+        self._vecchia = gp_approx in ("vecchia", "vecchia_latent",
+                                      "vecchia_euclidean")
         self._use_woodbury = all(c.kind == "grouped" for c in self.components)
-        if self._vecchia and (len(self.components) != 1
-                              or self.components[0].kind != "gp"):
-            raise NotImplementedError(
-                "gp_approx='vecchia' with grouped random effects (the "
-                "combined Vecchia and grouped-effects engine, "
-                "models/vecchia_grouped.py) is not ported yet (ROADMAP A10)")
+        combined = self._vecchia and {c.kind for c in self.components} \
+            == {"gp", "grouped"}
         mim = matrix_inversion_method
         iterative = mim == "iterative" or (mim == "auto"
                                            and self.num_data > 8000)
@@ -301,6 +317,24 @@ class GPModel:
                 self._engine = FITCGaussianEngine(
                     self.components, self.num_data, **fitc_kw)
             self._use_woodbury = False
+        elif combined:
+            # a Vecchia GP with grouped random effects: the joint latent
+            # vector through the Laplace engine (gp_model.py:370-400), a
+            # Gaussian response as gaussian_latent
+            if self.cluster_ids is not None:
+                raise NotImplementedError(
+                    "cluster_ids are not supported with gp_approx='vecchia' "
+                    "plus grouped random effects")
+            if self._likelihood_obj is None:
+                self._to_latent_gaussian()
+            if mim == "auto":
+                mim = "iterative" if self.num_data > 8000 else "cholesky"
+            self._engine = VecchiaGroupedLaplaceEngine(
+                self.components, self.num_data, self._likelihood_obj,
+                num_neighbors=num_neighbors if num_neighbors else 20,
+                vecchia_ordering=vecchia_ordering, seed=seed,
+                dtype=self._dtype, weights=self.weights,
+                matrix_inversion_method=mim, device=self.device)
         elif self._likelihood_obj is not None and self._vecchia:
             # the reference's rule (gp_model.py:426-434): the matrix-free
             # path above n = 8,000, the dense-precision Cholesky below
@@ -323,12 +357,10 @@ class GPModel:
                     self.components, self.num_data, self._likelihood_obj,
                     cluster_ids=self.cluster_ids, dtype=self._dtype,
                     weights=self.weights, device=self.device)
-            elif len(self.components) > 1:
-                raise NotImplementedError(
-                    "a GP combined with grouped random effects for a "
-                    "non-Gaussian likelihood is not ported yet")
             else:
-                # with a tapering / FSA / VIF adapter as the GP's kernel
+                # an exact GP, alone or with grouped random effects (all
+                # components in one Sigma, gp_model.py:486-491), or a
+                # tapering / FSA / VIF adapter as the GP's kernel
                 # (gp_model.py:329-335)
                 self._engine = LaplaceDenseEngine(
                     self.components, self.num_data, self._likelihood_obj,
@@ -370,6 +402,15 @@ class GPModel:
         self.y = None
         self.X = None
         self.model_has_been_fitted = False
+
+    def _to_latent_gaussian(self):
+        """A Gaussian response on the Laplace path: the gaussian_latent
+        likelihood, whose aux parameter is the error variance, so the
+        nugget leaves the covariance parameters."""
+        self.likelihood = "gaussian_latent"
+        self._likelihood_obj = get_likelihood("gaussian_latent")
+        self._par_names = [nm for nm in self._par_names
+                           if nm != "Error_term"]
 
     def _gp_cov_fn(self, coords, cov_function, cov_fct_shape):
         """The GP's covariance function, wrapped in the approximation's
@@ -770,7 +811,8 @@ class GPModel:
                     igrc += 1
                 codes_pred = comp.codes_for_prediction(col, cluster_ids_pred)
                 n_pred = len(codes_pred)
-                if self._use_woodbury:
+                if self._use_woodbury or getattr(self._engine,
+                                                 "wants_codes_pred", False):
                     pd["codes_pred"] = codes_pred
                     pd["z_pred"] = z_pred
                 else:

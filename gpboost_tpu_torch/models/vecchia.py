@@ -336,12 +336,6 @@ class VecchiaGaussianEngine(GaussianEngineBase):
     nll_profiled_raw = _nll_profiled
     wls_coef_raw = _wls
 
-    def hess_full(self, u, y):
-        raise NotImplementedError(
-            "newton is not supported with gp_approx='vecchia' (the batched "
-            "solve has a first-order custom gradient only); use "
-            "gradient_descent or lbfgs")
-
     def fisher_transformed(self, u, include_error_var=True):
         raise NotImplementedError(
             "fisher_scoring is not supported with gp_approx='vecchia'; use "

@@ -173,6 +173,7 @@ class _AssembleQ(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prods, eng):
+        """eng: the `PrecisionAssembly` of the pattern."""
         ctx.eng = eng
         vals = eng._pair_sum(prods.reshape(-1).index_select(0, eng._keep))
         n = eng.n
@@ -210,6 +211,39 @@ def precision_pattern(nn_idx, nn_mask):
            + np.broadcast_to(l, ok.shape).reshape(-1)[keep])
     pairs, codes = np.unique(key, return_inverse=True)
     return keep, codes, pairs // n, pairs % n
+
+
+class PrecisionAssembly:
+    """Q = B' D^-1 B (n x n, dense) over a Vecchia engine's neighbour
+    pattern: the pattern's pairs sorted once on the host, each summed by
+    a `SegmentSum` and placed by `_AssembleQ`."""
+
+    def __init__(self, vecchia, device):
+        keep, codes, rows, cols = precision_pattern(
+            vecchia._nn_idx.cpu().numpy(), vecchia._nn_mask.cpu().numpy())
+        n, npairs = vecchia.n, len(rows)
+        self.n = n
+        self._m1 = vecchia.m + 1
+        self._keep = torch.as_tensor(keep, device=device)
+        self._pair_sum = SegmentSum(codes, npairs, device)
+        code_of_prod = np.full(n * self._m1 ** 2, npairs, dtype=np.int64)
+        code_of_prod[keep] = codes
+        self._code_of_prod = torch.as_tensor(code_of_prod, device=device)
+        off = np.flatnonzero(rows != cols)
+        self._pos_upper = torch.as_tensor(rows * n + cols, device=device)
+        self._pos_lower = torch.as_tensor(cols[off] * n + rows[off],
+                                          device=device)
+        # each pair's mirror position, the zero slot n^2 on the diagonal
+        self._pos_mirror = torch.as_tensor(
+            np.where(rows != cols, cols * n + rows, n * n), device=device)
+        self._off = torch.as_tensor(off, device=device)
+
+    def __call__(self, A, D):
+        """Q from the factors A (n, m) and D (n,), differentiable in
+        both."""
+        c = torch.cat([torch.ones_like(D)[:, None], -A], 1)     # row of B
+        prods = (c[:, :, None] * c[:, None, :]) / D[:, None, None]
+        return _AssembleQ.apply(prods, self)
 
 
 class _VecchiaLaplaceBase(LaplaceEngineBase):
@@ -306,34 +340,14 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
                            vecchia_ordering, seed, dtype, weights,
                            cluster_ids, device)
         self.matrix_inversion_method = matrix_inversion_method
-        dev = self.device
-        keep, codes, rows, cols = precision_pattern(
-            self._vecchia._nn_idx.cpu().numpy(),
-            self._vecchia._nn_mask.cpu().numpy())
-        n, npairs = self.n, len(rows)
-        self._m1 = self._vecchia.m + 1
-        self._keep = torch.as_tensor(keep, device=dev)
-        self._pair_sum = SegmentSum(codes, npairs, dev)
-        code_of_prod = np.full(n * self._m1 ** 2, npairs, dtype=np.int64)
-        code_of_prod[keep] = codes
-        self._code_of_prod = torch.as_tensor(code_of_prod, device=dev)
-        off = np.flatnonzero(rows != cols)
-        self._pos_upper = torch.as_tensor(rows * n + cols, device=dev)
-        self._pos_lower = torch.as_tensor(cols[off] * n + rows[off],
-                                          device=dev)
-        # each pair's mirror position, the zero slot n^2 on the diagonal
-        self._pos_mirror = torch.as_tensor(
-            np.where(rows != cols, cols * n + rows, n * n), device=dev)
-        self._off = torch.as_tensor(off, device=dev)
+        self._q_asm = PrecisionAssembly(self._vecchia, self.device)
 
     # ------------------------------------------------------------------
     def _Q_logdetQ(self, theta_log):
         """Latent precision Q = B' D^-1 B (n x n) and log|Q| = -sum log D,
         differentiable in theta_log."""
         A, D = self._vecchia._bd(theta_log, latent=True)
-        c = torch.cat([torch.ones_like(D)[:, None], -A], 1)     # row of B
-        prods = (c[:, :, None] * c[:, None, :]) / D[:, None, None]
-        return _AssembleQ.apply(prods, self), -torch.sum(torch.log(D))
+        return self._q_asm(A, D), -torch.sum(torch.log(D))
 
     def _Q_aux(self, u):
         theta_log, aux = self._split_u(u)
@@ -519,7 +533,61 @@ _PRECONDITIONERS = ("vadu", "pivoted_cholesky", "vecchia_response",
                     "diagonal", "none")
 
 
-class VecchiaLaplaceIterativeEngine(_VecchiaLaplaceBase):
+class VecchiaOperators:
+    """The matrix-free Vecchia operators over `self._nb`, the
+    `NeighborBags` of the factors' (n, m) pattern, and the CG counts over
+    `self._cg_acc` and `self.cg_max_num_it` (shared by the iterative
+    Vecchia-Laplace engine and the combined engine of
+    models/vecchia_grouped.py)."""
+
+    # matrix-free Vecchia operators; v (n,) or columns (n, k)
+    def _Bv(self, A, v):
+        return v - _At.apply(A, v, self._nb)
+
+    def _Btv(self, A, w):
+        return w - _Att.apply(A, w, self._nb)
+
+    def _Qv(self, A, D, v):
+        return self._Btv(A, self._Bv(A, v) / _col(D, v))
+
+    def _diag_Q(self, A, D):
+        return 1.0 / D + _Att.apply(A * A, 1.0 / D, self._nb)
+
+    def _SJ(self, A, v):
+        """S_J v, S_J = I + A + ... + A^J ~= B^-1 (no graph)."""
+        w, t = A.reshape(-1), v
+        for _ in range(NEUMANN_J):
+            t = v + self._nb._a_bags(t, w)
+        return t
+
+    def _SJt(self, A, w):
+        wt, t = self._nb._t_weights(A), w
+        for _ in range(NEUMANN_J):
+            t = w + self._nb._at_bags(t, wt)
+        return t
+
+    def _count_cg(self, it, maxit=None):
+        """Adds one solve's per-column CG iterations (a device tensor) to
+        `cg_stats`, without a host read."""
+        maxit = self.cg_max_num_it if maxit is None else maxit
+        it = it.reshape(-1)
+        row = torch.stack([torch.full_like(it[0], it.numel()), it.sum(),
+                           (it >= maxit).sum()])
+        self._cg_acc = row if self._cg_acc is None else self._cg_acc + row
+
+    def cg_stats(self, reset=False):
+        """{"solves", "iterations", "at_maxit"} over every CG solve of this
+        engine since the last reset: columns solved (Newton steps, adjoint
+        solves, the SLQ gradient's probes, predictive draws), their CG
+        iterations and those that stopped at cg_max_num_it (one host
+        read)."""
+        vals = [0, 0, 0] if self._cg_acc is None else self._cg_acc.tolist()
+        if reset:
+            self._cg_acc = None
+        return dict(zip(("solves", "iterations", "at_maxit"), vals))
+
+
+class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
     """Laplace-approximated NLL, gradients and prediction with the Vecchia
     latent precision, matrix-free: Newton with preconditioned CG solves,
     SLQ log-determinants, simulation-based predictive variances
@@ -579,53 +647,6 @@ class VecchiaLaplaceIterativeEngine(_VecchiaLaplaceBase):
             else:
                 raise ValueError(f"unknown iterative setting '{k}'")
         self._slq_fn = None
-
-    # ------------------------------------------------------------------
-    # matrix-free Vecchia operators; v (n,) or columns (n, k)
-    def _Bv(self, A, v):
-        return v - _At.apply(A, v, self._nb)
-
-    def _Btv(self, A, w):
-        return w - _Att.apply(A, w, self._nb)
-
-    def _Qv(self, A, D, v):
-        return self._Btv(A, self._Bv(A, v) / _col(D, v))
-
-    def _diag_Q(self, A, D):
-        return 1.0 / D + _Att.apply(A * A, 1.0 / D, self._nb)
-
-    def _SJ(self, A, v):
-        """S_J v, S_J = I + A + ... + A^J ~= B^-1 (no graph)."""
-        w, t = A.reshape(-1), v
-        for _ in range(NEUMANN_J):
-            t = v + self._nb._a_bags(t, w)
-        return t
-
-    def _SJt(self, A, w):
-        wt, t = self._nb._t_weights(A), w
-        for _ in range(NEUMANN_J):
-            t = w + self._nb._at_bags(t, wt)
-        return t
-
-    def _count_cg(self, it, maxit=None):
-        """Adds one solve's per-column CG iterations (a device tensor) to
-        `cg_stats`, without a host read."""
-        maxit = self.cg_max_num_it if maxit is None else maxit
-        it = it.reshape(-1)
-        row = torch.stack([torch.full_like(it[0], it.numel()), it.sum(),
-                           (it >= maxit).sum()])
-        self._cg_acc = row if self._cg_acc is None else self._cg_acc + row
-
-    def cg_stats(self, reset=False):
-        """{"solves", "iterations", "at_maxit"} over every CG solve of this
-        engine since the last reset: columns solved (Newton steps, adjoint
-        solves, the SLQ gradient's probes, predictive draws), their CG
-        iterations and those that stopped at cg_max_num_it (one host
-        read)."""
-        vals = [0, 0, 0] if self._cg_acc is None else self._cg_acc.tolist()
-        if reset:
-            self._cg_acc = None
-        return dict(zip(("solves", "iterations", "at_maxit"), vals))
 
     def _qw_matvec(self, p, v):
         A, D, W = p

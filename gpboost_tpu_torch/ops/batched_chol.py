@@ -16,6 +16,12 @@ VJP (batched_chol.py:94-98): with x = K^-1 b and upstream gradient x̄,
 so autograd never differentiates through the factorization. K̄ is the
 full-matrix gradient; callers build K symmetrically, so it composes to the
 right total derivative.
+
+The backward is itself differentiable when autograd builds its graph
+(create_graph, as the Hessian of Newton's method does): g is then the same
+solve, applied with the forward's factor, and x the saved output, so the
+second derivative takes no new factorization either. Without a graph the
+backward is one triangular solve pair from the saved factor.
 """
 
 import torch
@@ -32,21 +38,27 @@ def _solve(L, b):
 
 
 class ChoSolveBatched(torch.autograd.Function):
-    """x = K^{-1} b for K (n, m, m) SPD, b (n, m)."""
+    """x = K^{-1} b for K (n, m, m) SPD, b (n, m); L, when given, is K's
+    Cholesky factor (no gradient)."""
 
     @staticmethod
-    def forward(ctx, K, b):
-        L = _chol(K)
+    def forward(ctx, K, b, L=None):
+        if L is None:
+            L = _chol(K)
         x = _solve(L, b)
-        ctx.save_for_backward(L, x)
+        ctx.save_for_backward(K, L, x)
         return x
 
     @staticmethod
     def backward(ctx, x_bar):
-        L, x = ctx.saved_tensors
-        g = _solve(L, x_bar)                       # K^{-1} x̄ (K symmetric)
+        K, L, x = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # create_graph: the same solve, differentiable in K and x̄
+            g = ChoSolveBatched.apply(K, x_bar, L)
+        else:
+            g = _solve(L, x_bar)                   # K^{-1} x̄ (K symmetric)
         K_bar = -g[:, :, None] * x[:, None, :]
-        return K_bar, g
+        return K_bar, g, None
 
 
 def cho_solve_batched(K, b):

@@ -112,7 +112,15 @@ def pcg_batched(matvec, B, precond=None, tol=1e-6, maxit=1000):
     that stops when every residual is below tol times its right-hand side's
     norm; converged systems keep iterating with alpha and beta guarded to 0
     on a degenerate direction. matvec and precond act on (n, k) columns."""
-    return _cg(matvec, B.T, precond, tol, maxit, None, False)[0].T
+    return pcg_batched_it(matvec, B, precond, tol, maxit)[0]
+
+
+def pcg_batched_it(matvec, B, precond=None, tol=1e-6, maxit=1000):
+    """pcg_batched that also returns the per-system iteration counts (a
+    device tensor (k,)): the loop's length for every system that still ran
+    in it."""
+    X, it = _cg(matvec, B.T, precond, tol, maxit, None, False)
+    return X.T, it
 
 
 def lanczos_tridiag(matvec, z, rank):

@@ -157,10 +157,9 @@ def test_unported_options_raise(gp_sim_data):
     d = gp_sim_data
     # cluster_ids and weights are ported (tests/test_torch_weights_
     # clusters.py holds them to the JAX package), and so are the tapering
-    # approximations (tests/test_torch_taper.py); gp_approx="vecchia_latent"
-    # is not
+    # approximations (tests/test_torch_taper.py) and
+    # gp_approx="vecchia_latent" (tests/test_torch_vecchia_grouped.py)
     for kw in (dict(num_parallel_devices=2),
-               dict(gp_approx="vecchia_latent"),
                dict(gp_rand_coef_data=d["Z_SVC"][:, 0])):
         with pytest.raises(NotImplementedError):
             gpt.GPModel(gp_coords=d["coords"], cov_function="exponential",

@@ -252,10 +252,11 @@ def test_port_never_imports_jax(path):
 
 def test_import_check_covers_the_slice_modules():
     """The AST check above reaches every module of the port by its glob,
-    the Laplace slices' engines and the approximation engines and
-    adapters among them."""
+    the Laplace slices' engines, the approximation engines and adapters
+    and the combined Vecchia + grouped engine among them."""
     for mod in ("models/laplace", "models/grouped_laplace",
                 "models/vecchia_laplace", "models/fitc",
                 "models/fitc_laplace", "models/fsa_iterative",
-                "models/fsva_iterative", "ops/taper", "ops/neighbor_bags"):
+                "models/fsva_iterative", "ops/taper", "ops/neighbor_bags",
+                "models/vecchia_grouped"):
         assert f"gpboost_tpu_torch/{mod}.py" in _PORT_FILES

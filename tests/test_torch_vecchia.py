@@ -116,6 +116,67 @@ def test_cho_solve_vjp_gradcheck():
     torch.testing.assert_close(K @ x[:, :, None], b.detach()[:, :, None])
 
 
+def test_cho_solve_second_derivative_and_one_factorization(monkeypatch):
+    """The batched solve is twice differentiable (Newton's Hessian), and
+    its first-order backward factorizes nothing: one Cholesky per forward,
+    none in a backward, the double backward's solve reuses it."""
+    from gpboost_tpu_torch.ops import batched_chol
+    rng = np.random.RandomState(1)
+    S = torch.tensor(rng.randn(3, 4, 4), dtype=torch.float64,
+                     requires_grad=True)
+    b = torch.tensor(rng.randn(3, 4), dtype=torch.float64,
+                     requires_grad=True)
+    eye = torch.eye(4, dtype=torch.float64)
+
+    def f(S, b):
+        return cho_solve_batched(S @ S.transpose(1, 2) + 4.0 * eye, b)
+
+    assert torch.autograd.gradgradcheck(f, (S, b))
+    calls = []
+    chol = batched_chol._chol
+    monkeypatch.setattr(batched_chol, "_chol",
+                        lambda K: calls.append(1) or chol(K))
+    x = f(S, b)
+    assert len(calls) == 1
+    (gS,) = torch.autograd.grad((x ** 2).sum(), S, create_graph=True)
+    assert len(calls) == 1
+    torch.autograd.grad(gS.sum(), (S, b))
+    assert len(calls) == 1
+
+
+@pytest.fixture(scope="module")
+def newton_data():
+    """The input of ROADMAP C1's probe: n = 300, exponential kernel."""
+    rng = np.random.RandomState(1)
+    coords = rng.rand(N, 2)
+    return coords, np.sin(4 * coords[:, 0]) + 0.3 * rng.randn(N)
+
+
+@pytest.mark.parametrize("m", [20, 40])
+def test_newton_fit_matches_jax(newton_data, m):
+    """optimizer_cov="newton" on the Vecchia engine (m = 20 and m > 32):
+    the Hessian of the NLL at the start (rtol 1e-8), the iteration count
+    and the optimum (rtol 1e-6) of the JAX package's fit."""
+    coords, y = newton_data
+    kw = dict(gp_coords=coords, cov_function="exponential",
+              gp_approx="vecchia", num_neighbors=m)
+    jm = gpb.GPModel(**kw)
+    pm = gpt.GPModel(device="cpu", **kw)
+    jm.fit(y=y, params={"optimizer_cov": "newton"})
+    pm.fit(y=y, params={"optimizer_cov": "newton"})
+    assert pm.get_num_optim_iter() == jm.get_num_optim_iter()
+    np.testing.assert_allclose(pm.get_cov_pars(), jm.get_cov_pars(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(pm.get_current_neg_log_likelihood(),
+                               jm.get_current_neg_log_likelihood(),
+                               rtol=1e-10)
+    je, pe = jm._engine, pm._engine
+    u = np.log(je.transform_pars(np.asarray([0.3, 0.6, 0.25])))
+    Hj = np.asarray(je.hess_full(jnp.asarray(u), jnp.asarray(y[je.perm])))
+    Hp = pe.hess_full(u, pe.prep_y(y))
+    np.testing.assert_allclose(Hp, Hj, rtol=1e-8, atol=1e-10)
+
+
 def test_not_positive_definite_rows_come_out_nan():
     K = torch.eye(3, dtype=torch.float64).repeat(2, 1, 1)
     K[1, 0, 0] = -1.0
@@ -182,9 +243,10 @@ def test_lbfgs_fit_matches(data):
 
 @pytest.mark.parametrize("kwargs", [
     dict(cov_function="gaussian"), dict(cov_fct_shape=1.0),
-    # FITC is ported (tests/test_torch_fitc.py); a Vecchia GP with grouped
-    # random effects (the combined engine) is not
-    dict(group_data=np.arange(N) % 5),
+    # FITC is ported (tests/test_torch_fitc.py), and so is a Vecchia GP
+    # with grouped random effects (tests/test_torch_vecchia_grouped.py),
+    # but not with cluster_ids
+    dict(group_data=np.arange(N) % 5, cluster_ids=np.zeros(N)),
     dict(likelihood="bernoulli_probit", matrix_inversion_method="iterative",
          cluster_ids=np.zeros(N)),
     # cluster_ids are ported (tests/test_torch_vecchia_pred.py); GP random
