@@ -6,7 +6,8 @@
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
                                      # 24, 25, 26 each alone, 27-29, 30-32,
-                                     # 33-35 and 36-38); no result lines
+                                     # 33-35, 36-38 and 39-41); no result
+                                     # lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -115,14 +116,19 @@ Phases; any failure exits non-zero and prints no result line:
  21. hist_segment at its shapes (n = 20,000, p = 5, uint8: phase 3's
      checks and times), then binary Vecchia LaGaBoost at n = 20,000
      (sim_lagab, p = 5, seed 4; the GP model of phase 20 with its default
-     initial values; 31 leaves, learning rate 0.1) for 3 rounds (10 before
-     phases 23-26), then the response on 1,000 new points: init-score and
-     first-fit seconds, seconds per round, host syncs of one steady round,
-     device busy share of one more (two before phases 27-29);
+     initial values; 31 leaves, learning rate 0.1) for 1 round (10 before
+     phases 23-26, 3 before phases 39-41), then the response on 1,000 new
+     points: init-score and
+     first-fit seconds, seconds per round, host syncs and device busy
+     share of one steady round (each in a round of its own before the
+     script's time limit forced the cut, two busy rounds before phases
+     27-29);
      hist_segment launches (must be positive);
- 22. card vs CPU at n = 2,000 in float64 (random ordering): the engine's
+ 22. card vs CPU at n = 1,000 (2,000 before the script's time limit forced
+     the cut) in float64 (random ordering): the engine's
      NLL, g_u and g_F to rtol 1e-8 with equal Newton steps, a fit (rtol
-     1e-4, equal iterations), 3 LaGaBoost rounds (phase 5's near-tie rule,
+     1e-4, equal iterations), 1 LaGaBoost round (3 before phases 39-41;
+     phase 5's near-tie rule,
      predictions to 1e-4); then the R goldens of
      tests/test_vecchia_laplace_golden.py on the card at that file's
      tolerances;
@@ -141,7 +147,8 @@ Phases; any failure exits non-zero and prints no result line:
      matrix-free operator's times (a CG iteration, an S_J application, a
      Lanczos step) beside their byte bounds, the covariance parameters
      against phase 20's dense float64 fit (rtol 1e-1), the reference's
-     60.302 s; then one float32 fit with its solves at cg_max_num_it;
+     60.302 s; then one float32 fit, capped at 3 iterations since phases
+     39-41 came, with its solves at cg_max_num_it;
  25. hist_segment at n = 50,000, p = 5 (phase 3's checks and times), then
      binary Vecchia LaGaBoost at the reference's n = 50,000 (sim_lagab,
      seed 4; bench_reference.py:90-99, :190-203), iterative, float64, 31
@@ -155,8 +162,10 @@ Phases; any failure exits non-zero and prints no result line:
      times (B'w also against SegmentSum); the response on 1,000 new
      points with 500 simulation draws; the reference's 2,870.2 s for 10
      rounds beside;
- 26. card against CPU at n = 2,000, iterative, float64, 10 probes, fits
-     capped at 3 iterations: the engine's NLL (rtol 1e-6), g_u and g_F
+ 26. card against CPU at n = 500, iterative, float64, 5 probes, fits
+     capped at 2 iterations (n = 2,000, 10 probes and 3 before phases
+     39-41, then n = 1,000 until the script's time limit forced the
+     cut): the engine's NLL (rtol 1e-6), g_u and g_F
      (1e-4) and Newton steps, a fit (1e-3, equal iterations), 2 LaGaBoost
      rounds with the default per-round GD refit (3 rounds without it
      before; the CPU side of a refit is the cost): each refit's steps on
@@ -171,8 +180,8 @@ Phases; any failure exits non-zero and prints no result line:
      float64, fitted on the device L-BFGS; then set_prediction_data and
      predict at 10,000 new points (seeded, unit square) for each of the
      five vecchia_pred_types, means and variances (the latent
-     cond_all ordering: means at 10,000, variances at 1,000 points, under
-     the reference's 2,000-point cap), each with seconds, host syncs, CG
+     cond_all ordering: means at 10,000, variances at 500 points, 1,000
+     before phases 39-41), each with seconds, host syncs, CG
      iterations (latent) and peak device memory; the latent mean bitwise
      equal in a second launch; predict_training_data_random_effects at
      n = 100,000; one float32 latent solve's CG iterations; card against
@@ -224,7 +233,8 @@ Phases; any failure exits non-zero and prints no result line:
      l2, up to 40 rounds, early stopping 5 (seconds, seconds a
      fold-round, best_iter = argmin + 1, hist_segment launches), then
      grid_search_tune_parameters over learning_rate {0.05, 0.1} x
-     min_data_in_leaf {20, 100}, 2 random tries of 20 rounds; card
+     min_data_in_leaf {20, 100}, 1 random try of 20 rounds (2 before
+     phases 39-41); card
      against CPU at n = 1,000 (q = 50): cv mean and stdv curves to 1e-6
      over the rounds before any near-tie, best_iter and grid search's
      best_params equal;
@@ -251,7 +261,8 @@ Phases; any failure exits non-zero and prints no result line:
      n = 2,000 (NLL and predictions at fixed parameters, 1e-8 relative),
      GPBoost with Newton leaves on the full-scale tapering adapter (taper
      range 0.1, 100 inducing points) on w_gpboost1000's generator at
-     n = 2,000 for 3 rounds card against CPU (phase 12's rule: trees,
+     n = 2,000 for 1 round (3 before phases 39-41) card against CPU
+     (phase 12's rule: trees,
      parameters, scores and predictions to 1e-4),
      tapering and full-scale tapering at a taper range of 1e6 equal to the
      exact engine's NLL (1e-10); the iterative full-scale tapering (taper
@@ -263,8 +274,9 @@ Phases; any failure exits non-zero and prints no result line:
      width: binary LaGaBoost on sim_combined (n = 50,000 rows on 10,000
      sites, q = 1,000 groups, seed 4; bernoulli_probit, exponential, 20
      neighbours, float64, "auto" = the iterative formulation, vadu; 31
-     leaves, learning rate 0.1) for 3 rounds with the GP model's first fit
-     capped at 5 iterations (phase 25's cut): the fit's seconds,
+     leaves, learning rate 0.1) for 1 round (3 before phases 39-41) with
+     the GP model's first fit capped at 5 iterations (phase 25's cut):
+     the fit's seconds,
      iterations, Newton steps, CG iterations and solves at cg_max_num_it,
      host syncs and peak device memory; seconds a round and each round's
      GD refit, the device busy share of one gradient, hist_segment launches
@@ -272,7 +284,8 @@ Phases; any failure exits non-zero and prints no result line:
      unseen groups (whose latent variance must be the larger);
  37. GPBoost with a Gaussian response on the combined model (LaGaBoost
      over gaussian_latent, iterative) at n = 20,000: the first fit capped
-     at 3 iterations, then 2 rounds with the parameters held
+     at 2 iterations, then 1 round with the parameters held (3 and 2
+     before phases 39-41)
      (train_gp_model_cov_pars False), hist_segment launches (must be
      positive);
      the dense and the iterative formulation at
@@ -288,6 +301,36 @@ Phases; any failure exits non-zero and prints no result line:
      n = 500), a Gaussian Vecchia Newton fit (n = 1,000, iterations
      equal), one combined LaGaBoost round (n = 1,000; the init score and
      the first fit to 1e-8, then phase 12's rule).
+ 39. GP random coefficients at full width: the R suite's combined SVC
+     model (tests/test_combined_gp_re_golden.py:661-742: an exponential GP
+     with two random-coefficient processes, two crossed groupings with a
+     slope on the first, 10 covariance parameters) on sim_svc (that
+     file's fixture at n = 5,000 from a numpy seed, plus sim_gpboost's
+     F(X), p = 5), float64, the dense engine: hist_segment at its shapes
+     (phase 3's checks, bit for bit), GPBoost with 31 leaves for 10
+     rounds (first-fit seconds, iterations, host syncs; seconds a round;
+     peak memory; the device busy share of one more round; hist_segment
+     launches, which must be positive), 1,000 predictions with
+     gp_rand_coef_data_pred and variances, and 1,000 posterior draws at
+     200 points, whose sample means and covariances must lie within
+     Monte-Carlo limits of the predicted ones;
+ 40. optimizer_cov="adam" on phase 13's LMM (n = 100,000, q = 1,000,
+     with X) and phase 15's binary GLMM, each beside lbfgs on the same
+     data (iterations, seconds, NLL); a binary probit SVC model on the
+     dense Laplace engine at n = 2,000 (hist_segment at its shapes
+     first, phase 3's checks): the fit, 3 LaGaBoost rounds,
+     500 latent predictions with 1,000 posterior draws (Monte-Carlo
+     limits) and 1,000 prior draws;
+ 41. card against CPU at n = 500, float64: SVC GPBoost for 2 rounds (the
+     first fit printed; trees under phase 5's rule, covariance parameters
+     and predictions after them), both adam fits (iterations equal),
+     posterior and prior draws at one seed element by element, the
+     probit SVC model's Laplace NLL and gradients (1e-10), the rest to
+     1e-8 relative.
+Every histogram row's library time is one torch.Tensor.index_add_ over the
+flat key f * B + bin (key and expanded float32 values built outside the
+timed window, sums held to the kernel's to 1e-5 of the largest entry);
+the port never calls it.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -328,7 +371,7 @@ LAGA = {"learning_rate": 0.1, "num_leaves": 15, "verbose": 0}
 # the Vecchia-Laplace slice: bench.py's vecchia_laplace_n20k (bench.py:
 # 278-300) and its binary Vecchia LaGaBoost at the JAX bench's n = 20,000
 # (bench.py:329-361)
-N_VL, M_VL, SEED_VL, MAXIT_VL, N_VL_CPU = 20_000, 20, 3, 20, 2_000
+N_VL, M_VL, SEED_VL, MAXIT_VL, N_VL_CPU = 20_000, 20, 3, 20, 1_000
 P_VLB, SEED_VLB = 5, 4
 VL_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
             "num_neighbors": M_VL, "likelihood": "bernoulli_probit",
@@ -336,12 +379,14 @@ VL_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
 VL_FIT = {"maxit": MAXIT_VL, "init_cov_pars": [1.0, 0.1]}
 VLB = {"objective": "binary", "learning_rate": 0.1, "num_leaves": 31,
        "verbose": 0}
-ROUNDS_VL_DENSE = 3
+ROUNDS_VL_DENSE = 1
 # the iterative slice: the reference's iterative vecchia_laplace_n20k
 # (bench_reference.py:229-236), its binary Vecchia LaGaBoost at n = 50,000
 # (bench_reference.py:90-99, :190-203) and the grouped iterative branch
 VL_ITER = {**VL_MODEL, "matrix_inversion_method": "iterative"}
 N_VLB_ITER, MAXIT_VLB_ITER = 50_000, 5
+# phase 26's card against CPU, whose CPU side is most of the phase
+N_IT_CPU = 500
 N_GROUPED_ITER, Q_GROUPED_ITER = 100_000, 25_000
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -491,6 +536,47 @@ def _fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def _library_ms(torch, key, vals, p, num_bins, kernel_out):
+    """A histogram kernel's library time: one torch.Tensor.index_add_ of
+    the float32 values vals (m, 3) into a zeroed (p * B, 3) tensor at the
+    flat keys key = f * B + bin (m,), both built by the caller outside the
+    timed window (median of 25 CUDA-event timings). Its sums are held to
+    the kernel's output kernel_out (p, 3, B) to 1e-5 of the largest entry
+    (float32 atomics in another order). The port never calls it."""
+    def call():
+        return torch.zeros((p * num_bins, 3), dtype=torch.float32,
+                           device=key.device).index_add_(0, key, vals)
+    lib = call().reshape(p, num_bins, 3).permute(0, 2, 1)
+    err = float((lib - kernel_out).abs().max())
+    scale = float(kernel_out.abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"index_add_ histogram: max |diff| {err:.3g} "
+                             f"from the kernel's (largest entry "
+                             f"{scale:.3g})")
+    return _time_ms(torch, call)
+
+
+def _segment_library_ms(torch, bins, stats, s0, cnt, num_bins, kernel_out):
+    """_library_ms of hist_segment's rows [s0, s0 + cnt) of row-major bins
+    (n, p) and stats (n, 3)."""
+    b = bins[s0:s0 + cnt].long()
+    p = b.shape[1]
+    key = (b + torch.arange(p, device=b.device) * num_bins).reshape(-1)
+    vals = stats[s0:s0 + cnt, None, :].expand(cnt, p, 3).reshape(-1, 3)
+    return _library_ms(torch, key, vals.contiguous(), p, num_bins,
+                       kernel_out)
+
+
+def _feature_major_library_ms(torch, bins_T, stats_T, num_bins, kernel_out):
+    """_library_ms of every row of feature-major bins (p, n) with stats
+    (3, n) (a mask multiplied into them beforehand)."""
+    p, n = bins_T.shape
+    key = (bins_T.long() + torch.arange(p, device=bins_T.device)[:, None]
+           * num_bins).reshape(-1)
+    vals = stats_T.T[None].expand(p, n, 3).reshape(-1, 3).contiguous()
+    return _library_ms(torch, key, vals, p, num_bins, kernel_out)
+
+
 def _check_exact(torch, name, k1, k2, emu, ref, tol):
     """Kernel result k1 against a second launch k2 and the fixed-point
     emulation emu (both bitwise), and against the plain version ref:
@@ -592,18 +678,18 @@ def phase_kernel(torch, gpt, histogram):
     # once; 3 adds per row and feature
     t["bound_ms"], t["bound_by"] = bound(
         N_FULL * P + 12 * N_FULL + 12 * P * num_bins, 3 * N_FULL * P)
+    t["library_ms"] = _segment_library_ms(torch, bins_u8, stats_d, 0,
+                                          N_FULL, num_bins, kernel())
     print(f"[kernel] hist_segment n={N_FULL} p={P} B={num_bins} uint8: "
           f"kernel {t['ms']:.4f} ms by events, {_fmt_ms(t['device_ms'])} "
-          f"device; plain einsum {t['plain_ms']:.4f} ms; bound "
+          f"device; plain einsum {t['plain_ms']:.4f} ms; index_add_ "
+          f"{t['library_ms']:.4f} ms; bound "
           f"{t['bound_ms']:.5f} ms ({t['bound_by']}); feature 0 in one bin "
           f"{_fmt_ms(one_ms)} device; max |err| {max_err:.3g}", flush=True)
-    # no one PyTorch call computes a weighted histogram of every feature
-    # (bincount takes one weight vector of one feature), so library_ms is
-    # null
     return {"name": "hist_segment", "route": "cuda",
             "source": "gpboost_tpu_torch/csrc/histogram.cu",
             "replaces": "gpboost_tpu/ops/histogram.py:85",
-            "max_abs_err": max_err, **t, "library_ms": None}
+            "max_abs_err": max_err, **t}
 
 
 def phase_segment_large(torch, histogram, ds, kernel_row):
@@ -642,15 +728,20 @@ def phase_segment_large(torch, histogram, ds, kernel_row):
     bound_ms, bound_by = bound(n * p + 12 * n + 12 * p * num_bins, 3 * n * p)
     plain_ms = _time_ms(torch, lambda: histogram.hist_segment_plain(
         bins, stats_d, 0, n, num_bins), reps=10)
+    library_ms = _segment_library_ms(
+        torch, bins, stats_d, 0, n, num_bins, histogram.hist_segment(
+            bins, stats_d, 0, n, num_bins, amax=amax))
     print(f"[kernel] hist_segment n={n} p={p} B={num_bins} uint8: "
           + "; ".join(f"{k} {v[0]:.4f} ms by events, {_fmt_ms(v[1])} device"
                       for k, v in res.items())
-          + f"; plain (whole) {plain_ms:.4f} ms; bound (whole) "
-          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+          + f"; plain (whole) {plain_ms:.4f} ms; index_add_ (whole) "
+          f"{library_ms:.4f} ms; bound (whole) {bound_ms:.5f} ms "
+          f"({bound_by})", flush=True)
     kernel_row["at_n200k_p50"] = {
         "ms": res["whole"][0], "device_ms": res["whole"][1],
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "half_ms": res["half"][0], "half_device_ms": res["half"][1]}
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "half_ms": res["half"][0],
+        "half_device_ms": res["half"][1]}
 
 
 def _train(torch, gpt, n, dtype, device, params=PARAMS, rounds=ROUNDS):
@@ -861,6 +952,15 @@ def phase_masked_kernels(torch, histogram, ds):
                                                      num_bins))
     block["bound_ms"], block["bound_by"] = bound(
         n * p + 12 * n + out_bytes, 3 * n * p)
+    # index_add_ over every row; the mask multiplied into the stats outside
+    # the timed window
+    masked["library_ms"] = _feature_major_library_ms(
+        torch, bins_u8, stats_d * (node_d == 1).to(torch.float32)[None, :],
+        num_bins, histogram.hist_masked(bins_u8, node_d, stats_d, 1,
+                                        num_bins, amax=amax))
+    block["library_ms"] = _feature_major_library_ms(
+        torch, bins_u8, stats_d, num_bins,
+        histogram.hist_block(bins_u8, stats_d, num_bins, amax=amax))
     extra = {
         "hist_masked": _device_ms(torch, lambda: histogram.hist_masked(
             one_bin, node_d, stats_d, 1, num_bins, amax=amax)),
@@ -872,7 +972,8 @@ def phase_masked_kernels(torch, histogram, ds):
               + (f" ({sel} rows selected)" if name == "hist_masked" else "")
               + f": kernel {t['ms']:.4f} ms by events, "
               f"{_fmt_ms(t['device_ms'])} device; plain einsum "
-              f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+              f"{t['plain_ms']:.4f} ms; index_add_ {t['library_ms']:.4f} "
+              f"ms; bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}); feature 0 in one bin "
               f"{_fmt_ms(extra[name])} device; max |err| {err[name]:.3g}",
               flush=True)
@@ -881,7 +982,7 @@ def phase_masked_kernels(torch, histogram, ds):
                     "replaces": ("gpboost_tpu/ops/histogram.py:155"
                                  if name == "hist_masked" else
                                  "gpboost_tpu/ops/histogram.py:129"),
-                    "max_abs_err": err[name], **t, "library_ms": None})
+                    "max_abs_err": err[name], **t})
     return out
 
 
@@ -1146,12 +1247,15 @@ def phase_segment_grouped(torch, histogram, ds, kernel_row):
                 torch, kernel),
             "plain_ms": _time_ms(torch, lambda: histogram.hist_segment_plain(
                 b, stats_d, 0, n, num_bins)),
+            "library_ms": _segment_library_ms(torch, b, stats_d, 0, n,
+                                              num_bins, kernel()),
             "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"[kernel] hist_segment n={n} B={num_bins} uint8, whole segment: "
           + "; ".join(f"{k}: {v['ms']:.4f} ms by events, "
                       f"{_fmt_ms(v['device_ms'])} device, plain "
-                      f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.5f} ms"
-                      for k, v in row.items()), flush=True)
+                      f"{v['plain_ms']:.4f} ms, index_add_ "
+                      f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.5f} "
+                      "ms" for k, v in row.items()), flush=True)
     kernel_row["at_n100k_p6"] = row["p6"]
     kernel_row["at_n100k_p5"] = row["p5"]
 
@@ -1906,18 +2010,23 @@ def phase_vecchia_laplace(torch, gpt):
 
 def phase_segment_vl(torch, gpt, histogram, kernel_row, n_rows=N_VL):
     """hist_segment at Vecchia LaGaBoost's shapes: sim_lagab's n_rows
-    (20,000 in phase 21, 50,000 in phase 25) rows, p = 5, uint8, the real
-    bin count; whole and part segments and a one-bin feature with the
-    checks of phase 3, and the whole segment's times, added to kernel_row
-    under "at_n20k_p5" (or n50k)."""
-    dev = torch.device("cuda")
+    (20,000 in phase 21, 50,000 in phase 25) rows, p = 5 (`_segment_at`)."""
     _, X, y = sim_lagab(n_rows)
     ds = gpt.Dataset(X, label=y)
     ds.construct()
+    _segment_at(torch, histogram, ds, kernel_row, SEED_VLB)
+
+
+def _segment_at(torch, histogram, ds, kernel_row, seed):
+    """hist_segment at a Dataset's shapes (uint8, the real bin count):
+    whole and part segments and a one-bin feature with the checks of phase
+    3, and the whole segment's times (the kernel's, the plain version's,
+    index_add_'s), added to kernel_row under "at_n<n/1000>k_p<p>"."""
+    dev = torch.device("cuda")
     num_bins = int(ds.num_bins)
     n, p = ds.bins.shape
-    rng = np.random.RandomState(SEED_VLB)
-    gen = torch.Generator().manual_seed(SEED_VLB)
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
     stats = np.ones((n, 3), dtype=np.float32)
     stats[:, 0] = rng.randn(n)
     stats[:, 1] = rng.rand(n) + 0.5
@@ -1925,7 +2034,7 @@ def phase_segment_vl(torch, gpt, histogram, kernel_row, n_rows=N_VL):
     bins = torch.as_tensor(np.ascontiguousarray(ds.bins, dtype=np.uint8),
                            device=dev)
     for name, b, s0, cnt in (("whole", bins, 0, n),
-                             ("part", bins, 1234, 7_777),
+                             ("part", bins, 1234, min(7_777, n - 1234)),
                              ("one-bin feature", _one_bin(bins, 1), 0, n)):
         tol = 1e-5 * float(histogram.hist_segment_plain(
             b, stats_d, s0, cnt, num_bins)[:, :2].abs().max())
@@ -1941,11 +2050,14 @@ def phase_segment_vl(torch, gpt, histogram, kernel_row, n_rows=N_VL):
            "device_ms": _device_ms(torch, kernel),
            "plain_ms": _time_ms(torch, lambda: histogram.hist_segment_plain(
                bins, stats_d, 0, n, num_bins)),
+           "library_ms": _segment_library_ms(torch, bins, stats_d, 0, n,
+                                             num_bins, kernel()),
            "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"[kernel] hist_segment n={n} p={p} B={num_bins} uint8, whole "
           f"segment: {row['ms']:.4f} ms by events, "
           f"{_fmt_ms(row['device_ms'])} device, plain {row['plain_ms']:.4f} "
-          f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+          f"ms, index_add_ {row['library_ms']:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     kernel_row[f"at_n{n // 1000}k_p{p}"] = row
 
 
@@ -1991,25 +2103,29 @@ def _train_vl_lagaboost(torch, gpt, n, device, dtype, rounds,
 def phase_vecchia_lagaboost(torch, gpt, histogram):
     """Binary Vecchia LaGaBoost at n = 20,000, p = 5 (sim_lagab, seed 4;
     the GP model of phase 20 in float32; 31 leaves, learning rate 0.1) for
-    3 rounds (10 in earlier runs; cut to make room for phases 23-26), then
-    the response on 1,000 new points. Returns hist_segment's launches over
-    the 3 rounds."""
+    ROUNDS_VL_DENSE (1) rounds (10, then 3, in earlier runs; cut to make
+    room for phases 23-26 and 39-41), then the response on 1,000 new
+    points. Returns hist_segment's launches over those rounds."""
     _reset_launches(histogram)
     bst, gp, init_s, fit_s, secs = _train_vl_lagaboost(
         torch, gpt, N_VL, "cuda", "float32", ROUNDS_VL_DENSE)
     launches = histogram.hist_segment.launches
     from collections import Counter
-    sites = Counter()
-    _, syncs = _count_syncs(torch, bst.update, sites)
+    sites, kernels, counted = Counter(), {}, {}
+    # one more round, profiled, whose host syncs are counted too (a round
+    # each before the script's time limit forced the cut, and two profiled
+    # before phases 27-29)
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: counted.update(
+            syncs=_count_syncs(torch, bst.update, sites)[1]),
+        by_name=kernels)
+    syncs = counted["syncs"]
     print(f"[vecchia-lagaboost] host syncs of round {ROUNDS_VL_DENSE + 1} by "
           "Python line: "
           + ", ".join(f"{k} x{v}" for k, v in sites.most_common(8)),
           flush=True)
-    kernels = {}
-    # one profiled round (two before phases 27-29)
-    busy, wall, hist_s = _device_busy_s(torch, bst.update, by_name=kernels)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[vecchia-lagaboost] device time of round {ROUNDS_VL_DENSE + 2} "
+    print(f"[vecchia-lagaboost] device time of round {ROUNDS_VL_DENSE + 1} "
           "by kernel: "
           + "; ".join(f"{k[:70]} {v:.3f} s" for k, v in top), flush=True)
     rng = np.random.RandomState(SEED_VLB + 1)
@@ -2037,8 +2153,8 @@ def phase_vecchia_lagaboost(torch, gpt, histogram):
           f"({gp._fit_result.optimizer}, {gp._fit_result.num_it} "
           f"iterations); mean per round {np.mean(secs):.4f} s (min "
           f"{np.min(secs):.4f}, max {np.max(secs):.4f}); host syncs in round "
-          f"{ROUNDS_VL_DENSE + 1}: {syncs}; device busy over round "
-          f"{ROUNDS_VL_DENSE + 2}: {_busy_txt(busy, wall, hist_s)}; predict "
+          f"{ROUNDS_VL_DENSE + 1}: {syncs}; device busy over that round: "
+          f"{_busy_txt(busy, wall, hist_s)}; predict "
           f"{N_PRED} points {pred_s:.3f} s; cov pars {cov.tolist()}; "
           f"hist_segment launches over the {ROUNDS_VL_DENSE} rounds "
           f"{launches}",
@@ -2062,10 +2178,12 @@ def _vl_golden_data():
 
 
 def phase_vecchia_laplace_card_vs_cpu(torch, gpt):
-    """Card against CPU at n = 2,000 (float64, 20 neighbours, random
-    ordering): the engine's NLL and gradients in u and F (rtol 1e-8) and
-    Newton steps, a fit (rtol 1e-4, equal iterations) and 3 rounds of
-    LaGaBoost (phase 5's near-tie rule, predictions to 1e-4); then the R
+    """Card against CPU at n = N_VL_CPU (1,000; 2,000 before the script's
+    time limit forced the cut; float64, 20 neighbours, random ordering):
+    the engine's NLL and gradients in u and F (rtol 1e-8) and Newton
+    steps, a fit (rtol 1e-4, equal iterations) and 1 round of LaGaBoost
+    (3 before phases 39-41; phase 5's near-tie rule, predictions to
+    1e-4); then the R
     goldens of tests/test_vecchia_laplace_golden.py on the card."""
     coords, y = sim_vl(N_VL_CPU)
     F = 0.3 * np.sin(np.arange(N_VL_CPU))
@@ -2091,7 +2209,7 @@ def phase_vecchia_laplace_card_vs_cpu(torch, gpt):
     if not (fit_rel < 1e-4 and ig == ic):
         raise AssertionError(f"vecchia-laplace fit card {cg} ({ig} its) "
                              f"cpu {cc} ({ic} its)")
-    runs = {dev: _train_vl_lagaboost(torch, gpt, N_VL_CPU, dev, "float64", 3)
+    runs = {dev: _train_vl_lagaboost(torch, gpt, N_VL_CPU, dev, "float64", 1)
             for dev in ("cuda", "cpu")}
     (bg, _, _, _, _), (bc, _, _, _, _) = runs["cuda"], runs["cpu"]
     res = _compare_models("vecchia-lagaboost card-vs-cpu", bc, bg)
@@ -2118,7 +2236,7 @@ def phase_vecchia_laplace_card_vs_cpu(torch, gpt):
           + f", Newton steps {sg} both; fit cov pars max rel diff "
           f"{fit_rel:.3g}, {ig} iterations both (card "
           f"{fits['cuda'][1]:.3f} s, cpu {fits['cpu'][1]:.3f} s); "
-          f"LaGaBoost 3 rounds: trees {res}; max |diff| "
+          f"LaGaBoost 1 round: trees {res}; max |diff| "
           + ", ".join(f"{k} {v:.3g}" for k, v in perr.items()), flush=True)
     # the R goldens (n = 100, m = 99, ordering none) on the card
     coords, D, yg, X = _vl_golden_data()
@@ -2308,20 +2426,21 @@ def phase_iterative_pieces(torch, gpt):
     if not np.max(np.abs(out["cuda"][0] - ex)) < 1e-8 * np.max(np.abs(ex)):
         raise AssertionError("pcg against a dense solve")
     # the Vecchia operators at n = 2,000
-    coords, y = sim_vl(N_VL_CPU)
+    n_b = 2_000
+    coords, y = sim_vl(n_b)
     eng = gpt.GPModel(gp_coords=coords, dtype="float64", device="cuda",
                       **VL_ITER)._engine
     with torch.no_grad():
         A, D = eng._vecchia._bd(eng._t(np.log([0.9, 10.0])), latent=True)
         idx = eng._vecchia._nn_idx
         An, In = A.cpu().numpy(), idx.cpu().numpy()
-        Bm = np.eye(N_VL_CPU)
-        np.add.at(Bm, (np.repeat(np.arange(N_VL_CPU), In.shape[1]),
+        Bm = np.eye(n_b)
+        np.add.at(Bm, (np.repeat(np.arange(n_b), In.shape[1]),
                        In.reshape(-1)), -An.reshape(-1))
         op_err = 0.0
         bitwise = True
         for k in (None, 8):
-            V = rng.randn(N_VL_CPU) if k is None else rng.randn(N_VL_CPU, k)
+            V = rng.randn(n_b) if k is None else rng.randn(n_b, k)
             Vd = eng._t(V)
             for name, f, ref in (("Bv", eng._Bv, Bm @ V),
                                  ("B'w", eng._Btv, Bm.T @ V)):
@@ -2335,7 +2454,7 @@ def phase_iterative_pieces(torch, gpt):
     print("[iterative pieces] card vs CPU, max rel diff: "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + f"; pcg_it counts {out["cuda"][2].tolist()} both; Vecchia B v "
-          f"and B'w at n={N_VL_CPU} (1 and 8 columns) against B built "
+          f"and B'w at n={n_b} (1 and 8 columns) against B built "
           f"densely: max rel err {op_err:.3g}, B'w bitwise equal across "
           "two launches", flush=True)
 
@@ -2480,12 +2599,12 @@ def phase_vecchia_laplace_iterative(torch, gpt, cov_dense64):
     m32 = gpt.GPModel(gp_coords=coords, dtype="float32", device="cuda",
                       **VL_ITER)
     t0 = time.perf_counter()
-    m32.fit(y=y, params=VL_FIT)
+    m32.fit(y=y, params={**VL_FIT, "maxit": 3})
     torch.cuda.synchronize()
     secs32 = time.perf_counter() - t0
     cg32 = m32._engine.cg_stats()
     cov32 = m32.get_cov_pars()
-    print(f"[vecchia-laplace iterative] float32: {secs32:.3f} s, "
+    print(f"[vecchia-laplace iterative] float32 (maxit 3): {secs32:.3f} s, "
           f"{m32.get_num_optim_iter()} iterations, "
           f"{m32._engine.total_num_mode_it} Newton steps, "
           f"{m32.get_total_num_cg_steps()} CG iterations in the mode "
@@ -2592,8 +2711,10 @@ def phase_vecchia_lagaboost_iterative(torch, gpt, histogram, kernel_row,
 
 
 def phase_iterative_card_vs_cpu(torch, gpt):
-    """Card against CPU at n = 2,000, iterative (vadu), float64, with 10
-    probes (num_rand_vec_trace) and at most 3 iterations a fit (maxit),
+    """Card against CPU at n = N_IT_CPU (500), iterative (vadu), float64,
+    with 5 probes (num_rand_vec_trace) and at most 2 iterations a fit
+    (maxit; n = 2,000, 10 probes and 3 before phases 39-41 came, then
+    n = 1,000),
     set by set_optim_params to keep the CPU side short: the engine's NLL
     (rtol 1e-6), g_u and g_F (rtol 1e-4) and Newton steps; one fit
     (parameters rtol 1e-3, equal iterations); 2 LaGaBoost rounds with the
@@ -2612,10 +2733,10 @@ def phase_iterative_card_vs_cpu(torch, gpt):
     Cholesky branch on the card: NLL (rtol 1e-4) and its gradient (1e-1,
     the R suite's TOL_ITERATIVE: the SLQ gradient's error) at fixed
     parameters, and a fit (1e-2)."""
-    coords, y = sim_vl(N_VL_CPU)
-    F = 0.3 * np.sin(np.arange(N_VL_CPU))
+    coords, y = sim_vl(N_IT_CPU)
+    F = 0.3 * np.sin(np.arange(N_IT_CPU))
     u = np.log([0.9, 1.0 / 0.1])
-    it_params = {"num_rand_vec_trace": 10, "maxit": 3}
+    it_params = {"num_rand_vec_trace": 5, "maxit": 2}
     ev = {}
     for dev in ("cuda", "cpu"):
         gm = gpt.GPModel(gp_coords=coords, dtype="float64", device=dev,
@@ -2631,7 +2752,7 @@ def phase_iterative_card_vs_cpu(torch, gpt):
     errs = {"nll": abs(ng / nc - 1.0),
             "g_u": float(np.max(np.abs(gug / guc - 1.0))),
             "g_F": float(np.max(np.abs(gFg - gFc)) / np.max(np.abs(gFc)))}
-    print(f"[iterative card-vs-cpu] n={N_VL_CPU} m={M_VL} vadu float64, 10 "
+    print(f"[iterative card-vs-cpu] n={N_IT_CPU} m={M_VL} vadu float64, 5 "
           "probes: engine max rel diff " + ", ".join(
               f"{k} {v:.3g}" for k, v in errs.items())
           + f", Newton steps {sg} / {sc}, CG iterations {cgg} / {cgc} "
@@ -2649,7 +2770,7 @@ def phase_iterative_card_vs_cpu(torch, gpt):
         fits[dev] = (gm.get_cov_pars(), gm.get_num_optim_iter(),
                      time.perf_counter() - t0)
     fit_rel = float(np.max(np.abs(fits["cuda"][0] / fits["cpu"][0] - 1.0)))
-    print(f"[iterative card-vs-cpu] fit (maxit 3): cov pars max rel diff "
+    print(f"[iterative card-vs-cpu] fit (maxit 2): cov pars max rel diff "
           f"{fit_rel:.3g}, iterations {fits["cuda"][1]} / {fits['cpu'][1]} "
           f"(card {fits["cuda"][2]:.3f} s, cpu {fits['cpu'][2]:.3f} s)",
           flush=True)
@@ -2663,7 +2784,7 @@ def phase_iterative_card_vs_cpu(torch, gpt):
         t0 = time.perf_counter()
         with _RefitLog(torch) as logs[dev]:
             bst, gp, *_ = _train_vl_lagaboost(
-                torch, gpt, N_VL_CPU, dev, "float64", 1, model=VL_ITER,
+                torch, gpt, N_IT_CPU, dev, "float64", 1, model=VL_ITER,
                 gp_params=it_params)
             bst.params["train_gp_model_cov_pars"] = False
             bst.update()
@@ -2780,7 +2901,7 @@ VECCHIA_PRED_TYPES = ("order_obs_first_cond_obs_only", "order_pred_first",
                       "order_obs_first_cond_all",
                       "latent_order_obs_first_cond_all")
 LATENT_ALL = "latent_order_obs_first_cond_all"
-N_PRED_VECCHIA, N_LATENT_VAR, N_PRED_VCPU = 10_000, 1_000, 200
+N_PRED_VECCHIA, N_LATENT_VAR, N_PRED_VCPU = 10_000, 500, 200
 VECCHIA_FIT = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1],
                "maxit": MAXIT_VECCHIA}
 N_CLUSTERS, N_PER_CLUSTER, N_DENSE_CL, DENSE_CLUSTERS = 100, 1_000, 5_000, 10
@@ -3531,7 +3652,7 @@ def phase_cv(torch, gpt, histogram):
     best = gpt.grid_search_tune_parameters(
         GRID, params=GROUPED, train_set=gpt.Dataset(X, label=y),
         gp_model=gpt.GPModel(group_data=group, device="cuda"), nfold=4,
-        num_try_random=2, num_boost_round=ROUNDS_GRID, seed=3, metrics="l2",
+        num_try_random=1, num_boost_round=ROUNDS_GRID, seed=3, metrics="l2",
         device="cuda")
     grid_s = time.perf_counter() - t0
     if best["best_params"] is None or not np.isfinite(best["best_score"]):
@@ -3541,7 +3662,7 @@ def phase_cv(torch, gpt, histogram):
           f"({cv_s / (4 * rounds):.4f} s a fold-round, each fold's first GP "
           f"fit included), best_iter {res['best_iter']}, l2 "
           f"{min(res['l2-mean']):.6f}; hist_segment launches {launches}; "
-          f"grid search 2 of 4 combinations x {ROUNDS_GRID} rounds "
+          f"grid search 1 of 4 combinations x {ROUNDS_GRID} rounds "
           f"{grid_s:.3f} s, best {best}", flush=True)
     print(f"[cv card-vs-cpu] n={N_CV_CPU} q={Q_CV_CPU}, {ROUNDS_CV_CPU} "
           f"rounds, grid 2 x 5 rounds: {_cv_card_cpu(gpt)}", flush=True)
@@ -3553,7 +3674,7 @@ def phase_cv(torch, gpt, histogram):
 # FITC-Laplace, tapering, full-scale tapering, full-scale Vecchia)
 N_FITC, M_FITC, N_FITC_PRED, N_FITCL, N_FITCL_CPU, M_FITCL_CPU = \
     100_000, 500, 10_000, 50_000, 1_000, 100
-ROUNDS_FITCL, ROUNDS_FSA_BOOST = 3, 3
+ROUNDS_FITCL, ROUNDS_FSA_BOOST = 3, 1
 N_FSA, TAPER_FSA, M_FSA, NN_FSVA, MAXIT_FSA = 20_000, 0.02, 100, 30, 20
 FITC_FIT = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1]}
 
@@ -3866,8 +3987,8 @@ def phase_taper(torch, gpt):
 # ----------------------------------------------------------------------
 # phases 36-38: the combined Vecchia GP + grouped random effects engine
 N_CB, SITES_CB, Q_CB, Q_CB2, MAXIT_CB, ROUNDS_CB = \
-    50_000, 10_000, 1_000, 200, 5, 3
-N_CB_GAUSS, MAXIT_CB_GAUSS, ROUNDS_CB_GAUSS = 20_000, 3, 2
+    50_000, 10_000, 1_000, 200, 5, 1
+N_CB_GAUSS, MAXIT_CB_GAUSS, ROUNDS_CB_GAUSS = 20_000, 2, 1
 N_CB_SMALL, N_CB_CPU, N_CB_EXACT_CPU = 2_000, 1_000, 500
 CB_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
             "num_neighbors": M_VL}
@@ -3912,8 +4033,9 @@ def phase_combined(torch, gpt, histogram):
     """Binary LaGaBoost over the combined model at full width: sim_combined
     n = 50,000 rows on 10,000 sites, q = 1,000 groups, bernoulli_probit,
     exponential, 20 neighbours, float64, "auto" (the iterative formulation
-    above n = 8,000), vadu; 31 leaves, learning rate 0.1, 3 rounds, the GP
-    model's first fit capped at 5 iterations (phase 25's cut). The first
+    above n = 8,000), vadu; 31 leaves, learning rate 0.1, ROUNDS_CB rounds,
+    the GP model's first fit capped at MAXIT_CB iterations (phase 25's
+    cut). The first
     fit's seconds, iterations, Newton steps, CG iterations and solves at
     cg_max_num_it, host syncs and peak device memory; seconds a round with
     each round's GD refit, the device busy share of one gradient in F,
@@ -4034,7 +4156,8 @@ def _cb_nll(gpt, coords, group, y, pars, device, **kw):
 def phase_combined_more(torch, gpt, histogram):
     """GPBoost with a Gaussian response on the combined model at
     n = 20,000 (LaGaBoost over gaussian_latent, iterative; the first fit
-    capped at 3 iterations, then 2 rounds with the parameters held); the
+    capped at MAXIT_CB_GAUSS iterations, then ROUNDS_CB_GAUSS rounds with
+    the parameters held); the
     dense and the iterative
     formulation at n = 2,000 (NLL within 5e-3 relative, the SLQ's bound);
     two crossed groupings (q = 1,000 and 200) at n = 20,000, where ssor
@@ -4289,10 +4412,397 @@ def phase_combined_card_vs_cpu(torch, gpt):
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
+# GP random coefficients (spatially varying coefficients): the R suite's
+# combined SVC model (tests/test_combined_gp_re_golden.py:661-742) at
+# n = 5,000 on the dense engine; adam and sampling
+N_SVC, N_SVC_PRED, N_SVC_SAMPLE, N_SVC_DRAWS = 5_000, 1_000, 200, 1_000
+N_SVC_LAPLACE, N_SVC_LAPLACE_PRED, ROUNDS_SVC_LAPLACE = 2_000, 500, 3
+N_SVC_CPU, N_ADAM_CPU, Q_ADAM_CPU, SEED_SVC = 500, 500, 20, 12
+
+
+def sim_svc(n, p=P, seed=SEED_SVC):
+    """tests/test_combined_gp_re_golden.py's fixture (:36-66) at n rows,
+    drawn from a numpy seed: an exponential GP (variance 1, range 0.1)
+    with two random-coefficient processes on covariates Z (n, 2), two
+    crossed groupings (10 groups of n / 10 rows; n / 10 levels tiled) with
+    a random slope x on the first, noise sd 0.2; plus sim_gpboost's
+    F(X) over p tree features. The three GP draws share one host Cholesky
+    of the n x n kernel."""
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2)
+    sq = np.sum(coords ** 2, 1)
+    D = np.sqrt(np.maximum(sq[:, None] + sq[None, :]
+                           - 2.0 * coords @ coords.T, 0.0))
+    C = np.linalg.cholesky(np.exp(-D / 0.1) + 1e-8 * np.eye(n))
+    b1, b2, b3 = (C @ rng.randn(n, 3)).T
+    Z = rng.rand(n, 2)
+    m = 10
+    g1, g2 = np.repeat(np.arange(m), n // m), np.tile(np.arange(n // m), m)
+    x = np.cos((np.arange(1, n + 1) - n / 2) ** 2 * 5.5 * np.pi / n)
+    bg1, bg2, bg3 = rng.randn(m), rng.randn(n // m), rng.randn(m)
+    X = rng.rand(n, p)
+    f = np.sin(3 * X[:, 0]) + X[:, 1] ** 2
+    lat = b1 + Z[:, 0] * b2 + Z[:, 1] * b3 + bg1[g1] + bg2[g2] + x * bg3[g1]
+    y = f + lat + 0.2 * rng.randn(n)
+    # the file's _init10: half the response variance for every variance,
+    # a third of the mean distance for every range
+    v, md = np.var(y, ddof=1) / 2, float(np.mean(D[np.triu_indices(n, 1)]))
+    return dict(coords=coords, Z=Z, groups=np.column_stack([g1, g2]), x=x,
+                X=X, y=y, lat=lat - np.mean(lat),
+                init=[v, v, v, v, v, md / 3, v, md / 3, v, md / 3])
+
+
+def _svc_pred_points(n_pred, n, seed=SEED_SVC + 1):
+    """New points: coordinates, covariates, the first grouping's levels
+    and 10 % unseen levels of the second, slopes and tree features."""
+    rng = np.random.RandomState(seed)
+    g2 = rng.randint(0, n // 10, n_pred)
+    g2[: n_pred // 10] = n + np.arange(n_pred // 10)
+    pk = dict(gp_coords_pred=rng.rand(n_pred, 2),
+              gp_rand_coef_data_pred=rng.rand(n_pred, 2),
+              group_data_pred=np.column_stack([rng.randint(0, 10, n_pred),
+                                               g2]),
+              group_rand_coef_data_pred=rng.rand(n_pred))
+    return pk, rng.rand(n_pred, P)
+
+
+def _svc_model(gpt, d, device, grouped=True, **kw):
+    """The SVC model on d: an exponential GP with d["Z"]'s two
+    random-coefficient columns, and with grouped=True the two groupings
+    with a slope on the first (10 parameters with the error variance)."""
+    extra = dict(group_data=d["groups"], group_rand_coef_data=d["x"],
+                 ind_effect_group_rand_coef=1) if grouped else {}
+    return gpt.GPModel(gp_coords=d["coords"], gp_rand_coef_data=d["Z"],
+                       cov_function="exponential", device=device, **extra,
+                       **kw)
+
+
+def _svc_booster(torch, gpt, d, device):
+    """GPBoost on d with the SVC model (w_gpboost1000's trees), its GP fit
+    from the file's _init10; the first fit's seconds, host syncs (on the
+    card) and iterations go into the returned record."""
+    gp = _svc_model(gpt, d, device)
+    gp.set_optim_params(params={"init_cov_pars": d["init"]})
+    rec, fit = {}, gp.fit
+
+    def counted_fit(*args, **kwargs):
+        t0 = time.perf_counter()
+        if device == "cuda":
+            out, syncs = _count_syncs(torch, lambda: fit(*args, **kwargs))
+            torch.cuda.synchronize()
+        else:
+            out, syncs = fit(*args, **kwargs), None
+        rec.setdefault("fit", (time.perf_counter() - t0, syncs,
+                               gp.get_num_optim_iter(),
+                               gp.get_cov_pars()))
+        return out
+
+    gp.fit = counted_fit
+    bst = gpt.Booster(dict(PARAMS), gpt.Dataset(d["X"], label=d["y"]),
+                      gp_model=gp, device=device)
+    return bst, gp, rec
+
+
+def _mc_check(what, samples, mu, cov):
+    """The draws (n_pred, N) against the predicted mean and covariance
+    within Monte-Carlo limits: every sample mean within 5 standard errors
+    sqrt(cov_ii / N) of mu, every sample covariance entry within 6 of its
+    standard errors sqrt((cov_ii cov_jj + cov_ij^2) / (N - 1)) of cov
+    (normal approximations; a Gaussian draw passes both with probability
+    above 0.999 at 200 points). Returns the largest of each in standard
+    errors."""
+    N = samples.shape[1]
+    d = np.diagonal(cov)
+    z_mean = float(np.max(np.abs(samples.mean(1) - mu) / np.sqrt(d / N)))
+    se = np.sqrt((np.outer(d, d) + cov ** 2) / (N - 1))
+    z_cov = float(np.max(np.abs(np.cov(samples) - cov) / se))
+    if not (z_mean < 5.0 and z_cov < 6.0):
+        raise AssertionError(f"{what}: sample means {z_mean:.2f}, sample "
+                             f"covariances {z_cov:.2f} standard errors "
+                             "from the prediction")
+    return z_mean, z_cov
+
+
+def phase_svc(torch, gpt, histogram, kernel_row):
+    """Phase 39: SVC GPBoost at full width (sim_svc, n = 5,000, p = 5,
+    float64, the dense engine, 10 covariance parameters): hist_segment at
+    its shapes (phase 3's checks, bit for bit), 10 rounds, 1,000
+    predictions with variances, then 1,000 posterior draws at 200 points
+    held to the predicted mean and covariance. Returns hist_segment's
+    launches over the rounds."""
+    t0 = time.perf_counter()
+    d = sim_svc(N_SVC)
+    sim_s = time.perf_counter() - t0
+    ds = gpt.Dataset(d["X"], label=d["y"])
+    ds.construct()
+    _segment_at(torch, histogram, ds, kernel_row, SEED_SVC)
+    bst, gp, rec = _svc_booster(torch, gpt, d, "cuda")
+    _reset_launches(histogram)
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = histogram.hist_segment.launches
+    if len(bst.trees) != ROUNDS or launches <= 0:
+        raise AssertionError(f"svc gpboost: {len(bst.trees)} trees, "
+                             f"{launches} launches")
+    fit_s, fit_syncs, fit_it, fit_cov = rec["fit"]
+    cov = gp.get_cov_pars()
+    _finite("svc cov pars", cov, (10,), positive=True)
+    busy, wall, hist_s = _device_busy_s(torch, bst.update)
+    pk, Xn = _svc_pred_points(N_SVC_PRED, N_SVC)
+    pred, pred_s, pred_syncs, _ = _timed(torch, lambda: bst.predict(
+        Xn, predict_var=True, **pk))
+    for k in ("response_mean", "response_var"):
+        _finite(f"svc gpboost {k}", pred[k], (N_SVC_PRED,), k.endswith("var"))
+    sk = {k: v[:N_SVC_SAMPLE] for k, v in pk.items()}
+    out, samp_s, samp_syncs, _ = _timed(torch, lambda: bst.predict(
+        Xn[:N_SVC_SAMPLE], predict_cov_mat=True, sample_posterior=True,
+        num_post_samples=N_SVC_DRAWS, seed=SEED_SVC, **sk))
+    samples = out["posterior_samples"]
+    _finite("svc posterior samples", samples, (N_SVC_SAMPLE, N_SVC_DRAWS))
+    z_mean, z_cov = _mc_check("svc posterior samples", samples,
+                              out["response_mean"], out["random_effect_cov"])
+    print(f"[svc] sim_svc n={N_SVC} p={P} (host simulation {sim_s:.3f} s), "
+          f"exponential GP + 2 random-coefficient GPs + 2 crossed groupings "
+          f"with a slope, 10 cov pars, dense engine float64, 31 leaves, "
+          f"{ROUNDS} rounds: first GP fit {fit_s:.3f} s, {fit_it} "
+          f"iterations, {fit_syncs} host syncs, cov pars "
+          f"{np.round(fit_cov, 5).tolist()}; round 1 (with the first fit) "
+          f"{secs[0]:.3f} s, rounds 2-{ROUNDS} mean {np.mean(secs[1:]):.4f} "
+          f"s (each with its GP refit); peak {peak:.2f} GiB; device busy "
+          f"over round {ROUNDS + 1} {_busy_txt(busy, wall, hist_s)}; "
+          f"hist_segment launches {launches}; final cov pars "
+          f"{np.round(cov, 5).tolist()}", flush=True)
+    print(f"[svc] predict {N_SVC_PRED} points with variances (gp_rand_coef_"
+          f"data_pred, 10 % unseen levels) {pred_s:.3f} s, {pred_syncs} host "
+          f"syncs; {N_SVC_DRAWS} posterior draws at {N_SVC_SAMPLE} points "
+          f"(covariance, Cholesky and L z on the card) {samp_s:.3f} s, "
+          f"{samp_syncs} host syncs: sample means within {z_mean:.2f}, "
+          f"sample covariances within {z_cov:.2f} standard errors of the "
+          "prediction", flush=True)
+    return launches
+
+
+def _lmm_data(n, q, seed=42):
+    """examples/01_grouped_random_effects.py:14-24 (phase 13's LMM)."""
+    rng = np.random.RandomState(seed)
+    group = rng.randint(0, q, n)
+    b = 0.8 * rng.randn(q)
+    X = np.column_stack([np.ones(n), rng.rand(n)])
+    return group, X, X @ np.array([1.0, 2.0]) + b[group] \
+        + 0.5 * rng.randn(n)
+
+
+def _svc_probit(n, seed=SEED_SVC + 2):
+    """A binary probit response on sim_svc's latent field and F(X)."""
+    from scipy.stats import norm
+    d = sim_svc(n, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    lat = d["lat"] + np.sin(3 * d["X"][:, 0]) - 0.5
+    d["y"] = (rng.rand(n) < norm.cdf(lat)).astype(float)
+    return d
+
+
+def phase_adam_svc_laplace(torch, gpt, histogram, kernel_row):
+    """Phase 40: optimizer_cov="adam" on the LMM of examples/01 (phase
+    13's data, n = 100,000, q = 1,000, with X; the Woodbury engine) and on
+    bench.py's binary GLMM (phase 15's data; the grouped Laplace engine),
+    each beside lbfgs on the same data; then a binary probit SVC model
+    (an exponential GP with two random-coefficient processes) on the dense
+    Laplace engine at n = 2,000 (hist_segment at its shapes first): the
+    fit, 3 LaGaBoost rounds, 500 predictions with 1,000 posterior and
+    1,000 prior draws. Returns hist_segment's launches over the rounds."""
+    group, X, y = _lmm_data(N_GROUPED, Q_GROUPED)
+    g_glmm, y_glmm = sim_glmm(N_GLMM, Q_GLMM)
+    cases = ((f"lmm n={N_GROUPED} q={Q_GROUPED} with X",
+              dict(group_data=group), dict(y=y, X=X), {}),
+             (f"binary glmm n={N_GLMM} q={Q_GLMM} maxit {MAXIT_GLMM}",
+              dict(group_data=g_glmm, likelihood="bernoulli_logit"),
+              dict(y=y_glmm), {"maxit": MAXIT_GLMM}))
+    for what, model_kw, data, params in cases:
+        res = {}
+        for opt in ("adam", "lbfgs"):
+            m = gpt.GPModel(device="cuda", **model_kw)
+            _, secs, syncs, _ = _timed(torch, lambda: m.fit(
+                **data, params={**params, "optimizer_cov": opt}))
+            r = m._fit_result
+            res[opt] = (r.num_it, secs, syncs, r.neg_log_likelihood,
+                        m.get_cov_pars())
+            _finite(f"{what} {opt} cov pars", res[opt][4],
+                    res[opt][4].shape, positive=True)
+        (ia, sa, ya, na, ca), (il, sl, yl, nl, cl) = res["adam"], \
+            res["lbfgs"]
+        print(f"[adam] {what}: adam {ia} iterations in {sa:.3f} s ({ya} "
+              f"host syncs), nll {na:.6f}, cov pars {ca.tolist()}; lbfgs "
+              f"{il} iterations in {sl:.3f} s ({yl} host syncs), nll "
+              f"{nl:.6f}; adam - lbfgs nll {na - nl:.3g}", flush=True)
+    d = _svc_probit(N_SVC_LAPLACE)
+    ds = gpt.Dataset(d["X"], label=d["y"])
+    ds.construct()
+    _segment_at(torch, histogram, ds, kernel_row, SEED_SVC + 2)
+    gp = _svc_model(gpt, d, "cuda", grouped=False,
+                    likelihood="bernoulli_probit")
+    fit_s = []
+    fit = gp.fit
+
+    def timed_fit(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+        return out
+
+    gp.fit = timed_fit
+    bst = gpt.Booster(dict(VLB), gpt.Dataset(d["X"], label=d["y"]),
+                      gp_model=gp, device="cuda")
+    _reset_launches(histogram)
+    secs = []
+    for _ in range(ROUNDS_SVC_LAPLACE):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    gp.fit = fit
+    launches = histogram.hist_segment.launches
+    if len(bst.trees) != ROUNDS_SVC_LAPLACE or launches <= 0:
+        raise AssertionError(f"svc lagaboost: {len(bst.trees)} trees, "
+                             f"{launches} launches")
+    cov = gp.get_cov_pars()
+    _finite("svc probit cov pars", cov, (6,), positive=True)
+    pk, Xn = _svc_pred_points(N_SVC_LAPLACE_PRED, N_SVC_LAPLACE)
+    pk = {k: pk[k] for k in ("gp_coords_pred", "gp_rand_coef_data_pred")}
+    post, post_s, _, _ = _timed(torch, lambda: bst.predict(
+        Xn, pred_latent=True, predict_cov_mat=True, sample_posterior=True,
+        num_post_samples=N_SVC_DRAWS, seed=SEED_SVC, **pk))
+    prior, prior_s, _, _ = _timed(torch, lambda: bst.predict(
+        Xn, pred_latent=True, sample_prior=True,
+        num_prior_samples=N_SVC_DRAWS, seed=SEED_SVC, **pk))
+    F = post["fixed_effect"]
+    zp = _mc_check("svc probit posterior draws", post["posterior_samples"],
+                   post["random_effect_mean"] + F, post["random_effect_cov"])
+    _finite("svc probit prior draws", prior["prior_samples"],
+            (N_SVC_LAPLACE_PRED, N_SVC_DRAWS))
+    v_prior = float(np.mean(np.var(prior["prior_samples"], 1)))
+    v_model = float(np.mean(
+        cov[0] + cov[2] * pk["gp_rand_coef_data_pred"][:, 0] ** 2
+        + cov[4] * pk["gp_rand_coef_data_pred"][:, 1] ** 2))
+    if not abs(v_prior / v_model - 1.0) < 0.05:
+        raise AssertionError(f"svc probit prior draws: mean variance "
+                             f"{v_prior:.4f}, the model's {v_model:.4f}")
+    print(f"[svc lagaboost] binary probit SVC (exponential GP + 2 "
+          f"random-coefficient GPs) n={N_SVC_LAPLACE} on the dense Laplace "
+          f"engine: fit {fit_s[0]:.3f} s, {gp.get_num_optim_iter()} "
+          f"iterations (lbfgs); rounds "
+          + ", ".join(f"{x:.3f}" for x in secs)
+          + f" s (round 1 with the fit); cov pars {np.round(cov, 5).tolist()}"
+          f"; hist_segment launches {launches}; {N_SVC_LAPLACE_PRED} latent "
+          f"predictions with {N_SVC_DRAWS} posterior draws {post_s:.3f} s "
+          f"(means within {zp[0]:.2f}, covariances within {zp[1]:.2f} "
+          f"standard errors), {N_SVC_DRAWS} prior draws {prior_s:.3f} s "
+          f"(mean variance {v_prior:.4f}, the model's {v_model:.4f})",
+          flush=True)
+    return launches
+
+
+def phase_svc_card_vs_cpu(torch, gpt):
+    """Phase 41: card against CPU, float64, at n = 500: SVC GPBoost for 2
+    rounds (the init score; trees under phase 5's near-tie rule,
+    covariance parameters and predictions after them); both adam fits
+    of phase 40 at n = 500 (q = 20): iterations equal, parameters;
+    posterior and prior draws at one seed element by element; the probit
+    SVC model's Laplace NLL and gradients. Every difference is printed
+    before any is held to its limit: relative 1e-8 (1e-10 for the Laplace
+    NLL and gradients)."""
+    t_all = time.perf_counter()
+    d = sim_svc(N_SVC_CPU)
+    pk, Xn = _svc_pred_points(50, N_SVC_CPU)
+    errs, fails = {}, []
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        bst, gp, rec = _svc_booster(torch, gpt, d, dev)
+        for _ in range(2):
+            bst.update()
+        pred = bst.predict(Xn, predict_var=True, **pk)
+        draws = gp.predict(y=d["y"] - bst.F.cpu().numpy(),
+                           sample_posterior=True, num_post_samples=100,
+                           seed=SEED_SVC, **pk)["posterior_samples"]
+        prior = gp.predict(sample_prior=True, num_prior_samples=100,
+                           seed=SEED_SVC, **pk)["prior_samples"]
+        runs[dev] = (bst, gp, rec["fit"], pred, draws, prior)
+    (bg, gg, fg, pg, dg, rg), (bc, gc, fc, pc, dc, rc) = runs["cuda"], \
+        runs["cpu"]
+    trees = _compare_models("svc gpboost card-vs-cpu", bc, bg)
+    errs["init score"] = abs(bg.init_score / bc.init_score - 1.0)
+    # the first fit is printed, not held: scipy's L-BFGS-B, run to ftol
+    # 1e-16, stops where the two sides' NLLs part in their last bits
+    # (16 and 18 iterations, 1.05e-8 apart in the first card run); the
+    # refits of the rounds bring both to the same optimum
+    first = _rel_errs([fg[3]], [fc[3]])[0]
+    errs["cov pars"] = _rel_errs([gg.get_cov_pars()], [gc.get_cov_pars()])[0]
+    for k in ("response_mean", "response_var"):
+        errs[k] = _rel_errs([pg[k]], [pc[k]])[0]
+    errs["posterior draws"] = _rel_errs([dg], [dc])[0]
+    errs["prior draws"] = _rel_errs([rg], [rc])[0]
+    # adam at n = 500: the LMM with X and the binary GLMM
+    group, X, y = _lmm_data(N_ADAM_CPU, Q_ADAM_CPU)
+    g_glmm, y_glmm = sim_glmm(N_ADAM_CPU, Q_ADAM_CPU)
+    its = {}
+    for what, model_kw, data in (
+            ("adam lmm", dict(group_data=group), dict(y=y, X=X)),
+            ("adam glmm", dict(group_data=g_glmm,
+                               likelihood="bernoulli_logit"),
+             dict(y=y_glmm))):
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            m = gpt.GPModel(device=dev, **model_kw)
+            m.fit(**data, params={"optimizer_cov": "adam"})
+            fits[dev] = (m.get_num_optim_iter(), m.get_cov_pars())
+        its[what] = (fits["cuda"][0], fits["cpu"][0])
+        errs[what + " cov pars"] = _rel_errs([fits["cuda"][1]],
+                                             [fits["cpu"][1]])[0]
+        if its[what][0] != its[what][1]:
+            fails.append(f"{what} iterations {its[what]}")
+    # the probit SVC model's Laplace NLL and gradients
+    dp = _svc_probit(N_SVC_CPU)
+    F = 0.3 * np.sin(np.arange(N_SVC_CPU))
+    ev = {}
+    for dev in ("cuda", "cpu"):
+        m = _svc_model(gpt, dp, dev, grouped=False,
+                       likelihood="bernoulli_probit")
+        eng = m._engine
+        u = eng._u_from_pars([1.0, 0.1, 0.5, 0.15, 0.3, 0.2], None, dp["y"])
+        nll, gu, gF, _ = eng.laplace_vag_F(u, dp["y"], F, eng.zero_mode())
+        ev[dev] = ((nll, gu, gF), eng.last_num_mode_it)
+    for k, e in zip(("laplace nll", "laplace g_u", "laplace g_F"),
+                    _rel_errs(ev["cuda"][0], ev["cpu"][0])):
+        errs[k] = e
+    if ev["cuda"][1] != ev["cpu"][1]:
+        fails.append(f"Newton steps {ev['cuda'][1]} / {ev['cpu'][1]}")
+    print(f"[svc card-vs-cpu] n={N_SVC_CPU} float64: trees {trees}; first "
+          f"fit {fg[2]} / {fc[2]} iterations (card / cpu), cov pars max "
+          f"relative {first:.3g}; adam iterations (card, cpu) "
+          + ", ".join(f"{k} {v}" for k, v in its.items())
+          + f"; Newton steps {ev['cuda'][1]} both; max relative "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; card {fg[0]:.3f} s, cpu {fc[0]:.3f} s for the first fit; "
+          f"{time.perf_counter() - t_all:.3f} s", flush=True)
+    lims = {k: 1e-10 if k.startswith("laplace") else 1e-8 for k in errs}
+    fails += [f"{k} {v:.3g} > {lims[k]:g}" for k, v in errs.items()
+              if not v <= lims[k]]
+    if fails:
+        raise AssertionError("svc card vs CPU: " + "; ".join(fails))
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
-          (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38))
+          (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38),
+          (39, 41))
 
 
 def _groups(spec):
@@ -4431,6 +4941,15 @@ def main(argv=None):
         phase_combined_card_vs_cpu(torch, gpt)
         print(f"[combined] phases 36-38 in "
               f"{time.perf_counter() - t_c:.1f} s", flush=True)
+    if (39, 41) in groups:
+        t_s = time.perf_counter()
+        segment["launches_gpboost_svc_n5k"] = phase_svc(torch, gpt,
+                                                        histogram, segment)
+        segment["launches_lagaboost_svc_n2k"] = phase_adam_svc_laplace(
+            torch, gpt, histogram, segment)
+        phase_svc_card_vs_cpu(torch, gpt)
+        print(f"[svc] phases 39-41 in {time.perf_counter() - t_s:.1f} s",
+              flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

@@ -916,10 +916,13 @@ class Booster:
     def predict(self, data, start_iteration=0, num_iteration=None,
                 raw_score=False, pred_latent=False, pred_contrib=False,
                 group_data_pred=None, group_rand_coef_data_pred=None,
-                gp_coords_pred=None, cluster_ids_pred=None, predict_var=False,
+                gp_coords_pred=None, gp_rand_coef_data_pred=None,
+                cluster_ids_pred=None, predict_var=False,
                 predict_cov_mat=False, ignore_gp_model=False,
                 pred_early_stop=False, pred_early_stop_freq=10,
-                pred_early_stop_margin=10.0, cov_pars=None, pred_leaf=False):
+                pred_early_stop_margin=10.0, cov_pars=None, pred_leaf=False,
+                sample_posterior=False, sample_prior=False,
+                num_post_samples=100, num_prior_samples=None, seed=None):
         """Fixed effect from the trees plus the GP model's random effect
         (basic.py:3455; gbdt.py:1890-2153). Without a GP model (or with
         ignore_gp_model) the objective's output, (n,) numpy: the raw score
@@ -933,7 +936,12 @@ class Booster:
         iteration of early stopping is not applied by default, as in the
         reference); pred_early_stop stops a binary model's rows whose
         margin exceeds pred_early_stop_margin, checked every
-        pred_early_stop_freq trees."""
+        pred_early_stop_freq trees. sample_posterior / sample_prior (with
+        num_post_samples, num_prior_samples and seed) pass to
+        `GPModel.predict`; the samples come back under 'posterior_samples'
+        / 'prior_samples' with the trees' fixed effect added (for a
+        non-Gaussian model only with pred_latent, as the reference,
+        gbdt.py:2117-2150)."""
         if pred_contrib or pred_leaf:
             raise NotImplementedError("pred_contrib and pred_leaf are not "
                                       "ported yet (ROADMAP A12)")
@@ -944,15 +952,20 @@ class Booster:
             F_pred, raw_score=raw_score, pred_latent=pred_latent,
             group_data_pred=group_data_pred,
             group_rand_coef_data_pred=group_rand_coef_data_pred,
-            gp_coords_pred=gp_coords_pred, cluster_ids_pred=cluster_ids_pred,
-            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
-            ignore_gp_model=ignore_gp_model, cov_pars=cov_pars)
+            gp_coords_pred=gp_coords_pred,
+            gp_rand_coef_data_pred=gp_rand_coef_data_pred,
+            cluster_ids_pred=cluster_ids_pred, predict_var=predict_var,
+            predict_cov_mat=predict_cov_mat, ignore_gp_model=ignore_gp_model,
+            cov_pars=cov_pars, sample_posterior=sample_posterior,
+            sample_prior=sample_prior, num_post_samples=num_post_samples,
+            num_prior_samples=num_prior_samples, seed=seed)
 
     def _predict_output(self, F_pred, raw_score=False, pred_latent=False,
                         group_data_pred=None, group_rand_coef_data_pred=None,
-                        gp_coords_pred=None, cluster_ids_pred=None,
-                        predict_var=False, predict_cov_mat=False,
-                        ignore_gp_model=False, cov_pars=None):
+                        gp_coords_pred=None, gp_rand_coef_data_pred=None,
+                        cluster_ids_pred=None, predict_var=False,
+                        predict_cov_mat=False, ignore_gp_model=False,
+                        cov_pars=None, **sampling):
         """`predict` from the ensemble's raw score F_pred (gbdt.py:
         2076-2153): the objective's output transform, or the GP model's
         prediction around it."""
@@ -979,15 +992,18 @@ class Booster:
         if self.gp_model._likelihood_obj is not None:
             return self._predict_laplace(
                 F_pred, group_data_pred, group_rand_coef_data_pred,
-                gp_coords_pred, cluster_ids_pred, predict_var,
-                predict_cov_mat, pred_latent, cov_pars)
+                gp_coords_pred, gp_rand_coef_data_pred, cluster_ids_pred,
+                predict_var, predict_cov_mat, pred_latent, cov_pars,
+                sampling)
         resid = (self.y - self.F).cpu().numpy()
         pred = self.gp_model.predict(
             y=resid, group_data_pred=group_data_pred,
             group_rand_coef_data_pred=group_rand_coef_data_pred,
-            gp_coords_pred=gp_coords_pred, cluster_ids_pred=cluster_ids_pred,
-            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
-            predict_response=not pred_latent, cov_pars=cov_pars)
+            gp_coords_pred=gp_coords_pred,
+            gp_rand_coef_data_pred=gp_rand_coef_data_pred,
+            cluster_ids_pred=cluster_ids_pred, predict_var=predict_var,
+            predict_cov_mat=predict_cov_mat,
+            predict_response=not pred_latent, cov_pars=cov_pars, **sampling)
         out = {"fixed_effect": F_pred, "random_effect_mean": pred["mu"],
                "random_effect_cov": pred["cov"] if predict_cov_mat
                else pred["var"],
@@ -995,6 +1011,10 @@ class Booster:
                "response_mean": F_pred + pred["mu"]}
         if not pred_latent:
             out["response_var"] = pred["var"]
+        for k in ("posterior_samples", "prior_samples"):
+            if pred.get(k) is not None:
+                # the samples carry the ensemble's fixed effect
+                out[k] = pred[k] + F_pred[:, None]
         return out
 
     def _point_prediction(self, F_pred, **kwargs):
@@ -1009,8 +1029,9 @@ class Booster:
 
     def _predict_laplace(self, F_pred, group_data_pred,
                          group_rand_coef_data_pred, gp_coords_pred,
-                         cluster_ids_pred, predict_var, predict_cov_mat,
-                         pred_latent, cov_pars):
+                         gp_rand_coef_data_pred, cluster_ids_pred,
+                         predict_var, predict_cov_mat, pred_latent, cov_pars,
+                         sampling):
         """LaGaBoost predictions (gbdt.py:2126-2150): random_effect_mean is
         the latent random effect without the trees; the ensemble enters
         the response predictions as fixed_effects_pred."""
@@ -1018,10 +1039,12 @@ class Booster:
             y=self.y.cpu().numpy(), offset=self.F.cpu().numpy(),
             group_data_pred=group_data_pred,
             group_rand_coef_data_pred=group_rand_coef_data_pred,
-            gp_coords_pred=gp_coords_pred, cluster_ids_pred=cluster_ids_pred,
-            predict_var=predict_var, predict_cov_mat=predict_cov_mat,
+            gp_coords_pred=gp_coords_pred,
+            gp_rand_coef_data_pred=gp_rand_coef_data_pred,
+            cluster_ids_pred=cluster_ids_pred, predict_var=predict_var,
+            predict_cov_mat=predict_cov_mat,
             predict_response=not pred_latent, cov_pars=cov_pars,
-            fixed_effects_pred=None if pred_latent else F_pred)
+            fixed_effects_pred=None if pred_latent else F_pred, **sampling)
         out = {"fixed_effect": F_pred, "random_effect_mean": pred["mu"],
                "random_effect_cov": pred["cov"] if predict_cov_mat
                else pred["var"],
@@ -1029,6 +1052,12 @@ class Booster:
         if not pred_latent:
             out["response_mean"] = pred["mu"]
             out["response_var"] = pred["var"]
+        for k in ("posterior_samples", "prior_samples"):
+            if pred.get(k) is not None:
+                # the ensemble is added to latent samples only, as the
+                # reference does (gbdt.py:2143-2149)
+                out[k] = pred[k] + F_pred[:, None] if pred_latent \
+                    else pred[k]
         return out
 
     def predict_training_data_random_effects(self, predict_var=False):

@@ -3,7 +3,8 @@
 The JAX package's `GPModel.model_to_dict()` and `Booster.model_to_dict()`
 return plain numpy/JSON values: the likelihood with its additional
 parameter, the covariance, aux and coefficient estimates, the
-model-defining data (grouping variables, slopes, coordinates, cluster ids,
+model-defining data (grouping variables, slopes, coordinates, the
+covariates of GP random coefficients, cluster ids,
 observation weights, covariates, the Vecchia ordering seed and neighbour
 count, the inducing points' count, selection and seed, the taper's range
 and shape), the response, and for a booster the trees, the init score,
@@ -26,7 +27,9 @@ def gp_model_from_jax_dict(d, device=None):
     effects, and models of the 16 likelihoods of likelihoods/base.py with
     grouped random effects, an exact GP (with grouped effects too) or a
     Vecchia, FITC or tapering GP (a Vecchia one with grouped effects too),
-    are ported; any other model raises NotImplementedError. The inducing points are not in the dict:
+    exact and tapered GPs with random coefficients (gp_rand_coef_data)
+    included, are ported; any other model raises NotImplementedError. The
+    inducing points are not in the dict:
     both packages draw them again from the coordinates, the seed,
     num_ind_points and ind_points_selection, and kmeans++ places the same
     centres in both."""

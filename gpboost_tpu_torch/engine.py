@@ -217,11 +217,11 @@ def _make_folds(y, nfold, folds, seed, stratified):
 
 def _clone_gp_model(gp_model, idx):
     """The GPModel rebuilt on a row subset, with what the port's model
-    holds: grouping data and random slopes, coordinates, cluster ids,
-    weights, the likelihood and its parameter, the Vecchia settings, the
-    matrix inversion method, the float type and device, and the optimizer
-    parameters that differ from their defaults (init_cov_pars left to the
-    clone)."""
+    holds: grouping data and random slopes, coordinates and GP random
+    coefficients, cluster ids, weights, the likelihood and its parameter,
+    the Vecchia settings, the matrix inversion method, the float type and
+    device, and the optimizer parameters that differ from their defaults
+    (init_cov_pars left to the clone)."""
     if gp_model is None:
         return None
     from .models.optimize import OptimConfig
@@ -243,6 +243,8 @@ def _clone_gp_model(gp_model, idx):
             np.asarray(gp_model.ind_effect_group_rand_coef) + 1)
     if gp_model.gp_coords is not None:
         kw["gp_coords"] = gp_model.gp_coords[idx]
+    if gp_model.gp_rand_coef_data is not None:
+        kw["gp_rand_coef_data"] = gp_model.gp_rand_coef_data[idx]
     if gp_model.cluster_ids is not None:
         kw["cluster_ids"] = gp_model.cluster_ids[idx]
     if gp_model.weights is not None:
@@ -338,6 +340,9 @@ def cv(params=None, train_set=None, num_boost_round=100, gp_model=None,
                     gp_model.group_rand_coef_data[test_mask]
             if gp_model.gp_coords is not None:
                 pred_kw["gp_coords_pred"] = gp_model.gp_coords[test_mask]
+            if gp_model.gp_rand_coef_data is not None:
+                pred_kw["gp_rand_coef_data_pred"] = \
+                    gp_model.gp_rand_coef_data[test_mask]
             if gp_model.cluster_ids is not None:
                 pred_kw["cluster_ids_pred"] = gp_model.cluster_ids[test_mask]
         score = _RunningScore(bst, X[test_mask])

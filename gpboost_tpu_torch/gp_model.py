@@ -61,17 +61,25 @@ cov_fct_taper_shape (0, 1 or 2):
     models/fsva_iterative.py (CG and SLQ, whose settings
     set_optim_params takes).
 
+GP random coefficients (spatially varying coefficients,
+gp_rand_coef_data: one more GP per column, its kernel scaled by the
+covariate) run on the dense Gaussian and dense Laplace engines, also
+beside a tapering or full-scale adapter on the main GP
+(gp_model.py:237-253); the Vecchia and FITC engines take one GP and
+raise NotImplementedError.
+
 GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
 every optimizer of models/optimize.py (gradient descent, Fisher scoring,
-Newton, L-BFGS on the host or on the device, Nelder-Mead; for the Laplace
-engines gradient descent, L-BFGS and Nelder-Mead), with linear covariates
-`fit(y, X)`, fixed parameters, standard errors (Gaussian) and aux
-parameters. Prediction takes group_data_pred, group_rand_coef_data_pred,
-gp_coords_pred, X_pred and cluster_ids_pred, with the response's mean and
-variance (predict_response) for the non-Gaussian likelihoods;
-`model_to_dict` writes the reference's state dict and a dict of either
-package loads here. The likelihoods of likelihoods/families.py, GP random
-coefficients and posterior sampling raise NotImplementedError. The
+Newton, L-BFGS on the host or on the device, Nelder-Mead, adam; for the
+Laplace engines gradient descent, L-BFGS, Nelder-Mead and adam), with
+linear covariates `fit(y, X)`, fixed parameters, standard errors
+(Gaussian) and aux parameters. Prediction takes group_data_pred,
+group_rand_coef_data_pred, gp_coords_pred, gp_rand_coef_data_pred,
+X_pred and cluster_ids_pred, with the response's mean and variance
+(predict_response) for the non-Gaussian likelihoods, and draws posterior
+or prior samples (sample_posterior, sample_prior); `model_to_dict` writes
+the reference's state dict and a dict of either package loads here. The
+likelihoods of likelihoods/families.py raise NotImplementedError. The
 iterative engines (the Woodbury engine's iterative branch, which "auto"
 takes above q = 20,000, the matrix-free Vecchia-Laplace and combined
 engines and the iterative FSA / FSVA engines) read the reference's CG
@@ -92,7 +100,7 @@ import torch
 
 from .likelihoods.base import _ALIASES as _LIK_ALIASES, get_likelihood
 from .models.components import GPComponent, GroupedComponent
-from .models.gaussian_gp import DenseGaussianEngine
+from .models.gaussian_gp import DenseGaussianEngine, prior_pred_cov
 from .models.grouped_laplace import GroupedRELaplaceEngine
 from .models.grouped_re import WoodburyGaussianEngine
 from .models.laplace import LaplaceDenseEngine
@@ -186,9 +194,8 @@ class GPModel:
             raise NotImplementedError(
                 f"cov_function '{cov_function}' is not ported yet "
                 f"(supported: {SUPPORTED_COV_FUNCTIONS})")
-        unsupported = [nm for nm, v in (
-            ("gp_rand_coef_data", gp_rand_coef_data),
-            ("num_parallel_devices", num_parallel_devices)) if v is not None]
+        unsupported = ["num_parallel_devices"] \
+            if num_parallel_devices is not None else []
         if drop_intercept_group_rand_effect is not None \
                 and np.any(drop_intercept_group_rand_effect):
             unsupported.append("drop_intercept_group_rand_effect")
@@ -265,6 +272,24 @@ class GPModel:
             cov_fn = self._gp_cov_fn(gp_coords, cov_function, cov_fct_shape)
             self.components.append(GPComponent(gp_coords, cov_fn, name="GP"))
             self._par_names.extend(["GP_var", "GP_range"])
+        # GP random coefficients (gp_model.py:237-253): one GP per column of
+        # gp_rand_coef_data with its own plain kernel, also under a taper
+        self.gp_rand_coef_data = None
+        if gp_rand_coef_data is not None:
+            if self.gp_coords is None:
+                raise ValueError("gp_rand_coef_data needs gp_coords")
+            rc = np.asarray(gp_rand_coef_data, dtype=np.float64)
+            if rc.ndim == 1:
+                rc = rc[:, None]
+            self.gp_rand_coef_data = rc
+            for ic in range(rc.shape[1]):
+                pre = f"GP_rand_coef_nb_{ic + 1}"
+                self.components.append(GPComponent(
+                    self.gp_coords, CovarianceFunction(
+                        cov_function, shape=cov_fct_shape,
+                        dim=self.gp_coords.shape[1]),
+                    z=rc[:, ic], name=pre))
+                self._par_names.extend([pre + "_var", pre + "_range"])
 
         self.num_data = len(self.group_data) if self.group_data is not None \
             else len(self.gp_coords)
@@ -281,6 +306,16 @@ class GPModel:
             self._to_latent_gaussian()
         self._vecchia = gp_approx in ("vecchia", "vecchia_latent",
                                       "vecchia_euclidean")
+        if self.gp_rand_coef_data is not None \
+                and (self._vecchia or gp_approx == "fitc"):
+            # the reference's Vecchia and FITC engines take exactly one GP
+            # component (vecchia.py:151, fitc.py:56)
+            raise NotImplementedError(
+                f"gp_rand_coef_data with gp_approx='{gp_approx}': the "
+                "Vecchia and FITC engines take exactly one GP component; "
+                "GP random coefficients run on the dense engines "
+                "(gp_approx 'none' and the tapering and full-scale "
+                "adapters)")
         self._use_woodbury = all(c.kind == "grouped" for c in self.components)
         combined = self._vecchia and {c.kind for c in self.components} \
             == {"gp", "grouped"}
@@ -685,16 +720,55 @@ class GPModel:
                 gp_rand_coef_data_pred=None, cluster_ids_pred=None,
                 X_pred=None, predict_cov_mat=False, predict_var=False,
                 cov_pars=None, predict_response=True, fixed_effects=None,
-                fixed_effects_pred=None, offset=None, offset_pred=None):
+                fixed_effects_pred=None, offset=None, offset_pred=None,
+                sample_posterior=False, sample_prior=False,
+                num_post_samples=100, num_prior_samples=None, seed=None):
         """Posterior predictions (basic.py:6187 GPModel.predict): {'mu',
         'var', 'cov'} as float64 numpy. For a non-Gaussian likelihood the
         latent predictions include the fixed effects (offset,
         fixed_effects and X for the training data; offset_pred,
         fixed_effects_pred and X_pred for the new points), and
-        predict_response gives the response's mean and variance."""
-        if gp_rand_coef_data_pred is not None:
-            raise NotImplementedError("GP random coefficients are not "
-                                      "ported yet")
+        predict_response gives the response's mean and variance.
+
+        sample_posterior adds 'posterior_samples' (n_pred,
+        num_post_samples): mu + L z with L the Cholesky factor of the
+        predictive covariance (+ 1e-10 I), for a non-Gaussian likelihood
+        the latent one (predict_response=False); sample_prior returns
+        'prior_samples' (n_pred, num_prior_samples) of the random effects'
+        prior at the new points (plus the error variance for a Gaussian
+        response with predict_response) with mu 0 and that covariance
+        (gp_model.py:887-925). The normals come from
+        np.random.RandomState(seed), as in the reference; the
+        factorization and the product run on the model's device."""
+        if sample_prior:
+            return self._sample_prior(
+                group_data_pred, group_rand_coef_data_pred, gp_coords_pred,
+                gp_rand_coef_data_pred, cluster_ids_pred, cov_pars,
+                predict_response, num_prior_samples or num_post_samples,
+                seed)
+        if sample_posterior:
+            if self._likelihood_obj is not None and predict_response:
+                raise ValueError(
+                    "sample_posterior draws the latent process of a "
+                    "non-Gaussian likelihood: pass predict_response=False")
+            out = self.predict(
+                y=y, group_data_pred=group_data_pred,
+                group_rand_coef_data_pred=group_rand_coef_data_pred,
+                gp_coords_pred=gp_coords_pred,
+                gp_rand_coef_data_pred=gp_rand_coef_data_pred,
+                cluster_ids_pred=cluster_ids_pred, X_pred=X_pred,
+                predict_cov_mat=True, cov_pars=cov_pars,
+                predict_response=predict_response,
+                fixed_effects=fixed_effects,
+                fixed_effects_pred=fixed_effects_pred, offset=offset,
+                offset_pred=offset_pred)
+            out["posterior_samples"] = out["mu"][:, None] + self._draw(
+                out["cov"], num_post_samples, seed)
+            if predict_var and out["var"] is None:
+                out["var"] = np.diagonal(out["cov"]).copy()
+            if not predict_cov_mat:
+                out["cov"] = None
+            return out
         if cov_pars is None:
             cov_pars = self._cov_pars_override \
                 if self._cov_pars_override is not None \
@@ -703,9 +777,10 @@ class GPModel:
         if self._likelihood_obj is not None:
             return self._predict_laplace(
                 y, group_data_pred, group_rand_coef_data_pred,
-                gp_coords_pred, cluster_ids_pred, X_pred, predict_cov_mat,
-                predict_var, cov_pars, predict_response, offset,
-                offset_pred, fixed_effects, fixed_effects_pred)
+                gp_coords_pred, gp_rand_coef_data_pred, cluster_ids_pred,
+                X_pred, predict_cov_mat, predict_var, cov_pars,
+                predict_response, offset, offset_pred, fixed_effects,
+                fixed_effects_pred)
         if offset is not None:
             fixed_effects = np.asarray(offset, dtype=np.float64) + (
                 0.0 if fixed_effects is None else fixed_effects)
@@ -713,9 +788,9 @@ class GPModel:
             fixed_effects_pred = np.asarray(offset_pred, dtype=np.float64) \
                 + (0.0 if fixed_effects_pred is None else fixed_effects_pred)
         resid, coef = self._residual(y, fixed_effects)
-        pred_data = self._build_pred_data(group_data_pred,
-                                          group_rand_coef_data_pred,
-                                          gp_coords_pred, cluster_ids_pred)
+        pred_data = self._build_pred_data(
+            group_data_pred, group_rand_coef_data_pred, gp_coords_pred,
+            gp_rand_coef_data_pred, cluster_ids_pred)
         extra = {}
         if self._vecchia:
             extra = dict(vecchia_pred_type=self.vecchia_pred_type,
@@ -733,8 +808,58 @@ class GPModel:
             out.setdefault(k, None)
         return out
 
+    def _draw(self, cov, num_samples, seed):
+        """L z on the device for L = chol(cov + 1e-10 I) and z (n_pred,
+        num_samples) standard normals from np.random.RandomState(seed), as
+        the reference draws them (gp_model.py:916-920)."""
+        k = len(cov)
+        z = np.random.RandomState(seed).standard_normal((k, num_samples))
+        C = torch.as_tensor(np.asarray(cov, dtype=np.float64),
+                            device=self.device)
+        L = torch.linalg.cholesky(C + 1e-10 * torch.eye(
+            k, dtype=C.dtype, device=self.device))
+        return (L @ torch.as_tensor(z, device=self.device)).cpu().numpy()
+
+    def _sample_prior(self, group_data_pred, group_rand_coef_data_pred,
+                      gp_coords_pred, gp_rand_coef_data_pred,
+                      cluster_ids_pred, cov_pars, predict_response,
+                      num_samples, seed):
+        """Draws of the random effects' prior at the new points: the
+        model's covariance there (models/gaussian_gp.py prior_pred_cov)
+        from the fitted or the given parameters. The reference reads a
+        non-Gaussian model's parameters as if an error variance came
+        first (gp_model.py:909-913); the port reads each component's own."""
+        pars = self._check_cov_pars(
+            cov_pars if cov_pars is not None
+            else self._require_fit().cov_pars)
+        pred_data = self._build_pred_data(
+            group_data_pred, group_rand_coef_data_pred, gp_coords_pred,
+            gp_rand_coef_data_pred, cluster_ids_pred)
+        if self.cluster_ids is not None:
+            # the prior of different clusters is independent whatever the
+            # engine (the Vecchia and Woodbury ones take no masks,
+            # gp_model.py:1128-1135)
+            cip = np.asarray(cluster_ids_pred)
+            pred_data["pred_cluster_mask"] = (
+                cip[:, None] == cip[None, :]).astype(float)
+        gauss = self._likelihood_obj is None
+        comp_pars, off = [], int(gauss)
+        for comp in self.components:
+            comp_pars.append(pars[off:off + comp.num_cov_par])
+            off += comp.num_cov_par
+        with torch.no_grad():
+            K = prior_pred_cov(self.components, comp_pars, pred_data,
+                               torch.float64, self.device)
+            if predict_response and gauss:
+                K = K + float(pars[0]) * torch.eye(
+                    len(K), dtype=K.dtype, device=self.device)
+            K = K.cpu().numpy()
+        return {"mu": np.zeros(len(K)), "cov": K, "var": np.diagonal(K),
+                "prior_samples": self._draw(K, num_samples, seed)}
+
     def _predict_laplace(self, y, group_data_pred, group_rand_coef_data_pred,
-                         gp_coords_pred, cluster_ids_pred, X_pred,
+                         gp_coords_pred, gp_rand_coef_data_pred,
+                         cluster_ids_pred, X_pred,
                          predict_cov_mat, predict_var, cov_pars,
                          predict_response, offset, offset_pred,
                          fixed_effects, fixed_effects_pred):
@@ -759,9 +884,9 @@ class GPModel:
             a_init = self._fit_result.mode_state
         if coef is not None and self.X is not None:
             F += self.X @ coef
-        pred_data = self._build_pred_data(group_data_pred,
-                                          group_rand_coef_data_pred,
-                                          gp_coords_pred, cluster_ids_pred)
+        pred_data = self._build_pred_data(
+            group_data_pred, group_rand_coef_data_pred, gp_coords_pred,
+            gp_rand_coef_data_pred, cluster_ids_pred)
         n_pred = pred_data["n_pred"]
         F_pred = np.zeros(n_pred)
         for part in (offset_pred, fixed_effects_pred):
@@ -780,16 +905,18 @@ class GPModel:
         return out
 
     def _build_pred_data(self, group_data_pred, group_rand_coef_data_pred,
-                         gp_coords_pred, cluster_ids_pred):
+                         gp_coords_pred, gp_rand_coef_data_pred,
+                         cluster_ids_pred):
         """Per-component prediction inputs (gp_model.py:1058): level codes
         for the Woodbury engine, cross and prediction incidence matrices
-        for the dense one, coordinates for a GP; with cluster_ids the
+        for the dense one, coordinates for a GP and the covariate column
+        z_pred of a GP random coefficient; with cluster_ids the
         cross and prediction same-cluster masks of the dense engines
         (gp_model.py:1127-1137; the Woodbury engine's levels carry their
         clusters instead)."""
         comps = []
         n_pred = None
-        ig = igrc = 0
+        ig = igrc = igp = 0
         for comp in self.components:
             pd = {}
             if comp.kind == "grouped":
@@ -833,6 +960,14 @@ class GPModel:
                     cp = cp[:, None]
                 pd["coords_pred"] = cp
                 n_pred = len(cp)
+                if comp.z is not None:
+                    if gp_rand_coef_data_pred is None:
+                        raise ValueError("gp_rand_coef_data_pred not "
+                                         "provided")
+                    zp = np.asarray(gp_rand_coef_data_pred,
+                                    dtype=np.float64)
+                    pd["z_pred"] = zp[:, igp] if zp.ndim == 2 else zp
+                    igp += 1
             comps.append(pd)
         pred_data = {"comps": comps, "n_pred": n_pred,
                      "cross_cluster_mask": None, "pred_cluster_mask": None}
@@ -937,6 +1072,8 @@ class GPModel:
             d["group_rand_coef_data"] = self.group_rand_coef_data.tolist()
             d["ind_effect_group_rand_coef"] = (
                 np.asarray(self.ind_effect_group_rand_coef) + 1).tolist()
+        if self.gp_rand_coef_data is not None:
+            d["gp_rand_coef_data"] = self.gp_rand_coef_data.tolist()
         if self.cluster_ids is not None:
             d["cluster_ids"] = self.cluster_ids.tolist()
         return d
@@ -947,18 +1084,13 @@ class GPModel:
             with open(model_file) as f:
                 model_dict = json.load(f)
         d = model_dict
-        unsupported = [k for k in ("gp_rand_coef_data",)
-                       if d.get(k) is not None]
-        if unsupported:
-            raise NotImplementedError(
-                "model dict holds parts that are not ported yet: "
-                + ", ".join(unsupported))
 
         def arr(key):
             return None if d.get(key) is None else np.asarray(d[key])
 
         kw = dict(likelihood=d["likelihood"], gp_coords=arr("gp_coords"),
                   group_data=arr("group_data"),
+                  gp_rand_coef_data=arr("gp_rand_coef_data"),
                   cluster_ids=arr("cluster_ids"),
                   cov_function=d["cov_function"],
                   cov_fct_shape=d["cov_fct_shape"],

@@ -2,7 +2,8 @@
 
 A model's random part is a sum of components (re_comp.h:34 RECompBase):
 grouped random effects (intercepts, or slopes with a covariate z) over a
-categorical variable, and Gaussian processes. Both keep their data on the
+categorical variable, and Gaussian processes (with a covariate z, a GP
+random coefficient). Both keep their data on the
 host as numpy; the engines move what they need to their device.
 """
 
@@ -16,20 +17,19 @@ class GPComponent:
     """A Gaussian-process component (re_comp.h:789 RECompGP).
 
     coords: (n, d) locations, kept on the host as float64 numpy; the engines
-    move what they need to the device.
+    move what they need to the device. z: optional (n,) covariate of a GP
+    random coefficient (a spatially varying coefficient): the component's
+    covariance is then v * z_i z_l K(s_i, s_l).
     """
 
     kind = "gp"
 
     def __init__(self, coords, cov_fn: CovarianceFunction, z=None, name="GP"):
-        if z is not None:
-            raise NotImplementedError(
-                "GP random coefficients are not ported yet")
         self.coords = np.asarray(coords, dtype=np.float64)
         if self.coords.ndim == 1:
             self.coords = self.coords[:, None]
         self.cov_fn = cov_fn
-        self.z = None
+        self.z = None if z is None else np.asarray(z, dtype=np.float64)
         self.name = name
 
     @property

@@ -9,6 +9,9 @@ dense covariance assembly and one n x n Cholesky (cuSOLVER on the card):
 
 with K_j a GP correlation matrix or all ones for a grouped random effect,
 and W_j the same-group indicator (times outer(z, z) for a random slope).
+A GP random coefficient with covariate z (gp_rand_coef_data) scales its
+K_j's rows and columns by z on the device, and its cross and prediction
+covariances by z and z_pred.
 Gradients and the Hessian come from torch.autograd, the Fisher information
 from forward-mode Jacobians of the assembly (torch.func.jacfwd), where the
 reference used jax.grad, jax.hessian and jax.jacfwd. The façade routes every
@@ -39,6 +42,37 @@ def _dist(a, b, dtype, device):
     return pairwise_dist(a, b, method="direct").to(dtype)
 
 
+def _on_device(x, dtype, device):
+    """A host float64 array on the device in dtype."""
+    return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                           device=device).to(dtype)
+
+
+def _pred_block(comp, pd, alphas, dtype, device):
+    """One component's W_j o K_j at the prediction points (n_pred, n_pred)
+    for the transformed ranges alphas of a GP: a grouped component's
+    pred_W, or its level codes (the Woodbury engine's form); a GP's
+    correlation, or an approximation adapter's own prediction block
+    (ops/taper.py, components.py:54-84). A random coefficient without a
+    pred_W scales the rows and columns by z_pred on the device (the
+    reference multiplies by outer(z_pred, z_pred) built on the host,
+    gaussian_gp.py:55-57)."""
+    if comp.kind == "grouped":
+        if pd.get("pred_W") is not None:
+            return _on_device(pd["pred_W"], dtype, device)
+        c = torch.as_tensor(np.asarray(pd["codes_pred"]), device=device)
+        Kp = (c[:, None] == c[None, :]).to(dtype)
+    else:
+        cp = pd["coords_pred"]
+        Kp = comp.cov_fn.corr_from_dist(_dist(cp, cp, dtype, device),
+                                        alphas) \
+            if comp.cov_fn.is_isotropic else comp.pred_corr(cp, alphas)
+    if pd.get("z_pred") is not None:
+        zp = _on_device(pd["z_pred"], dtype, device)
+        Kp = Kp * zp[:, None] * zp[None, :]
+    return Kp
+
+
 def assemble_pred_covs(components, par_offsets, comp_vars, theta_log,
                        pred_data, n, dtype, device):
     """Cross (n, n_pred) and prediction (n_pred, n_pred) covariances on the
@@ -48,30 +82,45 @@ def assemble_pred_covs(components, par_offsets, comp_vars, theta_log,
     K_pred = torch.zeros((n_pred, n_pred), dtype=dtype, device=device)
     for comp, off, v, pd in zip(components, par_offsets, comp_vars,
                                 pred_data["comps"]):
+        alphas = None
         if comp.kind == "grouped":
-            Kc = torch.as_tensor(pd["cross_W"], device=device).to(dtype)
-            Kp = torch.as_tensor(pd["pred_W"], device=device).to(dtype)
+            Kc = _on_device(pd["cross_W"], dtype, device)
         else:
             alphas = torch.exp(theta_log[off + 1: off + comp.num_cov_par])
             cp = pd["coords_pred"]
-            if comp.cov_fn.is_isotropic:
-                Kc = comp.cov_fn.corr_from_dist(
-                    _dist(comp.coords, cp, dtype, device), alphas)
-                Kp = comp.cov_fn.corr_from_dist(
-                    _dist(cp, cp, dtype, device), alphas)
-            else:
-                # an approximation adapter (ops/taper.py) evaluates its own
-                # cross and prediction blocks (components.py:54-84)
-                Kc = comp.cross_corr(cp, alphas)
-                Kp = comp.pred_corr(cp, alphas)
+            Kc = comp.cov_fn.corr_from_dist(
+                _dist(comp.coords, cp, dtype, device), alphas) \
+                if comp.cov_fn.is_isotropic else comp.cross_corr(cp, alphas)
+            if pd.get("z_pred") is not None:
+                Kc = Kc * _on_device(comp.z, dtype, device)[:, None] \
+                    * _on_device(pd["z_pred"], dtype, device)[None, :]
         K_cross = K_cross + float(v) * Kc
-        K_pred = K_pred + float(v) * Kp
+        K_pred = K_pred + float(v) * _pred_block(comp, pd, alphas, dtype,
+                                                 device)
     if pred_data.get("cross_cluster_mask") is not None:
-        K_cross = K_cross * torch.as_tensor(
-            pred_data["cross_cluster_mask"], device=device).to(dtype)
-        K_pred = K_pred * torch.as_tensor(
-            pred_data["pred_cluster_mask"], device=device).to(dtype)
+        K_cross = K_cross * _on_device(pred_data["cross_cluster_mask"],
+                                       dtype, device)
+        K_pred = K_pred * _on_device(pred_data["pred_cluster_mask"], dtype,
+                                     device)
     return K_cross, K_pred
+
+
+def prior_pred_cov(components, comp_pars, pred_data, dtype, device):
+    """The model's covariance of the random effects at the prediction
+    points, sum_j v_j (W_j o K_j), from each component's original-scale
+    parameters comp_pars[j] = [variance, ranges...]: the prior that
+    `GPModel.predict(sample_prior=True)` draws from, masked to the same
+    cluster when pred_data holds a pred_cluster_mask."""
+    n_pred = pred_data["n_pred"]
+    K = torch.zeros((n_pred, n_pred), dtype=dtype, device=device)
+    for comp, pars, pd in zip(components, comp_pars, pred_data["comps"]):
+        alphas = None if comp.kind == "grouped" else _on_device(
+            np.atleast_1d(comp.cov_fn.range_to_transformed(
+                np.asarray(pars[1:]), var=pars[0])), dtype, device)
+        K = K + float(pars[0]) * _pred_block(comp, pd, alphas, dtype, device)
+    if pred_data.get("pred_cluster_mask") is not None:
+        K = K * _on_device(pred_data["pred_cluster_mask"], dtype, device)
+    return K
 
 
 class DenseSigmaAssembly:
@@ -97,18 +146,23 @@ class DenseSigmaAssembly:
         for comp in self.components:
             self.par_offsets.append(offset)
             offset += comp.num_cov_par
-            W = D = None
+            W = D = z = None
             if comp.kind == "grouped":
                 W = comp.same_group_mask()
                 if comp.z is not None:
                     W = W * np.outer(comp.z, comp.z)
                 W = torch.as_tensor(W, device=device).to(dtype)
-            elif comp.cov_fn.is_isotropic:
-                D = _dist(comp.coords, comp.coords, dtype, device)
+            else:
+                if comp.cov_fn.is_isotropic:
+                    D = _dist(comp.coords, comp.coords, dtype, device)
+                if comp.z is not None:
+                    # a GP random coefficient scales the kernel's rows and
+                    # columns by z on the device; no n x n outer product
+                    z = _on_device(comp.z, dtype, device)
             if self._cluster_mask is not None:
                 W = self._cluster_mask if W is None \
                     else W * self._cluster_mask
-            self._comp_static.append({"W": W, "D": D})
+            self._comp_static.append({"W": W, "D": D, "z": z})
         self.num_theta = offset
 
     def sigma(self, theta_log):
@@ -125,6 +179,8 @@ class DenseSigmaAssembly:
                 # without distances (an approximation adapter) the
                 # component evaluates its kernel (gaussian_gp.py:119-130)
                 K = comp.corr(static["D"], alphas)
+                if static["z"] is not None:
+                    K = K * static["z"][:, None] * static["z"][None, :]
                 if static["W"] is not None:
                     K = K * static["W"]
             M = M + v * K

@@ -13,7 +13,8 @@ re_model_template.h:969).
     cap (`gradient_descent`, :9106 UpdateLinCoef);
   * external optimizers (`_optimize_external`) on the nugget-profiled
     objective (optim_utils.h:243, :562 OptimExternal): scipy L-BFGS-B and
-    Nelder-Mead on the host, one value-and-gradient pass on the device per
+    Nelder-Mead on the host, and adam (`_adam`, optax.adam(1e-2) by hand
+    in float64), one value-and-gradient pass on the device per
     evaluation;
   * the device L-BFGS (`_optimize_external_device`, ops/lbfgs.py), taken,
     as in the reference (optimize.py:1077-1090), for an lbfgs-family
@@ -24,16 +25,16 @@ re_model_template.h:969).
     inverse Fisher information (std_dev=True);
   * for non-Gaussian likelihoods (`optimize_laplace`, the Laplace engines):
     gradient descent with and without Nesterov and separate covariance /
-    aux learning rates, coefficient gradient steps with X, scipy L-BFGS-B
-    and Nelder-Mead with the mode warm-started across evaluations, and the
+    aux learning rates, coefficient gradient steps with X, scipy L-BFGS-B,
+    Nelder-Mead and adam with the mode warm-started across evaluations,
+    and the
     state-threaded device L-BFGS (ops/lbfgs.py `lbfgs_run_state`), taken
     for an lbfgs-family optimizer with use_device_optimizer True, or None
     and n >= 20,000 on an engine marked device_opt_auto (the grouped one);
     fisher_scoring and newton raise ValueError, as in the reference.
 
 y enters as a device tensor in the engine's ordering and dtype; X, when
-given, as float64 numpy in the same row order. optimizer_cov="adam" raises
-NotImplementedError.
+given, as float64 numpy in the same row order.
 
 Constants are the reference's (re_model_template.h:5682-5796).
 """
@@ -127,10 +128,8 @@ def optimize_gaussian(engine, y, config: OptimConfig, X=None) -> OptimResult:
     opt = config.optimizer_cov
     if opt in _INTERNAL:
         res = _optimize_internal(engine, y, config, X)
-    elif opt in _EXTERNAL:
+    elif opt in _EXTERNAL + ("adam",):
         res = _optimize_external(engine, y, config, X)
-    elif opt == "adam":
-        raise NotImplementedError("optimizer_cov='adam' is not ported yet")
     else:
         raise ValueError(f"optimizer_cov '{opt}' is not supported")
     if config.std_dev:
@@ -520,9 +519,37 @@ def _optimize_external_device(engine, y, config: OptimConfig, X, est):
         coef=beta if X is not None else None, optimizer="device_lbfgs")
 
 
+ADAM_LR, ADAM_B1, ADAM_B2, ADAM_EPS = 1e-2, 0.9, 0.999, 1e-8
+
+
+def _adam(obj, x0, num_steps, drc):
+    """Adam as the reference runs it (optax.adam(1e-2), optimize.py:777-791,
+    :1145-1160), by hand in float64 and in optax's order of operations:
+    the moments m = (1 - b1) g + b1 m and v = (1 - b2) g^2 + b2 v, their
+    bias corrections by 1 - b^k, the step -lr m^ / (sqrt(v^) + eps). It
+    stops when the objective's change from the step before is at most
+    drc max(|f_prev|, 1) after step 51. Returns (x, the number of steps
+    when it stopped, None when it ran all num_steps)."""
+    x = np.array(x0, dtype=np.float64)
+    m, v = np.zeros_like(x), np.zeros_like(x)
+    f_prev = np.inf
+    for i in range(num_steps):
+        f, g = obj(x)
+        m = (1 - ADAM_B1) * g + ADAM_B1 * m
+        v = (1 - ADAM_B2) * g ** 2 + ADAM_B2 * v
+        m_hat = m / (1 - ADAM_B1 ** (i + 1))
+        v_hat = v / (1 - ADAM_B2 ** (i + 1))
+        x = x + -ADAM_LR * (m_hat / (np.sqrt(v_hat) + ADAM_EPS))
+        if abs(f_prev - f) <= drc * max(abs(f_prev), 1.0) and i > 50:
+            return x, i + 1
+        f_prev = f
+    return x, None
+
+
 def _optimize_external(engine, y, config: OptimConfig, X=None) -> OptimResult:
-    """L-BFGS-B or Nelder-Mead on the profiled objective (optim_utils.h:562),
-    or the device L-BFGS where the reference takes it."""
+    """L-BFGS-B, Nelder-Mead or adam on the profiled objective
+    (optim_utils.h:562), or the device L-BFGS where the reference takes
+    it."""
     from scipy import optimize as sopt
 
     n = engine.n
@@ -569,6 +596,10 @@ def _optimize_external(engine, y, config: OptimConfig, X=None) -> OptimResult:
                                    "fatol": drc * max(abs(f0), 1.0),
                                    "xatol": 1e-12})
         res_x, nit = r.x, r.nit
+    elif opt == "adam":
+        res_x, nit = _adam(obj_and_grad, x0, max_iter * 10,
+                           config.resolved_delta_rel_conv())
+        nit = max_iter * 10 if nit is None else nit
     else:
         r = sopt.minimize(obj_and_grad, x0, jac=True, method="L-BFGS-B",
                           options={"maxiter": max_iter, "ftol": 1e-16,
@@ -623,9 +654,6 @@ def optimize_laplace(engine, y, config: OptimConfig, X=None,
                           and getattr(engine, "device_opt_auto", False))
         if use_device and opt.startswith("lbfgs"):
             return _optimize_laplace_device(engine, y, config, X, offset)
-        if opt == "adam":
-            raise NotImplementedError("optimizer_cov='adam' is not ported "
-                                      "yet")
         return _optimize_laplace_external(engine, y, config, X, offset)
     if opt in ("fisher_scoring", "newton"):
         raise ValueError(f"optimizer_cov '{opt}' is not supported for "
@@ -896,14 +924,20 @@ def _optimize_laplace_external(engine, y, config: OptimConfig, X=None,
         r = sopt.minimize(lambda x: obj(x)[0], x0, method="Nelder-Mead",
                           options={"maxiter": max_iter * 10, "xatol": 1e-10,
                                    "fatol": config.resolved_delta_rel_conv()})
+        x, nit = r.x, r.nit
+    elif config.optimizer_cov == "adam":
+        x, nit = _adam(obj, x0, max_iter * 10,
+                       config.resolved_delta_rel_conv())
+        nit = max_iter * 10 if nit is None else nit
     else:
         r = sopt.minimize(obj, x0, jac=True, method="L-BFGS-B",
                           options={"maxiter": max_iter, "ftol": 1e-16,
                                    "gtol": 1e-10, "maxcor": 20})
-    u, beta = unpack(r.x)
+        x, nit = r.x, r.nit
+    u, beta = unpack(x)
     nll, a = engine.laplace_nll(u, yd, F_of(beta), state["a"])
     beta_out = handler.back_transform(beta) if has_covariates else None
-    return _laplace_result(engine, u, nll, r.nit, True, beta_out, a,
+    return _laplace_result(engine, u, nll, nit, True, beta_out, a,
                            "scipy")
 
 

@@ -159,11 +159,18 @@ def test_unported_options_raise(gp_sim_data):
     # clusters.py holds them to the JAX package), and so are the tapering
     # approximations (tests/test_torch_taper.py) and
     # gp_approx="vecchia_latent" (tests/test_torch_vecchia_grouped.py)
-    for kw in (dict(num_parallel_devices=2),
-               dict(gp_rand_coef_data=d["Z_SVC"][:, 0])):
-        with pytest.raises(NotImplementedError):
-            gpt.GPModel(gp_coords=d["coords"], cov_function="exponential",
-                        device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        gpt.GPModel(gp_coords=d["coords"], cov_function="exponential",
+                    device="cpu", num_parallel_devices=2)
+    # GP random coefficients are ported on the dense engine
+    # (tests/test_torch_svc_sampling_adam.py holds them to the JAX
+    # package): one column adds a second GP with the covariate as weights
+    m = gpt.GPModel(gp_coords=d["coords"], cov_function="exponential",
+                    device="cpu", gp_rand_coef_data=d["Z_SVC"][:, 0])
+    assert m.get_cov_par_names() == [
+        "Error_term", "GP_var", "GP_range", "GP_rand_coef_nb_1_var",
+        "GP_rand_coef_nb_1_range"]
+    np.testing.assert_array_equal(m.components[1].z, d["Z_SVC"][:, 0])
 
 
 # ---------------------------------------------------------------------

@@ -109,10 +109,17 @@ def test_unported_jax_model_dicts_raise(trained, change):
         d["objective"] = "multiclass"
     elif change == "dense_gp":
         # a dense GP loads, with cluster_ids too
-        # (tests/test_torch_weights_clusters.py); one with GP random
-        # coefficients is not ported yet
+        # (tests/test_torch_weights_clusters.py) and with GP random
+        # coefficients (tests/test_torch_svc_sampling_adam.py): one
+        # column of ones is a second GP on the same coordinates
         d["gp_model"] = {**d["gp_model"], "gp_approx": "none",
+                         "cov_pars": d["gp_model"]["cov_pars"] + [0.1, 0.2],
                          "gp_rand_coef_data": np.ones(N).tolist()}
+        _, gp = booster_from_jax_dict(d, device="cpu")
+        assert gp.get_cov_par_names()[-2:] == [
+            "GP_rand_coef_nb_1_var", "GP_rand_coef_nb_1_range"]
+        np.testing.assert_array_equal(gp.gp_rand_coef_data, np.ones((N, 1)))
+        return
     else:
         d["num_sets"] = 2
     with pytest.raises(NotImplementedError):

@@ -249,9 +249,12 @@ def test_float32_and_unported_options(data):
                dict(drop_intercept_group_rand_effect=[True])):
         with pytest.raises(NotImplementedError):
             gpt.GPModel(group_data=g1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        gpt.GPModel(group_data=g1, device="cpu").fit(
-            y=y, params={"optimizer_cov": "adam"})
+    # adam is ported (tests/test_torch_svc_sampling_adam.py holds its
+    # iterations to the JAX package's)
+    m = gpt.GPModel(group_data=g1, device="cpu").fit(
+        y=y, params={"optimizer_cov": "adam"})
+    assert 51 < m.get_num_optim_iter() <= 10000
+    assert np.all(np.isfinite(m.get_cov_pars()))
 
 
 # ---------------------------------------------------------------------

@@ -250,7 +250,8 @@ def test_lbfgs_fit_matches(data):
     dict(likelihood="bernoulli_probit", matrix_inversion_method="iterative",
          cluster_ids=np.zeros(N)),
     # cluster_ids are ported (tests/test_torch_vecchia_pred.py); GP random
-    # coefficients are not
+    # coefficients run on the dense engines only, as in the reference,
+    # whose Vecchia engine takes one GP component
     dict(gp_rand_coef_data=np.ones(N))])
 def test_unported_options_raise(data, kwargs):
     args = dict(gp_coords=data[0], cov_function="matern", gp_approx="vecchia",
