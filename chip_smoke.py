@@ -6,8 +6,8 @@
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
                                      # 24, 25, 26 each alone, 27-29, 30-32,
-                                     # 33-35, 36-38 and 39-41); no result
-                                     # lines
+                                     # 33-35, 36-38, 39-41 and 42-44); no
+                                     # result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -327,6 +327,44 @@ Phases; any failure exits non-zero and prints no result line:
      posterior and prior draws at one seed element by element, the
      probit SVC model's Laplace NLL and gradients (1e-10), the rest to
      1e-8 relative.
+ 42. the likelihood families at full width: two-predictor LaGaBoost,
+     zero_inflated_regression_poisson on sim_zi (n = 100,000, q = 1,000,
+     p = 5, seed 42: a grouped effect in the mean block and a
+     structural-zero probability sigmoid(zeta(X)); phase 17's widths, 15
+     leaves, learning rate 0.1, float64) for 10 rounds of two trees, each
+     round refitting by a full device L-BFGS fit (as the reference does
+     for two predictor sets): the init scores' and the first fit's
+     seconds, iterations and Newton steps, the seconds of each round, the
+     host syncs of round 8 by Python line, the device busy share of
+     rounds 9-10, 1,000 predictions (half in unseen groups, whose latent
+     means must be exactly 0; response means finite and >= 0),
+     hist_segment launches (must be positive); then the one-predictor
+     zero_inflated_negative_binomial GLMM (two aux parameters) at the same
+     width: fit seconds, iterations, syncs. Budget: ~30 s;
+ 43. the other engines at reduced size, each fit's seconds, iterations,
+     syncs and peak memory: the dense engine's W+/W- path
+     (zero_inflated_poisson, an exponential GP, n = 2,000, 10 iterations),
+     two random-effect sets (gaussian_heteroscedastic_fixed_and_random,
+     n = 1,000, a 2,000 mode), both Vecchia-Laplace engines with
+     zero_inflated_regression_poisson (n = 5,000, m = 20, 2 iterations;
+     the matrix-free one with 10 SLQ probes), FITC-Laplace with
+     hurdle_regression_lognormal (n = 20,000, 200 kmeans++ points, 2
+     iterations) and asymmetric_laplace_tkc on phase 42's groups (5
+     iterations; the curvature searches' host reads). Budget: ~10 s;
+ 44. card against CPU: all 34 families at n = 1,000 (log_lik, d1, d2,
+     fisher_W / fisher_W2, the derivatives in zeta; 1e-12 relative, d2
+     through trigamma or log_ndtr's backward 1e-9), the tkc curvature and
+     its gradient, the two-predictor grouped engine's NLL, g_u and g_F
+     (1e-10) and a two-predictor LaGaBoost of 2 rounds at n = 500
+     (round by round: split records equal but for thresholds moved at
+     equal float32 gains, which cut the rows alike, or up to a near tie of
+     phase 5's rule; init scores and each round before any near tie, the
+     first always: covariance parameters to 1e-8, the training score and
+     the predictions at the new rows outside every moved threshold's
+     interval to 1e-6, float32 leaf sums); the goldens of
+     tests/test_two_predictor_golden.py's TestHurdleRegressionLognormal
+     and its Poisson evaluation on the card at that file's tolerances.
+     Budget: ~15 s.
 Every histogram row's library time is one torch.Tensor.index_add_ over the
 flat key f * B + bin (key and expanded float32 values built outside the
 timed window, sums held to the kernel's to 1e-5 of the largest entry);
@@ -986,6 +1024,38 @@ def phase_masked_kernels(torch, histogram, ds):
     return out
 
 
+def _threshold_ties(what, ref_trees, other_trees, first=0):
+    """The split records of tree pairs grown from the same gradients,
+    equal but for ties: a threshold moved at equal float32 gains (the same
+    node and feature: both cut the node's rows alike, and only new rows
+    between them go another way), or, ending that tree's comparison, a
+    near tie of phase 5's rule (a relative gain gap below 1e-5, which
+    splits the rows otherwise). Returns (moved: [(tree, node, feature, ref
+    threshold, other threshold)], the number of near ties); `first` is
+    the first pair's tree index."""
+    moved, near = [], 0
+    for t, (a, b) in enumerate(zip(ref_trees, other_trees), first):
+        ra, rb = _split_records(a), _split_records(b)
+        for u, v in zip(ra, rb):
+            if u[:3] == v[:3]:
+                continue
+            print(f"[{what}] tree {t} split differs: {u} vs {v}", flush=True)
+            if u[:2] == v[:2] and u[3] == v[3]:
+                moved.append((t, u[0], u[1], float(a.threshold_real[u[0]]),
+                              float(b.threshold_real[v[0]])))
+                continue
+            if not abs(u[3] - v[3]) / max(abs(u[3]), 1e-30) < 1e-5:
+                raise AssertionError(f"{what}: tree {t} differs beyond a "
+                                     "near tie")
+            near += 1
+            break
+        else:
+            if len(ra) != len(rb):
+                raise AssertionError(f"{what}: tree {t} has {len(rb)} "
+                                     f"splits, not {len(ra)}")
+    return moved, near
+
+
 def _compare_models(what, ref, other, X=None):
     """Split records of every tree equal, or the first difference a float32
     near-tie (phase 5's rule; later trees are then not compared); with X,
@@ -1047,37 +1117,47 @@ def _card_cpu_boosters(what, bc, bg, gc, gg, Xn, pred_kw):
             + ", ".join(f"{key} {v:.3g}" for key, v in errs.items()))
 
 
-def _device_busy_s(torch, fn, kernel="hist_", by_name=None):
+def _device_busy_s(torch, fn, kernel="hist_", by_name=None, cpu=True):
     """(device busy seconds, wall seconds, seconds in device kernels whose
     name holds `kernel`) of fn() under torch.profiler: busy is the union of
     the device events' time spans, None when the profiler saw none. A
     given dict `by_name` gets the summed seconds of each device event
-    name."""
+    name. cpu=False traces the device alone and reads the profiler's raw
+    events, without building its event tree (a trace of two rounds of
+    phase 42, with the host's ops, took 86 s to read that way)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if str(e.device_type).endswith("CUDA")]
+    if cpu:
+        # (name, start, end) in seconds
+        events = [(e.name, e.time_range.start * 1e-6,
+                   e.time_range.end * 1e-6) for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]
+    else:
+        raw = [(e.name(), e.start_ns(), e.end_ns())
+               for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")]
+        base = min((a for _, a, _ in raw), default=0)   # integer ns
+        events = [(name, (a - base) * 1e-9, (b - base) * 1e-9)
+                  for name, a, b in raw]
     if not events:
         return None, wall, None
     if by_name is not None:
-        for e in events:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + (e.time_range.end - e.time_range.start) * 1e-6
-    mine = sum(e.time_range.end - e.time_range.start for e in events
-               if kernel in e.name) * 1e-6
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        for name, a, b in events:
+            by_name[name] = by_name.get(name, 0.0) + b - a
+    mine = sum(b - a for name, a, b in events if kernel in name)
+    spans = sorted((a, b) for _, a, b in events)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo, hi = busy + hi - lo, a, b
         else:
             hi = max(hi, b)
-    return (busy + hi - lo) * 1e-6, wall, mine
+    return busy + hi - lo, wall, mine
 
 
 def _busy_txt(busy, wall, hist_s=None):
@@ -4798,11 +4878,554 @@ def phase_svc_card_vs_cpu(torch, gpt):
         raise AssertionError("svc card vs CPU: " + "; ".join(fails))
 
 
+# ======================================================================
+# phases 42-44: the likelihood families (likelihoods/families.py, tkc.py)
+# with the two-predictor, two-random-effect-set and W+/W- Laplace paths
+N_ZI, Q_ZI, P_ZI, SEED_ZI, N_ZI_CPU, Q_ZI_CPU = 100_000, 1_000, 5, 42, 500, 20
+ZI_LIK = "zero_inflated_regression_poisson"
+N_NEGW, N_HET2, N_VLZ, M_VLZ, N_FITCZ, M_FITCZ = 2_000, 1_000, 5_000, 20, \
+    20_000, 200
+N_FAM = 1_000
+
+
+def sim_zi(n, q, p=P_ZI, seed=SEED_ZI):
+    """Zero-inflated counts with a grouped effect: the mean block eta =
+    0.5 sin(7 x0) + 0.5 x1 - 0.3 + b[group], b ~ N(0, 0.5^2), a structural
+    zero with probability sigmoid(zeta), zeta = -1 + 2 x2, else
+    Poisson(exp(eta)) (examples/04_non_gaussian.py's design with the
+    count likelihood and a zero model of the covariates)."""
+    rng = np.random.RandomState(seed)
+    group = rng.randint(0, q, n)
+    b = 0.5 * rng.randn(q)
+    X = rng.rand(n, p)
+    eta = 0.5 * np.sin(7 * X[:, 0]) + 0.5 * X[:, 1] - 0.3 + b[group]
+    zeta = -1.0 + 2.0 * X[:, 2]
+    zero = rng.rand(n) < 1.0 / (1.0 + np.exp(-zeta))
+    y = np.where(zero, 0.0, rng.poisson(np.exp(eta))).astype(float)
+    return X, group, y
+
+
+def _zi_booster(torch, gpt, n, q, device, fit_secs=None):
+    X, group, y = sim_zi(n, q)
+    gp = gpt.GPModel(group_data=group, likelihood=ZI_LIK, device=device)
+    if fit_secs is not None:
+        fit = gp.fit
+
+        def timed_fit(*args, **kwargs):
+            t = time.perf_counter()
+            out = fit(*args, **kwargs)
+            torch.cuda.synchronize()
+            fit_secs.append((time.perf_counter() - t,
+                             gp._fit_result.num_it,
+                             gp._engine.last_num_mode_it))
+            return out
+
+        gp.fit = timed_fit
+    bst = gpt.Booster(LAGA, gpt.Dataset(X, label=y), gp_model=gp,
+                      device=device)
+    return bst, gp, group, y
+
+
+def phase_zi_lagaboost(torch, gpt, histogram):
+    """Two-predictor LaGaBoost at full width (zero_inflated_regression_
+    poisson, n = 100,000, q = 1,000, p = 5, 15 leaves) for ROUNDS rounds of
+    two trees, then 1,000 predictions, half in unseen groups; a
+    one-predictor zero_inflated_negative_binomial GLMM at the same width.
+    Returns hist_segment's launches over the ROUNDS rounds."""
+    fits = []
+    t0 = time.perf_counter()
+    bst, gp, group, y = _zi_booster(torch, gpt, N_ZI, Q_ZI, "cuda", fits)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _reset_launches(histogram)
+    # ROUNDS rounds, of which the third last counts its host syncs and the
+    # last two run under the profiler (every round refits by a full fit,
+    # so no round is spent on the instruments alone)
+    from collections import Counter
+    sites = Counter()
+    secs, syncs, busy = [], None, None
+    for r in range(ROUNDS):
+        t0 = time.perf_counter()
+        if r == ROUNDS - 3:
+            _, syncs = _count_syncs(torch, bst.update, sites)
+        elif r == ROUNDS - 2:
+            busy, wall, hist_s = _device_busy_s(
+                torch, lambda: [bst.update() for _ in range(2)], cpu=False)
+        elif r < ROUNDS - 3:
+            bst.update()
+        torch.cuda.synchronize()
+        if r != ROUNDS - 1:
+            secs.append(time.perf_counter() - t0)
+        if len(bst.trees) != 2 * (r + 1) and r != ROUNDS - 2:
+            raise AssertionError(f"zi lagaboost: round {r + 1} left "
+                                 f"{len(bst.trees)} trees")
+    launches = histogram.hist_segment.launches
+    Xn, gn = _grouped_new_rows(Q_ZI, N_PRED, seed=SEED_ZI + 1)
+    Xn = Xn[:, :P_ZI]
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, group_data_pred=gn, predict_var=True)
+    latent = bst.predict(Xn, group_data_pred=gn, predict_var=True,
+                         pred_latent=True)
+    pred_s = time.perf_counter() - t0
+    half = N_PRED // 2
+    if not np.array_equal(latent["random_effect_mean"][half:],
+                          np.zeros(N_PRED - half)):
+        raise AssertionError("zi lagaboost: unseen groups' latent means are "
+                             "not exactly 0")
+    _finite("zi lagaboost response mean", pred["response_mean"], (N_PRED,))
+    _finite("zi lagaboost response var", pred["response_var"], (N_PRED,))
+    if not np.all(pred["response_mean"] >= 0):
+        raise AssertionError("zi lagaboost: negative response means")
+    cov = gp.get_cov_pars()
+    _finite("zi lagaboost cov pars", cov, (1,), positive=True)
+    if launches <= 0:
+        raise AssertionError(f"zi lagaboost: {launches} hist_segment "
+                             "launches")
+    f_s, f_it, f_newton = fits[0]
+    print(f"[zi lagaboost] n={N_ZI} q={Q_ZI} p={P_ZI} {ZI_LIK} float64, "
+          f"15 leaves, {ROUNDS} rounds of 2 trees: booster with init scores "
+          f"{init_s:.3f} s ({bst.init_score:.5f}, {bst.init_score2:.5f}), "
+          f"of which the first GP fit {f_s:.3f} s ({gp._fit_result.optimizer}"
+          f", {f_it} iterations, {f_newton} Newton steps in its last mode "
+          f"solve); seconds a round " + ", ".join(f"{s:.3f}" for s in secs)
+          + f" (round {ROUNDS - 2} under the sync debug mode, the last "
+          f"figure rounds {ROUNDS - 1}-{ROUNDS} together under the "
+          f"profiler); host syncs in round {ROUNDS - 2}: {syncs} ("
+          + ", ".join(f"{k} x{v}" for k, v in sites.most_common(8))
+          + f"); device busy over rounds {ROUNDS - 1}-{ROUNDS}: "
+          f"{_busy_txt(busy, wall, hist_s)}; predict {N_PRED} rows twice "
+          f"{pred_s:.3f} s; cov pars {cov.tolist()}; hist_segment launches "
+          f"over the {ROUNDS} rounds {launches}", flush=True)
+    # the one-predictor family with two aux parameters at the same width
+    zinb = gpt.GPModel(group_data=group, likelihood="zero_inflated_"
+                       "negative_binomial", device="cuda")
+    _, s, syncs, peak = _timed(torch, lambda: zinb.fit(
+        y=y, params={"maxit": MAXIT_GLMM}))
+    r = zinb._fit_result
+    _finite("zinb cov pars", r.cov_pars, (1,), positive=True)
+    _finite("zinb aux pars", r.aux_pars, (2,), positive=True)
+    print(f"[zinb glmm] n={N_ZI} q={Q_ZI} zero_inflated_negative_binomial: "
+          f"fit ({r.optimizer}, maxit {MAXIT_GLMM}) {s:.3f} s, {r.num_it} "
+          f"iterations, {syncs} host syncs, peak {peak:.2f} GiB; cov pars "
+          f"{r.cov_pars.tolist()}, aux (shape, p0) {r.aux_pars.tolist()}",
+          flush=True)
+    return launches
+
+
+def _part(torch, what, model, y, **fit_kw):
+    """One capped fit on the card: seconds, iterations, syncs, peak."""
+    _, s, syncs, peak = _timed(torch, lambda: model.fit(y=y, **fit_kw))
+    r = model._fit_result
+    _finite(f"{what} cov pars", r.cov_pars, r.cov_pars.shape, positive=True)
+    print(f"[families {what}] fit ({r.optimizer}) {s:.3f} s, {r.num_it} "
+          f"iterations, {syncs} host syncs, peak {peak:.3f} GiB, nll "
+          f"{r.neg_log_likelihood:.4f}, cov pars {r.cov_pars.tolist()}"
+          + ("" if r.aux_pars is None
+             else f", aux {np.asarray(r.aux_pars).tolist()}"), flush=True)
+    return model
+
+
+def phase_families_engines(torch, gpt):
+    """The other engines at reduced size: the dense engine's W+/W- path
+    (zero_inflated_poisson, an exponential GP, n = 2,000), two random-effect
+    sets (gaussian_heteroscedastic_fixed_and_random, n = 1,000), both
+    Vecchia-Laplace engines with two predictors (n = 5,000, m = 20, 2
+    iterations each), FITC-Laplace with hurdle_regression_lognormal
+    (n = 20,000, 200 inducing points, 2 iterations) and
+    asymmetric_laplace_tkc on phase 42's groups."""
+    from gpboost_tpu_torch.likelihoods import tkc
+    rng = np.random.RandomState(SEED_ZI + 2)
+    c = rng.rand(N_NEGW, 2)
+    y = np.where(rng.rand(N_NEGW) < 0.3, 0.0,
+                 rng.poisson(np.exp(np.sin(5 * c[:, 0]))).astype(float))
+    m = gpt.GPModel(gp_coords=c, cov_function="exponential",
+                    likelihood="zero_inflated_poisson", device="cuda")
+    if not m._engine._w_neg:
+        raise AssertionError("zero_inflated_poisson: not on the W+/W- path")
+    _part(torch, f"dense W+/W- zero_inflated_poisson n={N_NEGW}", m, y,
+          params={"maxit": 10})
+    c = rng.rand(N_HET2, 2)
+    y = np.sin(4 * c[:, 0]) + np.exp(0.5 * c[:, 1]) * rng.randn(N_HET2)
+    m = gpt.GPModel(gp_coords=c, cov_function="exponential",
+                    likelihood="gaussian_heteroscedastic_fixed_and_random",
+                    device="cuda")
+    if m._engine.dim_mode != 2 * N_HET2:
+        raise AssertionError("two RE sets: the mode is not 2n")
+    _part(torch, f"two RE sets n={N_HET2} (2n mode)", m, y,
+          params={"maxit": 10})
+    c = rng.rand(N_VLZ, 2)
+    zeta = -1.0 + 2.0 * c[:, 1]
+    y = np.where(rng.rand(N_VLZ) < 1 / (1 + np.exp(-zeta)), 0.0,
+                 rng.poisson(np.exp(np.sin(5 * c[:, 0])))).astype(float)
+    X = np.column_stack([np.ones(N_VLZ), c[:, 1]])
+    for mim in ("cholesky", "iterative"):
+        m = gpt.GPModel(gp_coords=c, cov_function="exponential",
+                        gp_approx="vecchia", num_neighbors=M_VLZ,
+                        likelihood=ZI_LIK, matrix_inversion_method=mim,
+                        device="cuda")
+        params = {"maxit": 2}
+        if mim == "iterative":
+            # 10 SLQ probes (the default 50 took 19 s at 2 iterations)
+            params["num_rand_vec_trace"] = 10
+        _part(torch, f"vecchia {mim} {ZI_LIK} n={N_VLZ} m={M_VLZ}", m, y,
+              X=X, params=params)
+    c = rng.rand(N_FITCZ, 2)
+    zeta = -0.5 + 1.5 * c[:, 1]
+    y = np.where(rng.rand(N_FITCZ) < 1 / (1 + np.exp(-zeta)), 0.0,
+                 np.exp(np.sin(5 * c[:, 0]) + 0.5 * rng.randn(N_FITCZ)))
+    m = gpt.GPModel(gp_coords=c, cov_function="exponential",
+                    gp_approx="fitc", num_ind_points=M_FITCZ,
+                    likelihood="hurdle_regression_lognormal", device="cuda")
+    _part(torch, f"fitc hurdle_regression_lognormal n={N_FITCZ} "
+          f"m={M_FITCZ}", m, y, X=np.column_stack([np.ones(N_FITCZ),
+                                                   c[:, 1]]),
+          params={"maxit": 2})
+    _, group, _ = sim_zi(N_ZI, Q_ZI)
+    rng = np.random.RandomState(SEED_ZI + 3)
+    y = 0.5 * rng.randn(Q_ZI)[group] + rng.standard_t(3, N_ZI)
+    m = gpt.GPModel(group_data=group, likelihood="asymmetric_laplace_tkc",
+                    likelihood_additional_param=0.5, device="cuda")
+    reads = tkc.host_reads
+    _part(torch, f"asymmetric_laplace_tkc n={N_ZI} q={Q_ZI}", m, y,
+          params={"maxit": 5})
+    print(f"[families tkc] the curvature searches made "
+          f"{tkc.host_reads - reads} host reads (one per "
+          f"{tkc.TERNARY_CHECK} ternary steps)", flush=True)
+
+
+# per family: internal aux and the response's kind, for phase 44
+FAMILY_CASES = {
+    "quasi_bernoulli_logit": ([], "frac"),
+    "quasi_bernoulli_probit": ([], "frac"),
+    "beta_binomial": ([3.5], "frac"),
+    "hurdle_gamma": ([1.7, 0.6], "pos0"),
+    "hurdle_lognormal": ([0.8, 0.4], "pos0"),
+    "zero_inflated_poisson": ([0.7], "count"),
+    "zero_inflated_negative_binomial": ([2.3, 0.5], "count"),
+    "zero_inflated_negative_binomial_1": ([0.7, 0.3], "count"),
+    "gpd": ([0.7], "pos"),
+    "egpd_power": ([0.6, 1.8], "pos"),
+    "egpd_power_mixture": ([0.55, 1.3, 0.7, 1.5], "pos"),
+    "egpd_beta": ([0.6, 1.4], "pos"),
+    "egpd_power_beta": ([0.6, 1.4, 2.2], "pos"),
+    "hurdle_gpd": ([0.7, 0.8], "pos0"),
+    "hurdle_egpd_power": ([0.6, 1.8, 0.5], "pos0"),
+    "hurdle_egpd_power_mixture": ([0.55, 1.3, 0.7, 1.5, 0.6], "pos0"),
+    "hurdle_egpd_beta": ([0.6, 1.4, 0.7], "pos0"),
+    "hurdle_egpd_power_beta": ([0.6, 1.4, 2.2, 0.9], "pos0"),
+    "zero_censored_power_transformed_normal": ([1.3, 0.8], "pos0"),
+    "zoctn": ([0.8, 1.4, 1.2], "frac01"),
+    "zero_one_censored_transformed_beta": ([3.0, 0.1], "frac01"),
+    "zero_one_censored_shifted_gamma": ([1.6, 0.2], "frac01"),
+    "gaussian_heteroscedastic": ([], "real"),
+    "gaussian_heteroscedastic_fixed_and_random": ([], "real"),
+    "hurdle_regression_gamma": ([1.7], "pos0"),
+    "hurdle_regression_lognormal": ([0.8], "pos0"),
+    "hurdle_regression_gpd": ([0.7], "pos0"),
+    "hurdle_regression_egpd_power": ([0.6, 1.8], "pos0"),
+    "hurdle_regression_egpd_power_mixture": ([0.55, 1.3, 0.7, 1.5], "pos0"),
+    "hurdle_regression_egpd_beta": ([0.6, 1.4], "pos0"),
+    "hurdle_regression_egpd_power_beta": ([0.6, 1.4, 2.2], "pos0"),
+    "zero_inflated_regression_poisson": ([], "count"),
+    "zero_inflated_regression_negative_binomial": ([2.3], "count"),
+    "zero_inflated_regression_negative_binomial_1": ([0.7], "count"),
+}
+# d2 through trigamma (polygamma(1, .)), whose CUDA and CPU versions differ
+# in the last bits, and through log_ndtr's backward, whose two versions
+# differ by up to 6e-10 relative deep in the left tail (on an H100)
+FAMILY_LOOSE_D2 = ("beta_binomial", "zero_inflated_negative_binomial_1",
+                   "zero_inflated_regression_negative_binomial_1",
+                   "zero_one_censored_transformed_beta",
+                   "quasi_bernoulli_probit",
+                   "zero_censored_power_transformed_normal", "zoctn")
+
+
+def _family_inputs(n, seed=SEED_ZI + 4):
+    rng = np.random.RandomState(seed)
+    f = np.linspace(-40.0, 40.0, n)
+    zeta = np.clip(rng.permutation(f), -30.0, 30.0)
+    frac = rng.rand(n)
+    ys = {"frac": frac,
+          "count": np.where(rng.rand(n) < 0.35, 0.0,
+                            rng.poisson(3, n)).astype(float),
+          "pos0": np.where(rng.rand(n) < 0.3, 0.0, rng.gamma(2.0, 1.0, n)),
+          "pos": rng.gamma(2.0, 1.0, n) + 0.01,
+          "frac01": np.where(rng.rand(n) < 0.2, 0.0,
+                             np.where(rng.rand(n) < 0.2, 1.0,
+                                      0.05 + 0.9 * frac)),
+          "real": 3.0 * rng.randn(n)}
+    return f, zeta, ys
+
+
+def _family_values(torch, lik, y, f, zeta, aux, device):
+    """The family's log density and its derivatives (and curvatures) on
+    one device, as float64 numpy: {name: array}."""
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
+                                  device=device)
+    y, f, zeta, aux = T(y), T(f), T(zeta), T(aux)
+    two = lik.num_sets_fe == 2
+    out = {}
+    if two:
+        def s(ff, zz):
+            return torch.sum(lik.log_lik2(y, ff, zz, aux))
+    else:
+        def s(ff, zz):
+            return torch.sum(lik.log_lik(y, ff, aux))
+    d1f = torch.func.grad(s, 0)
+    out["log_lik"] = (lik.log_lik2(y, f, zeta, aux) if two
+                      else lik.log_lik(y, f, aux))
+    out["d1"] = d1f(f, zeta)
+    out["d2"] = torch.func.grad(lambda ff: torch.sum(d1f(ff, zeta)))(f)
+    if two:
+        d1z = torch.func.grad(s, 1)
+        out["d1_zeta"] = d1z(f, zeta)
+        out["d2_zeta"] = torch.func.grad(
+            lambda zz: torch.sum(d1z(f, zz)))(zeta)
+    fm = torch.clamp(f, -8.0, 8.0)
+    if hasattr(lik, "fisher_W") and not two:
+        out["fisher_W"] = lik.fisher_W(y, fm, aux)
+    if hasattr(lik, "fisher_W2"):
+        out["fisher_W2"] = lik.fisher_W2(y, fm, zeta, aux)
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def _family_close(a, b, rtol, atol):
+    """(ok, the largest relative difference over the entries above 1e-6
+    in magnitude; those below are held by atol)."""
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    with np.errstate(invalid="ignore"):
+        err = np.where(same, 0.0, np.abs(a - b))
+    big = np.maximum(np.abs(a), np.abs(b))
+    ok = same | (err <= rtol * big + atol)
+    rel = np.where(same | ~(big > 1e-6), 0.0, err / np.where(big > 0, big,
+                                                              1.0))
+    return bool(ok.all()), float(np.max(rel)) if rel.size else 0.0
+
+
+def phase_families_card_vs_cpu(torch, gpt):
+    """All 34 families at n = 1,000, card against CPU: log_lik, d1, d2,
+    fisher_W / fisher_W2 and, for two predictors, the derivatives in zeta,
+    to 1e-12 relative (1e-13 absolute; d2 through trigamma or log_ndtr's
+    backward 1e-9, the GPD / EGPD families' d2, which cancels terms of
+    size one, 1e-12 absolute); the tkc curvature and its gradient; a
+    two-predictor LaGaBoost of 2 rounds at n = 500 (round by round, the
+    splits equal but for thresholds moved at equal gains, or up to a near
+    tie; each round before any near tie, the first always: parameters to
+    1e-8, the training score and predictions outside the moved
+    thresholds' intervals to 1e-6);
+    test_two_predictor_golden.py's TestHurdleRegressionLognormal and the
+    zero_inflated_regression_poisson evaluation of TestZICountRegression at
+    that file's tolerances."""
+    from gpboost_tpu_torch.likelihoods.base import get_likelihood
+    from gpboost_tpu_torch.likelihoods import tkc
+    f, zeta, ys = _family_inputs(N_FAM)
+    worst, bad = {}, []
+    t0 = time.perf_counter()
+    for name, (aux, kind) in FAMILY_CASES.items():
+        lik = get_likelihood(name)
+        ff = np.clip(f, -30.0, 30.0) if name in (
+            "beta_binomial", "zero_one_censored_transformed_beta") else f
+        vg = _family_values(torch, lik, ys[kind], ff, zeta, aux, "cuda")
+        vc = _family_values(torch, lik, ys[kind], ff, zeta, aux, "cpu")
+        for k in vg:
+            rtol, atol = 1e-12, 1e-13
+            if k == "d2" and name in FAMILY_LOOSE_D2:
+                rtol = 1e-9
+            if k == "d2" and "gpd" in name:
+                atol = 1e-12
+            ok, rel = _family_close(vg[k], vc[k], rtol, atol)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            if not ok:
+                bad.append(f"{name}.{k} ({rel:.2e})")
+    fam_s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError("families card vs CPU: " + ", ".join(bad))
+    print(f"[families card-vs-cpu] {len(FAMILY_CASES)} families at n={N_FAM}"
+          f" in {fam_s:.2f} s: largest relative differences (entries above "
+          "1e-6) "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    # the tkc curvature and its gradient in the location
+    lik = get_likelihood("asymmetric_laplace", 0.3)
+    rng = np.random.RandomState(SEED_ZI + 5)
+    yt, loc0 = rng.standard_t(3, N_FAM) + 0.5, 0.3 * rng.randn(N_FAM)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        T = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
+                                      device=dev)
+        yd, aux, loc = T(yt), T([0.9]), T(loc0).requires_grad_(True)
+        reads = tkc.host_reads
+        c = tkc.tkc_neg_curvature(
+            lambda s_: torch.sum(lik.log_lik(yd, loc + s_, aux), -1),
+            N_FAM, loc)
+        (g,) = torch.autograd.grad(c, loc)
+        res[dev] = (float(c.detach()), g.cpu().numpy(),
+                    tkc.host_reads - reads)
+    e_c = abs(res["cuda"][0] / res["cpu"][0] - 1.0)
+    e_g = _rel_max(res["cuda"][1], res["cpu"][1])
+    if e_c > 1e-12 or e_g > 1e-10:
+        raise AssertionError(f"tkc card vs CPU: curvature {e_c:.2e}, "
+                             f"gradient {e_g:.2e}")
+    print(f"[families tkc card-vs-cpu] n={N_FAM}: curvature "
+          f"{res['cuda'][0]:.10g}, relative {e_c:.2e}, gradient {e_g:.2e}; "
+          f"{res['cuda'][2]} host reads on the card", flush=True)
+    # the two-predictor grouped engine at the initial parameters and
+    # scores: NLL, g_u and g_F of both blocks, Newton steps
+    _, group, y = sim_zi(N_ZI_CPU, Q_ZI_CPU)
+    eng_out = {}
+    for dev in ("cuda", "cpu"):
+        eng = gpt.GPModel(group_data=group, likelihood=ZI_LIK,
+                          device=dev)._engine
+        F0 = np.r_[np.full(N_ZI_CPU, 0.1), np.full(N_ZI_CPU, -0.4)]
+        res = eng.laplace_vag_F(np.log([0.8]), y, F0, eng.zero_mode())
+        eng_out[dev] = res[:3] + (eng.last_num_mode_it,)
+    (ng, gug, gFg, sg), (nc, guc, gFc, sc) = eng_out["cuda"], eng_out["cpu"]
+    e_eng = {"nll": abs(ng / nc - 1.0), "g_u": _rel_max(gug, guc),
+             "g_F": _rel_max(gFg, gFc)}
+    if max(e_eng.values()) > 1e-10 or sg != sc:
+        raise AssertionError(f"zi engine card vs CPU: {e_eng}, Newton "
+                             f"steps {sg} / {sc}")
+    print(f"[zi engine card-vs-cpu] n={N_ZI_CPU} q={Q_ZI_CPU} {ZI_LIK}: "
+          "relative " + ", ".join(f"{k} {v:.2e}" for k, v in e_eng.items())
+          + f"; {sg} Newton steps on both", flush=True)
+    # two-predictor LaGaBoost, card against CPU
+    Xn, gn = _grouped_new_rows(Q_ZI_CPU, 100, seed=SEED_ZI + 6)
+    Xn = Xn[:, :P_ZI]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bst, gp, _, _ = _zi_booster(torch, gpt, N_ZI_CPU, Q_ZI_CPU, dev)
+        rounds = []
+        for _ in range(2):
+            bst.update()
+            rounds.append((bst.F.cpu().numpy(), gp.get_cov_pars(),
+                           bst.predict(Xn, group_data_pred=gn,
+                                       predict_var=True)))
+        out[dev] = (bst, rounds)
+    (bg, rg), (bc, rc) = out["cuda"], out["cpu"]
+    # round by round, each round's two trees (grown from one gradient)
+    # split for split. A threshold moved at equal float32 gains cuts the
+    # rows alike, so the round's refitted parameters (1e-8), training
+    # score and predictions at the new rows outside the moved thresholds'
+    # intervals are held; the last two to 1e-6, as the leaf values are
+    # float32 histogram sums (the card's fixed point against the CPU's
+    # float32 adds: 7.1e-8 apart in the first card run). A near tie of
+    # unequal gains splits the rows otherwise, and the rounds from it on
+    # are held up to that split only. The first round is held in full
+    # (its tie, with this seed, has equal gains).
+    errs = {"init scores": _rel_max([bg.init_score, bg.init_score2],
+                                    [bc.init_score, bc.init_score2])}
+    keep = np.ones(len(Xn), dtype=bool)
+    held, notes = 0, []
+    for r in range(2):
+        moved, near = _threshold_ties("zi lagaboost card-vs-cpu",
+                                      bc.trees[2 * r:2 * r + 2],
+                                      bg.trees[2 * r:2 * r + 2], 2 * r)
+        notes += [f"tree {t[0]} feature {t[2]} threshold moved at equal "
+                  "gains" for t in moved]
+        if near:
+            notes.append(f"round {r + 1}: {near} near tie(s), not held "
+                         "further")
+            break
+        for _, _, feat, t_c, t_g in moved:
+            x = Xn[:, feat]
+            keep &= ~((x >= min(t_c, t_g)) & (x <= max(t_c, t_g)))
+        (Fg, cg, pg), (Fc, cc, pc) = rg[r], rc[r]
+        fe = np.r_[keep, keep]       # the fixed effect stacks both blocks
+        errs[f"round {r + 1} training score"] = _rel_max(Fg, Fc)
+        errs[f"round {r + 1} cov pars"] = _rel_max(cg, cc)
+        errs[f"round {r + 1} predictions"] = max(
+            [_rel_max(pg["fixed_effect"][fe], pc["fixed_effect"][fe])]
+            + [_rel_max(pg[k][keep], pc[k][keep])
+               for k in ("response_mean", "response_var")])
+        held = r + 1
+    lims = {k: 1e-8 if k in ("init scores",) or k.endswith("cov pars")
+            else 1e-6 for k in errs}
+    if any(v > lims[k] for k, v in errs.items()) or held < 1 \
+            or keep.sum() < len(Xn) // 2:
+        raise AssertionError(f"zi lagaboost card vs CPU: {errs}, {held} "
+                             f"round(s) held, {int(keep.sum())} rows")
+    print(f"[zi lagaboost card-vs-cpu] n={N_ZI_CPU} q={Q_ZI_CPU}, 2 rounds "
+          f"(4 trees): {'; '.join(notes) or 'every split equal'}; "
+          f"{held} round(s) held, predictions at {int(keep.sum())} of "
+          f"{len(Xn)} new rows; relative "
+          + ", ".join(f"{key} {v:.2e}" for key, v in errs.items()),
+          flush=True)
+    _two_predictor_goldens(gpt)
+
+
+def _reg_data():
+    """test_two_predictor_golden.py's reg_data (n = 500, m = 50), from
+    the R suite's LCG."""
+    from gpboost_tpu_torch.utils.datasim import qnorm, sim_rand_unif
+    n, m = 500, 50
+    group = np.repeat(np.arange(1, m + 1), n // m)
+    b1 = qnorm(sim_rand_unif(m, 0.15))
+    u1 = sim_rand_unif(n, 0.271)
+    u2 = sim_rand_unif(n, 0.55)
+    xc = 2 * sim_rand_unif(n, 0.42) - 1
+    p0r = 1.0 / (1.0 + np.exp(-(-0.3 + 1.2 * xc)))
+    return dict(n=n, m=m, group=group, b1=b1, u1=u1, u2=u2, xc=xc,
+                Xr=np.column_stack([np.ones(n), xc]), p0r=p0r)
+
+
+def _golden_rel(a, b):
+    a = np.atleast_1d(np.asarray(a, dtype=np.float64))
+    b = np.atleast_1d(np.asarray(b, dtype=np.float64))
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-10)))
+
+
+def _two_predictor_goldens(gpt):
+    """tests/test_two_predictor_golden.py:46-78 (TestHurdleRegression
+    Lognormal) and :80-119 (TestZICountRegression.test_eval, Poisson) on
+    the card, at that file's tolerances (1e-5 strict, 1e-3 medium); the
+    expected numbers copied from there (test_GPModel_zero_inflated_
+    hurdle.R:120-175)."""
+    from scipy import stats
+    d = _reg_data()
+    n, m = d["n"], d["m"]
+    eta = 0.5 + 0.7 * d["b1"][d["group"] - 1] + 0.6 * d["xc"]
+    y = np.where(d["u1"] < d["p0r"], 0.0, np.exp(stats.norm.ppf(
+        d["u2"], eta - 0.25, np.sqrt(0.5))))
+    lik = "hurdle_regression_lognormal"
+    gpm = gpt.GPModel(group_data=d["group"], likelihood=lik, device="cuda")
+    nll = gpm.neg_log_likelihood(cov_pars=[0.5], y=y,
+                                 fixed_effects=np.zeros(2 * n),
+                                 aux_pars=[0.5])
+    gp = gpt.GPModel(group_data=d["group"], likelihood=lik,
+                     device="cuda").fit(y=y, X=d["Xr"],
+                                        params={"maxit": 100})
+    est = np.concatenate([gp.get_cov_pars(), gp.get_coef(),
+                          gp.get_aux_pars(),
+                          [gp.get_current_neg_log_likelihood()]])
+    pd = gp.predict(group_data_pred=np.array([1, m + 1]),
+                    X_pred=np.array([[1, 0.4], [1, -0.4]]),
+                    predict_var=True, predict_response=True)
+    errs = {"nll": _golden_rel(nll, 724.385),
+            "estimates": _golden_rel(est, [0.305373, 0.352269, 0.734696,
+                                           -0.33679, 1.22878, 0.451265,
+                                           648.497]),
+            "mu": _golden_rel(pd["mu"], [0.518035, 0.85956]),
+            "var": _golden_rel(pd["var"], [0.710859, 1.52345])}
+    eta = -0.2 + 0.7 * d["b1"][d["group"] - 1] + 0.6 * d["xc"]
+    yp = np.where(d["u1"] < d["p0r"], 0.0,
+                  stats.poisson.ppf(d["u2"], np.exp(eta)))
+    gpm = gpt.GPModel(group_data=d["group"], likelihood=ZI_LIK,
+                      device="cuda")
+    errs["zip eval"] = _golden_rel(gpm.neg_log_likelihood(
+        cov_pars=[0.5], y=yp, fixed_effects=np.zeros(2 * n)), 454.8418)
+    lim = {"nll": 1e-5, "estimates": 1e-3, "mu": 1e-3, "var": 1e-3,
+           "zip eval": 1e-5}
+    if any(errs[k] >= lim[k] for k in errs):
+        raise AssertionError(f"two-predictor goldens: {errs}")
+    print("[two-predictor goldens] relative to the R suite: "
+          + ", ".join(f"{k} {v:.2e} (< {lim[k]:g})" for k, v in errs.items()),
+          flush=True)
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
           (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38),
-          (39, 41))
+          (39, 41), (42, 44))
 
 
 def _groups(spec):
@@ -4950,6 +5573,14 @@ def main(argv=None):
         phase_svc_card_vs_cpu(torch, gpt)
         print(f"[svc] phases 39-41 in {time.perf_counter() - t_s:.1f} s",
               flush=True)
+    if (42, 44) in groups:
+        t_f = time.perf_counter()
+        segment["launches_lagaboost_zi_regression_n100k"] = \
+            phase_zi_lagaboost(torch, gpt, histogram)
+        phase_families_engines(torch, gpt)
+        phase_families_card_vs_cpu(torch, gpt)
+        print(f"[families] phases 42-44 in "
+              f"{time.perf_counter() - t_f:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

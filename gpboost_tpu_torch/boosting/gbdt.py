@@ -37,7 +37,14 @@ with a GP model a refit on the post-momentum residuals: two refits a round.
 The objective of LaGaBoost is the GP model's likelihood, whatever the
 `objective` parameter says (gbdt.py:647); its init score is the
 intercept-only Laplace fit at the initial covariance parameters
-(gbdt.py:857-887, FindInitialValueBoosting).
+(gbdt.py:857-887, FindInitialValueBoosting). A likelihood with two
+predictor sets (the regression zero models, gaussian_heteroscedastic;
+gbdt.py:733-740) grows two trees a round on the two halves of one
+gradient, the first block's then the second's, interleaved in `trees`
+(even ones the first block, odd ones the second, as `predict`,
+`num_iteration` and the model dict's num_sets read them); its F stacks
+both blocks, each with its own init score, and every round refits with a
+full fit, as the reference does (no warm GD refit for two sets).
 
 `train` takes validation sets, early stopping, callbacks and feval
 (gbdt.py:2443-2656). Each validation set keeps a running raw score that
@@ -293,26 +300,31 @@ def _raw_X(data):
 
 class _RunningScore:
     """The raw ensemble score of one data set, advanced tree by tree as
-    the booster grows (LightGBM's ScoreUpdater of a validation set). Each
-    new tree is added, with the Nesterov recursion replayed, by the float
+    the booster grows (LightGBM's ScoreUpdater of a validation set), one
+    score per predictor block (tree i adds to block i % nsets). Each new
+    tree is added, with the Nesterov recursion replayed, by the float
     operations `Booster.predict` does, in its order (trees summed from 0,
     the init score added last), so the score after k rounds equals
     `predict(num_iteration=k, raw_score=True)` bit for bit."""
 
     def __init__(self, booster, data):
         self.X = _raw_X(data)
-        self.F = np.zeros(len(self.X))
+        self.F = [np.zeros(len(self.X)) for _ in range(booster._nsets)]
         self.lag = None
         self.k = 0
 
     def advance(self, booster):
         """Take the trees grown since the last call; returns the raw score
-        with the init score."""
+        with the init score (both predictor blocks stacked for a
+        two-predictor model)."""
+        K = len(self.F)
         while self.k < len(booster.trees):
-            self.F, self.lag = booster._add_tree(self.F, self.lag, self.k,
-                                                 self.X)
+            F, self.lag = booster._add_tree(self.F[self.k % K], self.lag,
+                                            self.k, self.X)
+            self.F[self.k % K] = F
             self.k += 1
-        return self.F + booster.init_score
+        return np.concatenate([s + c for s, c in zip(
+            self.F, (booster.init_score, booster.init_score2))])
 
 
 class Booster:
@@ -379,18 +391,39 @@ class Booster:
             parallel_mode=_TREE_LEARNERS[str(p["tree_learner"])],
             top_k=int(p["top_k"]), group=group)
         self.trees = []
+        # a likelihood with two predictor sets (num_sets_fixed_effects = 2,
+        # c_api.cpp:132): two trees a round, one per block, interleaved in
+        # self.trees (gbdt.py:733-740)
+        self._nsets = 1
+        self.init_score2 = 0.0
+        if laplace and getattr(gp_model._likelihood_obj, "num_sets_fe",
+                               1) == 2:
+            self._nsets = 2
+            if p["boosting"] != "gbdt":
+                raise ValueError("two-predictor likelihoods support "
+                                 "boosting='gbdt' only")
         if laplace:
-            # the intercept-only Laplace fit, from the closed-form
-            # intercept (FindInitialValueBoosting, re_model.cpp:634-690)
-            c0 = gp_model._likelihood_obj.init_intercept(
-                y, self._gp_total_re_var(y))
-            self.init_score = self._find_init_score_gp(y, c0)
+            # the intercept-only Laplace fit, one intercept per predictor
+            # set, from the closed-form intercepts (FindInitialValueBoosting,
+            # re_model.cpp:634-690)
+            lik = gp_model._likelihood_obj
+            tv = self._gp_total_re_var(y)
+            c0 = [lik.init_intercept(y, tv)]
+            if self._nsets == 2:
+                c0.append(float(lik.init_intercept2(y, tv))
+                          if hasattr(lik, "init_intercept2") else 0.0)
+            c = self._find_init_score_gp(y, c0)
+            self.init_score = c[0]
+            if self._nsets == 2:
+                self.init_score2 = c[1]
         else:
             self.init_score = self._boost_from_average(y, w)
         # the score and labels of the rows this rank's learner holds
         self.y = torch.as_tensor(y[self.learner.rows], device=self.device)
-        self.F = torch.full((self.learner.n,), self.init_score,
-                            dtype=torch.float64, device=self.device)
+        self.F = torch.cat([
+            torch.full((self.learner.n,), c, dtype=torch.float64,
+                       device=self.device)
+            for c in (self.init_score, self.init_score2)[:self._nsets]])
         # Dataset weights scale grad and hess without a GP model
         # (gbdt.py:1107-1108); with one the reference ignores them
         self._w = None if w is None or gp_model is not None \
@@ -519,7 +552,8 @@ class Booster:
     def _find_init_score_gp(self, y, c0):
         """The intercept-only ML fit of the Laplace marginal likelihood at
         the initial covariance and aux parameters (gbdt.py:857-887):
-        L-BFGS-B over one intercept, the mode warm-started."""
+        L-BFGS-B over one intercept per predictor set (c0 their starting
+        values), the mode warm-started."""
         from scipy.optimize import minimize
         from ..models.optimize import OptimConfig, _laplace_u0
         gp = self.gp_model
@@ -529,19 +563,21 @@ class Booster:
         u = _laplace_u0(eng, y, cfg)
         yd = eng.prep_y(gp._likelihood_obj.check_y(y))
         state = {"a": eng.zero_mode()}
-        n = len(y)
+        n, K = len(y), len(c0)
 
         def fun(c):
-            nll, _, gF, a = eng.laplace_vag_F(u, yd, np.full(n, float(c[0])),
-                                              state["a"])
+            nll, _, gF, a = eng.laplace_vag_F(
+                u, yd, np.repeat(np.asarray(c, dtype=np.float64), n),
+                state["a"])
             state["a"] = a
             if not np.isfinite(nll):
-                return 1e30, np.zeros(1)
-            return float(nll), np.asarray([gF.sum()])
+                return 1e30, np.zeros(K)
+            return float(nll), np.asarray(gF).reshape(K, n).sum(1)
 
-        r = minimize(fun, np.asarray([c0], dtype=np.float64), jac=True,
+        r = minimize(fun, np.asarray(c0, dtype=np.float64), jac=True,
                      method="L-BFGS-B", options={"maxiter": 50})
-        return float(r.x[0]) if np.all(np.isfinite(r.x)) else float(c0)
+        x = r.x if np.all(np.isfinite(r.x)) else np.asarray(c0)
+        return [float(v) for v in x]
 
     def _gradients(self):
         """(grad, hess) at the current score F, as device tensors."""
@@ -685,15 +721,17 @@ class Booster:
     def _refit_laplace(self):
         """The non-Gaussian refit at the current F (gbdt.py:1181-1227): a
         full fit with the GP model's own settings the first time (or
-        whenever the fast path does not apply), then the warm-started GD
-        refit of the parameters and the mode, with the learning rate
-        restarted at its default each round."""
+        whenever the fast path does not apply: covariates, two predictor
+        sets), then the warm-started GD refit of the parameters and the
+        mode, with the learning rate restarted at its default each
+        round."""
         gp = self.gp_model
         if not (self.params["train_gp_model_cov_pars"]
                 or not gp.model_has_been_fitted):
             return
         eng = gp._engine
-        if gp.model_has_been_fitted and gp.X is None:
+        if gp.model_has_been_fitted and gp.X is None \
+                and eng.num_sets_fe == 1:
             r = gp._fit_result
             a0 = r.mode_state if r.mode_state is not None \
                 else eng.zero_mode()
@@ -820,8 +858,12 @@ class Booster:
                                   int(p["momentum_offset"]))
 
     def update(self):
-        """One boosting iteration (gbdt.cpp:412 TrainOneIter)."""
-        if self.params["use_nesterov_acc"]:
+        """One boosting iteration (gbdt.cpp:412 TrainOneIter): one tree per
+        predictor block, each on its block's half of one gradient (two for
+        a two-predictor likelihood, gbdt.py:1312-1330, interleaved in
+        self.trees), then the refit."""
+        K, n = self._nsets, self.learner.n
+        if self.params["use_nesterov_acc"] and K == 1:
             # the momentum step on the score comes before the gradients;
             # with a GP model the covariance parameters are refitted on the
             # post-momentum residuals (gbdt.cpp:428 condition iii)
@@ -834,26 +876,30 @@ class Booster:
                 self._refit_gp_cov()
         grad, hess = self._gradients()
         row_mask, feat_mask = self._sampling_masks()
-        tree, slot_of_row, leaf_value_of_slot = self.learner.train(
-            grad, hess, row_mask=row_mask, feat_mask=feat_mask)
-        if self.gp_model is None and self.objective_name in (
-                "l1", "quantile", "mape"):
-            self._renew_leaf_values(tree, slot_of_row, leaf_value_of_slot,
-                                    row_mask)
-        if self.gp_model is not None \
-                and self.gp_model._likelihood_obj is None:
-            if self.params["leaves_newton_update"]:
-                self._newton_leaf_values(tree, slot_of_row,
-                                         leaf_value_of_slot)
-            if self.params["line_search_step_length"]:
-                leaf_value_of_slot = self._line_search(
-                    tree, slot_of_row, leaf_value_of_slot)
         lr = float(self.params["learning_rate"])
-        tree.shrinkage(lr)
-        lv = torch.as_tensor(leaf_value_of_slot, device=self.device)
-        self.F = self.F + lr * lv[slot_of_row]
-        self.trees.append(tree)
-        self.current_iteration_ = len(self.trees)
+        for k in range(K):
+            blk = slice(k * n, (k + 1) * n)
+            tree, slot_of_row, leaf_value_of_slot = self.learner.train(
+                grad[blk], hess[blk], row_mask=row_mask, feat_mask=feat_mask)
+            if self.gp_model is None and self.objective_name in (
+                    "l1", "quantile", "mape"):
+                self._renew_leaf_values(tree, slot_of_row,
+                                        leaf_value_of_slot, row_mask)
+            if self.gp_model is not None \
+                    and self.gp_model._likelihood_obj is None:
+                if self.params["leaves_newton_update"]:
+                    self._newton_leaf_values(tree, slot_of_row,
+                                             leaf_value_of_slot)
+                if self.params["line_search_step_length"]:
+                    leaf_value_of_slot = self._line_search(
+                        tree, slot_of_row, leaf_value_of_slot)
+            tree.shrinkage(lr)
+            lv = torch.as_tensor(leaf_value_of_slot, device=self.device)
+            F = self.F.clone()
+            F[blk] += lr * lv[slot_of_row]
+            self.F = F
+            self.trees.append(tree)
+        self.current_iteration_ = len(self.trees) // K
         # refit on the post-tree residuals so get_cov_pars(), predictions
         # and the next round's gradients see the current ensemble
         if self.gp_model is not None:
@@ -862,10 +908,11 @@ class Booster:
 
     # ------------------------------------------------------------------
     def _add_tree(self, F, lag, it, X):
-        """Tree `it` added to the raw score F (the trees before it summed
-        from 0, no init score), with the Nesterov recursion replayed
-        (gbdt.py:2035-2050): returns the new (F, lag)."""
-        if self.params["use_nesterov_acc"]:
+        """Tree `it` added to the raw score F of its block (the trees
+        before it summed from 0, no init score), with the Nesterov
+        recursion replayed (gbdt.py:2035-2050; a two-predictor model takes
+        no momentum step, as in update): returns the new (F, lag)."""
+        if self.params["use_nesterov_acc"] and self._nsets == 1:
             if it == 1:
                 lag = F.copy()
             elif it > 1:
@@ -879,6 +926,18 @@ class Booster:
         start_iteration + num_iteration), the init score added when the
         slice starts at 0 (gbdt.py:2031-2074)."""
         s = int(start_iteration)
+        if self._nsets == 2:
+            # interleaved trees: even ones the first block, odd ones the
+            # second (gbdt.py:2017-2030), each block summed from 0 and its
+            # init score added last, as _RunningScore sums them
+            nit = len(self.trees) // 2 - s if num_iteration is None \
+                or num_iteration <= 0 else int(num_iteration)
+            Fk = [np.zeros(len(X)), np.zeros(len(X))]
+            for i, tree in enumerate(self.trees[2 * s: 2 * (s + nit)]):
+                Fk[i % 2] = Fk[i % 2] + tree.predict_raw(X)
+            if s == 0:
+                Fk = [Fk[0] + self.init_score, Fk[1] + self.init_score2]
+            return np.concatenate(Fk)
         ntrees = len(self.trees) - s if num_iteration is None \
             or num_iteration <= 0 else int(num_iteration)
         used = range(s, min(s + ntrees, len(self.trees)))
@@ -1115,8 +1174,8 @@ class Booster:
                        if isinstance(v, (int, float, str, bool))},
             "trees": [t.to_dict() for t in self.trees],
             "has_gp_model": int(self.gp_model is not None),
-            "num_sets": 1,
-            "init_score2": 0.0,
+            "num_sets": self._nsets,
+            "init_score2": self.init_score2,
         }
         if self._binary_lw is not None:
             d["binary_label_weights"] = list(self._binary_lw)
@@ -1136,10 +1195,16 @@ class Booster:
         from ..gp_model import GPModel
         unsupported = [k for k in ("efb", "init_scores", "pandas_categorical")
                        if d.get(k)]
-        if int(d.get("num_sets", 1)) != 1:
-            unsupported.append("num_sets")
         laplace = bool(d.get("has_gp_model")) \
             and d["gp_model"]["likelihood"] not in ("gaussian", "regression")
+        self._nsets = int(d.get("num_sets", 1))
+        if self._nsets != 1 and not (
+                self._nsets == 2 and laplace and getattr(
+                    get_likelihood(d["gp_model"]["likelihood"]),
+                    "num_sets_fe", 1) == 2):
+            # multi-output boosting without a two-predictor GP model
+            # (multiclass, mean_scale_regression)
+            unsupported.append("num_sets (ROADMAP A12)")
         if d["objective"] in _UNPORTED_OBJECTIVES:
             unsupported.append(f"objective '{d['objective']}'")
         if unsupported:
@@ -1149,10 +1214,11 @@ class Booster:
         self.params = dict(_BOOST_PARAM_DEFAULTS)
         self.params.update(d.get("params", {}))
         self.init_score = float(d["init_score"])
+        self.init_score2 = float(d.get("init_score2", 0.0))
         self.objective_name = d["objective"]
         self.trees = [Tree.from_dict(td) for td in d["trees"]]
         self.train_set = None
-        self.current_iteration_ = len(self.trees)
+        self.current_iteration_ = len(self.trees) // self._nsets
         self.device = resolve_device(device)
         self.gp_model = None
         self._binary_lw = None

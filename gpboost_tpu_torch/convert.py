@@ -24,11 +24,16 @@ def gp_model_from_jax_dict(d, device=None):
     with grouped random effects, an exact GP (alone or with grouped random
     effects), a Vecchia GP or a GP under FITC, tapering, full-scale
     tapering or full-scale Vecchia, a Vecchia GP with grouped random
-    effects, and models of the 16 likelihoods of likelihoods/base.py with
+    effects, and models of every likelihood of the JAX package (the 16 of
+    likelihoods/base.py and the 34 of likelihoods/families.py) with
     grouped random effects, an exact GP (with grouped effects too) or a
-    Vecchia, FITC or tapering GP (a Vecchia one with grouped effects too),
-    exact and tapered GPs with random coefficients (gp_rand_coef_data)
-    included, are ported; any other model raises NotImplementedError. The
+    Vecchia, FITC or tapering GP (a Vecchia one with grouped effects too,
+    for one predictor set), exact and tapered GPs with random coefficients
+    (gp_rand_coef_data) included, are ported: a two-predictor likelihood's
+    coefficients come in two stacked blocks, and a model with two
+    random-effect sets carries its second set's parameters after the
+    first's (the `_set2` names); any other model raises
+    NotImplementedError. The
     inducing points are not in the dict:
     both packages draw them again from the coordinates, the seed,
     num_ind_points and ind_points_selection, and kmeans++ places the same
@@ -41,7 +46,10 @@ def booster_from_jax_dict(d, device=None):
     ready to `predict` on `device` (default: the first CUDA card). The
     GPModel is None for a booster trained without one. Gaussian regression
     boosting, alone or with a GP model that `gp_model_from_jax_dict`
-    loads, and LaGaBoost with such a non-Gaussian GP model are ported so
-    far; any other model raises NotImplementedError."""
+    loads, and LaGaBoost with such a non-Gaussian GP model are ported,
+    with a two-predictor likelihood's interleaved trees (num_sets = 2:
+    even trees the first block, odd ones the second); any other model,
+    among them multi-output boosting without a GP model (multiclass,
+    mean_scale_regression; ROADMAP A12), raises NotImplementedError."""
     booster = Booster(model_dict=d, device=device)
     return booster, booster.gp_model

@@ -17,10 +17,14 @@ Ported, for the Gaussian likelihood, with the engine the reference picks
 
 All three take observation weights (the nugget of row i is sigma2 / w_i).
 
-For the 16 likelihoods of likelihoods/base.py (bernoulli_probit /
-_logit, binomial, poisson, gamma, negative_binomial(_1), beta, t,
-t_fix_df, lognormal, tweedie(_fixed_p), asymmetric_laplace,
-gaussian_latent; gp_model.py:468-495), by the Laplace approximation:
+For the non-Gaussian likelihoods (the 16 of likelihoods/base.py:
+bernoulli_probit / _logit, binomial, poisson, gamma, negative_binomial(_1),
+beta, t, t_fix_df, lognormal, tweedie(_fixed_p), asymmetric_laplace (also
+with the '_tkc' curvature), gaussian_latent; and the 34 of
+likelihoods/families.py: zero-inflated and hurdle counts and amounts,
+GPD / EGPD, the censored families, beta_binomial, whose weights are its
+trials, quasi-Bernoulli and the heteroscedastic Gaussians;
+gp_model.py:468-495), by the Laplace approximation:
 
   * grouped random effects only: models/grouped_laplace.py, with slopes,
     crossed groupings, cluster_ids and observation weights;
@@ -50,7 +54,7 @@ ind_points_selection ("kmeans++", the JAX package's centres, or
 cov_fct_taper_shape (0, 1 or 2):
 
   * gp_approx="fitc": models/fitc.py for the Gaussian likelihood (with
-    weights), models/fitc_laplace.py for the 16 likelihoods;
+    weights), models/fitc_laplace.py for the others;
   * "tapering", "full_scale_tapering" (and its "_pred_var_exact" and
     "_pred_var_exact_stable" variants), "full_scale_vecchia" and
     "full_scale_vecchia_correlation_based": the kernel adapters of
@@ -78,8 +82,14 @@ group_rand_coef_data_pred, gp_coords_pred, gp_rand_coef_data_pred,
 X_pred and cluster_ids_pred, with the response's mean and variance
 (predict_response) for the non-Gaussian likelihoods, and draws posterior
 or prior samples (sample_posterior, sample_prior); `model_to_dict` writes
-the reference's state dict and a dict of either package loads here. The
-likelihoods of likelihoods/families.py raise NotImplementedError. The
+the reference's state dict and a dict of either package loads here.
+A two-predictor likelihood (num_sets_fe = 2: the regression zero models,
+gaussian_heteroscedastic) takes fixed effects, offsets and coefficients in
+two stacked blocks, the random effects on the first; with two
+random-effect sets (gaussian_heteroscedastic_fixed_and_random) every
+gp_approx runs on the dense Laplace engine, the second set's parameters
+named with "_set2"; the combined Vecchia + grouped engine refuses both,
+as the reference does. The
 iterative engines (the Woodbury engine's iterative branch, which "auto"
 takes above q = 20,000, the matrix-free Vecchia-Laplace and combined
 engines and the iterative FSA / FSVA engines) read the reference's CG
@@ -104,8 +114,8 @@ from .models.gaussian_gp import DenseGaussianEngine, prior_pred_cov
 from .models.grouped_laplace import GroupedRELaplaceEngine
 from .models.grouped_re import WoodburyGaussianEngine
 from .models.laplace import LaplaceDenseEngine
-from .models.optimize import (OptimConfig, OptimResult, optimize_gaussian,
-                              optimize_laplace)
+from .models.optimize import (OptimConfig, OptimResult, _fixed_effects,
+                              optimize_gaussian, optimize_laplace)
 from .models.fitc import FITCGaussianEngine, select_inducing_points
 from .models.fitc_laplace import FITCLaplaceEngine
 from .models.fsa_iterative import FSAIterativeGaussianEngine
@@ -186,6 +196,14 @@ class GPModel:
         if likelihood != "gaussian":
             self._likelihood_obj = get_likelihood(
                 likelihood, likelihood_additional_param)
+            if getattr(self._likelihood_obj, "num_sets_re", 1) == 2 \
+                    and gp_approx in _GP_APPROXES:
+                # two random-effect sets
+                # (gaussian_heteroscedastic_fixed_and_random,
+                # likelihoods.h:474-485) run on the dense Laplace engine
+                # whatever the approximation (gp_model.py:359-367): the
+                # reference's Vecchia at num_neighbors = n - 1
+                gp_approx = "none"
         if gp_approx not in _GP_APPROXES:
             raise NotImplementedError(
                 f"gp_approx '{gp_approx}' is not ported yet (ported: "
@@ -216,6 +234,12 @@ class GPModel:
         self.likelihood_learning_rate = likelihood_learning_rate
         self.weights = None if weights is None \
             else np.asarray(weights, dtype=np.float64)
+        # the weights of beta_binomial are its trials, part of the pmf
+        # rather than a factor of the log density (gp_model.py:472-476)
+        eng_weights = self.weights
+        if getattr(self._likelihood_obj, "uses_weights_as_trials", False):
+            self._likelihood_obj.set_trials(self.weights)
+            eng_weights = None
         self._aux_override = None
         self.gp_approx = gp_approx
         self.cov_function_name = cov_function
@@ -343,7 +367,7 @@ class GPModel:
             fitc_kw = dict(num_ind_points=num_ind_points,
                            ind_points_selection=ind_points_selection,
                            seed=seed, dtype=self._dtype,
-                           weights=self.weights, device=self.device)
+                           weights=eng_weights, device=self.device)
             if self._likelihood_obj is not None:
                 self._engine = FITCLaplaceEngine(
                     self.components, self.num_data, self._likelihood_obj,
@@ -368,7 +392,7 @@ class GPModel:
                 self.components, self.num_data, self._likelihood_obj,
                 num_neighbors=num_neighbors if num_neighbors else 20,
                 vecchia_ordering=vecchia_ordering, seed=seed,
-                dtype=self._dtype, weights=self.weights,
+                dtype=self._dtype, weights=eng_weights,
                 matrix_inversion_method=mim, device=self.device)
         elif self._likelihood_obj is not None and self._vecchia:
             # the reference's rule (gp_model.py:426-434): the matrix-free
@@ -382,16 +406,17 @@ class GPModel:
                 num_neighbors=num_neighbors if num_neighbors else 20,
                 vecchia_ordering=vecchia_ordering, seed=seed,
                 dtype=self._dtype, matrix_inversion_method=mim,
-                weights=self.weights, cluster_ids=self.cluster_ids,
+                weights=eng_weights, cluster_ids=self.cluster_ids,
                 device=self.device)
         elif self._likelihood_obj is not None:
-            if self._use_woodbury:
+            if self._use_woodbury \
+                    and getattr(self._likelihood_obj, "num_sets_re", 1) == 1:
                 # the q-dimensional Laplace engine (likelihoods.h:2959 /
                 # :3223)
                 self._engine = GroupedRELaplaceEngine(
                     self.components, self.num_data, self._likelihood_obj,
                     cluster_ids=self.cluster_ids, dtype=self._dtype,
-                    weights=self.weights, device=self.device)
+                    weights=eng_weights, device=self.device)
             else:
                 # an exact GP, alone or with grouped random effects (all
                 # components in one Sigma, gp_model.py:486-491), or a
@@ -400,14 +425,14 @@ class GPModel:
                 self._engine = LaplaceDenseEngine(
                     self.components, self.num_data, self._likelihood_obj,
                     cluster_ids=self.cluster_ids, dtype=self._dtype,
-                    weights=self.weights, device=self.device)
+                    weights=eng_weights, device=self.device)
         elif self._vecchia:
             self._engine = VecchiaGaussianEngine(
                 self.components, self.num_data,
                 num_neighbors=num_neighbors if num_neighbors else 20,
                 vecchia_ordering=vecchia_ordering, seed=seed,
                 dtype=self._dtype, device=self.device,
-                weights=self.weights, cluster_ids=self.cluster_ids)
+                weights=eng_weights, cluster_ids=self.cluster_ids)
             self._use_woodbury = False
         elif self._use_woodbury:
             if self.cluster_ids is not None:
@@ -421,14 +446,19 @@ class GPModel:
             self._engine = WoodburyGaussianEngine(
                 self.components, self.num_data, dtype=self._dtype,
                 matrix_inversion_method=mim, device=self.device,
-                weights=self.weights)
+                weights=eng_weights)
         else:
             # an exact GP, or a tapering / FSA / VIF adapter riding the
             # dense engine
             self._engine = DenseGaussianEngine(
                 self.components, self.num_data, dtype=self._dtype,
                 device=self.device, cluster_ids=self.cluster_ids,
-                weights=self.weights)
+                weights=eng_weights)
+        if getattr(self._engine, "num_sets_re", 1) == 2:
+            # the second set's covariance parameters, the same structure
+            # (re_model_template.h:4915-4932)
+            self._par_names = self._par_names + [
+                nm + "_set2" for nm in self._par_names]
         self.num_cov_par = self._engine.num_cov_par
         self.params = OptimConfig()
         self._coef_override = None
@@ -537,6 +567,18 @@ class GPModel:
             pars.append(marg_var)
             if comp.kind == "gp":
                 pars.extend(_init_ranges(comp))
+        if getattr(self._engine, "num_sets_re", 1) == 2:
+            # the second (log-variance) set: the variance from the
+            # mean-zero log-normal moment equation (e^s2 - 1) e^s2 =
+            # marg_var / 2, the ranges reused (re_model_template.h:
+            # 4915-4932)
+            pars2, off = [], 0
+            for comp in self.components:
+                pars2.append(np.log((1.0 + np.sqrt(1.0 + 2.0 * pars[off]))
+                                    / 2.0) / 2.0)
+                pars2.extend(pars[off + 1: off + comp.num_cov_par])
+                off += comp.num_cov_par
+            pars = list(pars) + pars2
         return np.asarray(pars)
 
     def reset_fit(self):
@@ -870,10 +912,14 @@ class GPModel:
             y = self.y
         y = np.asarray(y, dtype=np.float64)
         n = self.num_data
-        F = np.zeros(n)
+        nsets = self._engine.num_sets_fe
+        # F and F_pred hold one block per predictor set (gp_model.py:
+        # 1004-1050); a part of length n fills the first
+        F = np.zeros(n * nsets)
         for part in (offset, fixed_effects):
             if part is not None:
-                F += np.asarray(part, dtype=np.float64)
+                part = np.asarray(part, dtype=np.float64)
+                F[:len(part)] += part
         coef, aux_pars = self._coef_override, self._aux_override
         a_init = None
         if self._fit_result is not None:
@@ -883,17 +929,19 @@ class GPModel:
                 aux_pars = self._fit_result.aux_pars
             a_init = self._fit_result.mode_state
         if coef is not None and self.X is not None:
-            F += self.X @ coef
+            F += _fixed_effects(self.X, coef, nsets)
         pred_data = self._build_pred_data(
             group_data_pred, group_rand_coef_data_pred, gp_coords_pred,
             gp_rand_coef_data_pred, cluster_ids_pred)
         n_pred = pred_data["n_pred"]
-        F_pred = np.zeros(n_pred)
+        F_pred = np.zeros(n_pred * nsets)
         for part in (offset_pred, fixed_effects_pred):
             if part is not None:
-                F_pred += np.asarray(part, dtype=np.float64)
+                part = np.asarray(part, dtype=np.float64)
+                F_pred[:len(part)] += part
         if coef is not None and X_pred is not None:
-            F_pred += np.asarray(X_pred, dtype=np.float64) @ coef
+            F_pred += _fixed_effects(np.asarray(X_pred, dtype=np.float64),
+                                     coef, nsets)
         if a_init is not None and a_init.shape != (self._engine.dim_mode,):
             a_init = None
         out = self._engine.predict(
@@ -1016,11 +1064,13 @@ class GPModel:
         u = eng._u_from_pars(r.cov_pars, r.aux_pars, self.y)
         a_state = r.mode_state
         if offset is not None or a_state is None:
-            F = np.zeros(self.num_data)
+            nsets = eng.num_sets_fe
+            F = np.zeros(self.num_data * nsets)
             if offset is not None:
-                F += np.asarray(offset, dtype=np.float64)
+                offs = np.asarray(offset, dtype=np.float64)
+                F[:len(offs)] += offs
             if r.coef is not None and self.X is not None:
-                F += self.X @ r.coef
+                F += _fixed_effects(self.X, r.coef, nsets)
             _, a_state = eng.laplace_nll(
                 u, self.y, F, a_state if a_state is not None
                 else eng.zero_mode())

@@ -15,9 +15,9 @@ map the user's scale (Tweedie's power p) to it. The host helpers (label
 checks, initial values, learning-rate cap constants) stay numpy, copied from
 the reference.
 
-The 16 families of base.py are ported; the families of
-gpboost_tpu/likelihoods/families.py and the triangular-kernel curvature
-approximation (likelihoods/tkc.py) raise NotImplementedError.
+The 16 families defined here and the 34 of likelihoods/families.py are
+registered by name; the '_tkc' suffix selects the triangular-kernel
+curvature of likelihoods/tkc.py (asymmetric_laplace only).
 """
 
 import math
@@ -703,24 +703,11 @@ _REGISTRY = {cls.name: cls for cls in (
     Gamma, NegativeBinomial, NegativeBinomial1, Beta, StudentT, LogNormal,
     GaussianLatent, Tweedie, AsymmetricLaplace)}
 
-#: the likelihoods of gpboost_tpu/likelihoods/families.py, not ported yet
-FAMILY_NAMES = (
-    "beta_binomial", "egpd_beta", "egpd_power", "egpd_power_beta",
-    "egpd_power_mixture", "gaussian_heteroscedastic",
-    "gaussian_heteroscedastic_fixed_and_random", "gpd", "hurdle_egpd_beta",
-    "hurdle_egpd_power", "hurdle_egpd_power_beta",
-    "hurdle_egpd_power_mixture", "hurdle_gamma", "hurdle_gpd",
-    "hurdle_lognormal", "hurdle_regression_egpd_beta",
-    "hurdle_regression_egpd_power", "hurdle_regression_egpd_power_beta",
-    "hurdle_regression_egpd_power_mixture", "hurdle_regression_gamma",
-    "hurdle_regression_gpd", "hurdle_regression_lognormal",
-    "quasi_bernoulli_logit", "quasi_bernoulli_probit",
-    "zero_censored_power_transformed_normal",
-    "zero_inflated_negative_binomial", "zero_inflated_negative_binomial_1",
-    "zero_inflated_poisson", "zero_inflated_regression_negative_binomial",
-    "zero_inflated_regression_negative_binomial_1",
-    "zero_inflated_regression_poisson", "zero_one_censored_shifted_gamma",
-    "zero_one_censored_transformed_beta", "zoctn")
+from .families import FAMILY_CLASSES as _FAMILY_CLASSES   # noqa: E402
+_REGISTRY.update({cls.name: cls for cls in _FAMILY_CLASSES})
+
+#: the likelihoods registered by likelihoods/families.py
+FAMILY_NAMES = tuple(sorted(cls.name for cls in _FAMILY_CLASSES))
 
 SUPPORTED_LIKELIHOODS = tuple(sorted(_REGISTRY)) + (
     "t_fix_df", "tweedie_fixed_p", "gaussian")
@@ -862,10 +849,6 @@ def get_likelihood(name, additional_param=None):
     name, opts = _parse_likelihood_options(name)
     name = _ALIASES.get(name, name)
     approx = opts.get("approx")
-    if name in FAMILY_NAMES:
-        raise NotImplementedError(
-            f"likelihood '{name}' (likelihoods/families.py) is not ported "
-            "yet")
     if name == "t_fix_df":
         lik = TFixDf(df=additional_param if additional_param is not None
                      else 2.0)
@@ -892,10 +875,6 @@ def get_likelihood(name, additional_param=None):
                 "'approximation_type' = 'triangular_kernel_curvature' is "
                 f"only supported for likelihood = 'asymmetric_laplace', "
                 f"not '{name}'")
-        if approx == "tkc":
-            raise NotImplementedError(
-                "the triangular-kernel curvature approximation "
-                "(likelihoods/tkc.py) is not ported yet")
         lik.approx_type = approx
     if "mode_finding" in opts:
         lik.mode_finding = opts["mode_finding"]

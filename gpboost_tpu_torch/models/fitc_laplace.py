@@ -44,10 +44,6 @@ class FITCLaplaceEngine(LaplaceEngineBase):
         if len(components) != 1 or components[0].kind != "gp":
             raise ValueError("gp_approx='fitc' requires exactly one GP "
                              "component")
-        if getattr(likelihood, "num_sets_fe", 1) == 2:
-            raise NotImplementedError(
-                "likelihoods with two predictor sets (num_sets_fe = 2) are "
-                "not ported yet")
         self._init_common(likelihood, num_data, dtype, device, weights)
         self.comp = components[0]
         self.components = [self.comp]
@@ -55,7 +51,6 @@ class FITCLaplaceEngine(LaplaceEngineBase):
         self.num_theta = self.comp.num_cov_par
         self.num_cov_par = self.num_theta
         self.num_par = self.num_theta + self.num_aux
-        self.num_sets_fe = 1
         self.dim_mode = self.n
         self._blocks = FITCBlocks(self.comp, num_data, num_ind_points,
                                   ind_points_selection, seed, dtype,
@@ -111,18 +106,19 @@ class FITCLaplaceEngine(LaplaceEngineBase):
             dd, U, aux = self._split_u(u)
             b = b_init
             sb = self._sigma_inv(dd, U, b)
-            obj = -0.5 * (b @ sb) + self._loglik(y, b + F, aux)
+            obj = -0.5 * (b @ sb) + self._loglik(y, self._loc(b, F), aux)
             lrs = self._lrs[:, None]
             it = 0
             while it < MAXIT_MODE_NEWTON:
-                d1, w = self._d1_W(y, b + F, aux, self._fisher_mode, False)
+                d1, w = self._d1_W(y, self._loc(b, F), aux,
+                                   self._fisher_mode, False)
                 grad = d1 - sb
                 delta = self._solve_H(dd, U, w, grad)
                 gdd = grad @ delta
                 b_k = b + lrs * delta
                 sb_k = self._sigma_inv(dd, U, b_k.T).T
                 obj_k = -0.5 * torch.sum(b_k * sb_k, -1) \
-                    + self._loglik(y, b_k + F, aux)
+                    + self._loglik(y, self._loc(b_k, F), aux)
                 k = self._armijo(obj_k, obj, gdd)
                 (b_new,) = self._pick(k, b_k)
                 # the chosen point's Sigma^-1 b and objective once more as
@@ -131,7 +127,7 @@ class FITCLaplaceEngine(LaplaceEngineBase):
                 # a data point), and the batched product rounds otherwise
                 sb_new = self._sigma_inv(dd, U, b_new)
                 obj_new = -0.5 * (b_new @ sb_new) \
-                    + self._loglik(y, b_new + F, aux)
+                    + self._loglik(y, self._loc(b_new, F), aux)
                 done = self._newton_done(obj_new, obj, it)
                 b, sb, obj = b_new, sb_new, obj_new
                 it += 1
@@ -141,7 +137,7 @@ class FITCLaplaceEngine(LaplaceEngineBase):
 
     def _g(self, u, F, b, y, create_graph, value=True):
         dd, U, aux = self._split_u(u)
-        loc = b + F
+        loc = self._loc(b, F)
         _, w = self._d1_W(y, loc, aux, self._fisher_det, create_graph)
         return 0.5 * (b @ self._sigma_inv(dd, U, b)) \
             - self._loglik(y, loc, aux) \
@@ -149,12 +145,12 @@ class FITCLaplaceEngine(LaplaceEngineBase):
 
     def _r(self, u, F, b, y):
         dd, U, aux = self._split_u(u)
-        return self._sigma_inv(dd, U, b) - self._d1(y, b + F, aux)
+        return self._sigma_inv(dd, U, b) - self._d1(y, self._loc(b, F), aux)
 
     def _adjoint_solve(self, u, F, b, y, g_b):
         with torch.no_grad():
             dd, U, aux = self._split_u(u)
-            _, w = self._d1_W(y, b + F, aux, self._fisher_det, False)
+            _, w = self._d1_W(y, self._loc(b, F), aux, self._fisher_det, False)
             return self._solve_H(dd, U, w, g_b)
 
     # ------------------------------------------------------------------
@@ -191,13 +187,14 @@ class FITCLaplaceEngine(LaplaceEngineBase):
                         dtype=np.float64)
         if cp.ndim == 1:
             cp = cp[:, None]
-        n_pred = len(cp)
         with torch.no_grad():
             ud = self._t(u)
             theta_log = ud[:self.num_theta]
             aux_d = torch.exp(ud[self.num_theta:])
             yd = self.prep_y(y)
-            Fd = self._F(F) if F is not None else torch.zeros_like(yd)
+            Fd = self._F(F) if F is not None else torch.zeros(
+                self.n * self.num_sets_fe, dtype=self.dtype,
+                device=self.device)
             b, nit = self._mode_solve(ud, Fd, yd,
                                       self.zero_mode() if a_init is None
                                       else a_init)
@@ -206,12 +203,10 @@ class FITCLaplaceEngine(LaplaceEngineBase):
             L_uu = self._blocks.L_uu(torch.exp(theta_log[1:]))
             Vp = self._blocks.V_pred(L_uu, torch.exp(theta_log[1:]), cp)
             U_p = math.sqrt(v) * Vp.T                          # (n_pred, m)
-            loc = b + Fd
+            loc = self._loc(b, Fd)
             a = self._d1(yd, loc, aux_d).detach()
             _, w = self._d1_W(yd, loc, aux_d, self._fisher_det, False)
-            mu = U_p @ (U.T @ a)
-            if F_pred is not None:
-                mu = mu + self._F(F_pred)
+            mu, zeta = self._split_pred(U_p @ (U.T @ a), F_pred)
             out = {}
             var = cov = None
             if predict_var or predict_cov_mat or predict_response:
@@ -228,7 +223,7 @@ class FITCLaplaceEngine(LaplaceEngineBase):
                         - torch.sum((U_p @ C) * U_p, dim=1)
                 var = torch.clamp_min(var, 0.0)
             if predict_response:
-                m_, vv = self.likelihood.response_mean_var(mu, var, aux_d)
+                m_, vv = self._response(mu, var, zeta, aux_d)
                 out["mu"] = self._host(m_)[0]
                 if predict_var or predict_cov_mat:
                     out["var"] = self._host(vv)[0]

@@ -13,7 +13,9 @@ per row and component, times the covariate for a random slope):
     mode: H db = Z'd1 - Sigma_b^-1 b,  H = Sigma_b^-1 + Z'WZ  (q x q).
 
 Two mode finders, chosen as the reference chooses (one grouping, no tkc,
-and q * s_max <= 4 n with s_max the largest group):
+and q * s_max <= 4 n with s_max the largest group), but for two predictor
+sets, which the reference sends to the rows finder and which take the
+padded one here too (the same mode, summed in another order):
 
   * padded by group: the rows regrouped once into a (q, s_max) layout, so
     every Newton step is dense masked row reductions with a diagonal H;
@@ -94,9 +96,11 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
         self._oneh = self._t(oneh)
         self._m_sizes = self._t(np.asarray(self.block_sizes, dtype=float))
 
-        # the padded-by-group layout (one grouping, at most 4x the cells)
+        # the padded-by-group layout (one grouping, at most 4x the cells;
+        # not for the tkc curvature, whose search shifts the rows layout's
+        # location)
         self._padded = None
-        if self.diag_path:
+        if self.diag_path and likelihood.approx_type != "tkc":
             codes = self._idx_np[0]
             counts = np.bincount(codes, minlength=q)
             s_max = int(counts.max()) if len(counts) else 0
@@ -170,8 +174,24 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
             return self._mode_solve_rows(theta_log, aux, y, F, b_init)
 
     def _pad_parts(self, F, y):
+        """(y, F, the slope weights and the likelihood weights) in the
+        (q, s_max) layout; with two predictor sets F_pad is (q, 2 s_max),
+        each block padded on its own."""
         P = self._padded
-        return y[P["idx"]], F[P["idx"]] * P["mask"], P["w"], P["wll"]
+        idx, mask = P["idx"], P["mask"]
+        F_pad = F[idx] * mask if self.num_sets_fe == 1 else torch.cat(
+            [F[:self.n][idx] * mask, F[self.n:][idx] * mask], -1)
+        return y[idx], F_pad, P["w"], P["wll"]
+
+    def _pad_loc(self, b, F_pad, w_pad):
+        """The padded location for b (q,) or a batch (k, q), both blocks
+        for two predictor sets (see LaplaceEngineBase._loc)."""
+        x = w_pad * b[..., None]
+        if self.num_sets_fe == 1:
+            return x + F_pad
+        s = w_pad.shape[-1]
+        F2 = F_pad[:, s:]
+        return torch.cat([x + F_pad[:, :s], F2.expand(x.shape)], -1)
 
     def _mode_solve_padded(self, theta_log, aux, y, F, b):
         y_pad, F_pad, w_pad, wll = self._pad_parts(F, y)
@@ -179,14 +199,14 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
         lrs = self._lrs[:, None]
 
         def obj_of(bb):
-            loc = w_pad * bb[..., None] + F_pad
+            loc = self._pad_loc(bb, F_pad, w_pad)
             return -0.5 * torch.sum(sbinv * bb * bb, -1) \
                 + self._loglik(y_pad, loc, aux, wll).sum(-1)
 
         obj = obj_of(b)
         it = 0
         while it < MAXIT_MODE_NEWTON:
-            loc = w_pad * b[:, None] + F_pad
+            loc = self._pad_loc(b, F_pad, w_pad)
             d1, W = self._d1_W(y_pad, loc, aux, self._fisher_mode, False,
                                w=wll)
             grad = torch.sum(w_pad * d1, 1) - sbinv * b
@@ -210,13 +230,13 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
 
         def obj_of(bb):
             return -0.5 * torch.sum(sbinv * bb * bb, -1) \
-                + self._loglik(y, self._Zb(bb) + F, aux)
+                + self._loglik(y, self._loc(self._Zb(bb), F), aux)
 
         obj = obj_of(b)
         it = 0
         while it < MAXIT_MODE_NEWTON:
-            d1, W = self._d1_W(y, self._Zb(b) + F, aux, self._fisher_mode,
-                               False)
+            d1, W = self._d1_W(y, self._loc(self._Zb(b), F), aux,
+                               self._fisher_mode, False)
             grad = self._Zt(d1) - sbinv * b
             if self.diag_path:
                 # |h| keeps the step ascent-aligned where an observed W
@@ -250,7 +270,7 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
         quad = 0.5 * torch.sum(sbinv * b * b)
         if self._padded is not None:
             y_pad, F_pad, w_pad, wll = self._pad_parts(F, y)
-            loc = w_pad * b[:, None] + F_pad
+            loc = self._pad_loc(b, F_pad, w_pad)
             _, W = self._d1_W(y_pad, loc, aux, self._fisher_det,
                               create_graph, w=wll)
             h = sbinv + torch.sum(w_pad * w_pad * W, 1)
@@ -258,7 +278,7 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
                                  + torch.sum(self._m_sizes * theta_log))
             return quad - self._loglik(y_pad, loc, aux, wll).sum(-1) \
                 + half_logdet
-        loc = self._Zb(b) + F
+        loc = self._loc(self._Zb(b), F)
         _, W = self._d1_W(y, loc, aux, self._fisher_det, create_graph)
         return quad - self._loglik(y, loc, aux) \
             + self._half_logdet(theta_log, W)
@@ -267,17 +287,17 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
         theta_log, aux = self._split_u(u)
         if self._padded is not None:
             y_pad, F_pad, w_pad, wll = self._pad_parts(F, y)
-            loc = w_pad * b[:, None] + F_pad
+            loc = self._pad_loc(b, F_pad, w_pad)
             d1 = self._d1(y_pad, loc, aux, w=wll)
             return self._sbinv(theta_log) * b - torch.sum(w_pad * d1, 1)
         return self._sbinv(theta_log) * b \
-            - self._Zt(self._d1(y, self._Zb(b) + F, aux))
+            - self._Zt(self._d1(y, self._loc(self._Zb(b), F), aux))
 
     def _W_at(self, u, F, b, y):
         """The determinant curvature W at the mode, data order."""
         theta_log, aux = self._split_u(u)
-        return self._d1_W(y, self._Zb(b) + F, aux, self._fisher_det,
-                          False)[1]
+        return self._d1_W(y, self._loc(self._Zb(b), F), aux,
+                          self._fisher_det, False)[1]
 
     def _adjoint_solve(self, u, F, b, y, g_b):
         with torch.no_grad():
@@ -412,19 +432,17 @@ class GroupedRELaplaceEngine(LaplaceEngineBase):
                 else:
                     var = zsz_diag(h_solve(np.eye(self.q)), cols, zps) \
                         + prior
-        mu_tot = mu if F_pred is None \
-            else mu + np.asarray(F_pred, dtype=np.float64)
+        # the two predictor blocks and the response on the host, as mu
+        mu_tot, zeta = self._split_pred(torch.as_tensor(mu), F_pred)
         out = {}
         if predict_response:
-            m, v = self.likelihood.response_mean_var(
-                torch.as_tensor(mu_tot), torch.as_tensor(np.maximum(var,
-                                                                    0.0)),
-                aux_d.cpu().to(torch.float64))
+            m, v = self._response(mu_tot, torch.as_tensor(var), zeta,
+                                  aux_d.cpu().to(torch.float64))
             out["mu"] = m.numpy()
             if predict_var or predict_cov_mat:
                 out["var"] = v.numpy()
         else:
-            out["mu"] = mu_tot
+            out["mu"] = mu_tot.numpy()
             if predict_cov_mat:
                 out["cov"] = cov
             if predict_var:

@@ -643,6 +643,10 @@ def optimize_laplace(engine, y, config: OptimConfig, X=None,
     numpy in data order, offset the fixed effects F."""
     opt = config.optimizer_cov
     if opt == "gradient_descent":
+        if getattr(engine, "num_sets_fe", 1) == 2:
+            raise ValueError(
+                "optimizer_cov='gradient_descent' is not supported for "
+                "two-predictor likelihoods; use 'lbfgs' (the default)")
         return _optimize_laplace_gd(engine, y, config, X, offset)
     if opt in ("lbfgs", "lbfgs_linesearch_nocedal_wright", "nelder_mead",
                "adam", "bfgs_optim_lib"):
@@ -686,15 +690,63 @@ def _laplace_est_mask(engine, config):
     return est
 
 
+def _laplace_offsets(engine, offset):
+    """The offsets as F of length n * num_sets_fe (an offset of length n
+    for a two-predictor likelihood is the first block's)."""
+    n, K = engine.n, engine.num_sets_fe
+    if offset is None:
+        return np.zeros(n * K)
+    offs = np.asarray(offset, dtype=np.float64)
+    if K == 2 and len(offs) == n:
+        offs = np.concatenate([offs, np.zeros(n)])
+    return offs
+
+
 def _laplace_covariates(engine, y, config, X, offs, scale):
-    """(handler, initial beta) for X, or (None, None)."""
+    """(handler, initial beta) for X, or (None, None); with two predictor
+    sets beta stacks one coefficient vector per set, the second set's
+    intercept from init_intercept2 (FindInitialIntercept ind_set_re = 1)."""
     if X is None:
         return None, None
     handler = CovariateHandler(X, scale=scale)
     tot_var = float(np.sum(np.asarray(config.init_cov_pars)[
         list(engine.par_offsets)]))
-    return handler, handler.init_beta(np.asarray(y), engine.likelihood,
-                                      tot_var, offs)
+    lik = engine.likelihood
+    beta = handler.init_beta(np.asarray(y), lik, tot_var,
+                             None if offs is None else offs[:engine.n])
+    if engine.num_sets_fe == 2:
+        beta2 = np.zeros(handler.k)
+        ic = handler.intercept_col
+        if ic is not None and hasattr(lik, "init_intercept2"):
+            beta2[ic] = lik.init_intercept2(np.asarray(y), tot_var, offs) \
+                / handler.X_orig[0, ic]
+        beta = np.concatenate([beta, beta2])
+    return handler, beta
+
+
+def _fixed_effects(X, beta, K):
+    """X beta per predictor set, stacked (numpy or torch)."""
+    if K == 1:
+        return X @ beta
+    k = X.shape[1]
+    parts = [X @ beta[:k], X @ beta[k:]]
+    return torch.cat(parts) if torch.is_tensor(X) else np.concatenate(parts)
+
+
+def _coef_grad(X, gF, K):
+    """X' g_F per predictor set, stacked."""
+    if K == 1:
+        return X.T @ gF
+    n = X.shape[0]
+    return np.concatenate([X.T @ gF[:n], X.T @ gF[n:]])
+
+
+def _back_transform(handler, beta, K):
+    if K == 1:
+        return handler.back_transform(beta)
+    k = handler.k
+    return np.concatenate([handler.back_transform(beta[:k]),
+                           handler.back_transform(beta[k:])])
 
 
 def _laplace_result(engine, u, nll, num_it, converged, beta, a_state,
@@ -877,12 +929,11 @@ def _optimize_laplace_external(engine, y, config: OptimConfig, X=None,
     (ResetLaplaceApproxModeToPreviousValue, re_model_template.h:2593)."""
     from scipy import optimize as sopt
 
-    n = engine.n
     est = _laplace_est_mask(engine, config)
     yd = engine.prep_y(y)
     has_covariates = X is not None
-    offs = np.zeros(n) if offset is None \
-        else np.asarray(offset, dtype=np.float64)
+    K = engine.num_sets_fe
+    offs = _laplace_offsets(engine, offset)
     u0 = _laplace_u0(engine, y, config)
     handler, beta0 = _laplace_covariates(
         engine, y, config, X, None if offset is None else offs,
@@ -892,7 +943,8 @@ def _optimize_laplace_external(engine, y, config: OptimConfig, X=None,
         X = handler.X
 
     def F_of(beta):
-        return offs if not has_covariates else offs + X @ beta
+        return offs if not has_covariates \
+            else offs + _fixed_effects(X, beta, K)
 
     state = {"a": engine.zero_mode()}
     ne = int(est.sum())
@@ -907,7 +959,7 @@ def _optimize_laplace_external(engine, y, config: OptimConfig, X=None,
         F = F_of(beta)
         if has_covariates:
             nll, gu, gF, a = engine.laplace_vag_F(u, yd, F, state["a"])
-            g = np.concatenate([gu[est], X.T @ gF])
+            g = np.concatenate([gu[est], _coef_grad(X, gF, K)])
         else:
             nll, gu, a = engine.laplace_vag(u, yd, F, state["a"])
             g = gu[est]
@@ -936,7 +988,7 @@ def _optimize_laplace_external(engine, y, config: OptimConfig, X=None,
         x, nit = r.x, r.nit
     u, beta = unpack(x)
     nll, a = engine.laplace_nll(u, yd, F_of(beta), state["a"])
-    beta_out = handler.back_transform(beta) if has_covariates else None
+    beta_out = _back_transform(handler, beta, K) if has_covariates else None
     return _laplace_result(engine, u, nll, nit, True, beta_out, a,
                            "scipy")
 
@@ -950,12 +1002,11 @@ def _optimize_laplace_device(engine, y, config: OptimConfig, X=None,
     delta_rel_conv (LBFGSpp's delta, optim_utils.h:653-674)."""
     from ..ops.lbfgs import lbfgs_run_state
 
-    n = engine.n
     est = _laplace_est_mask(engine, config)
     yd = engine.prep_y(y)
     has_covariates = X is not None
-    offs = np.zeros(n) if offset is None \
-        else np.asarray(offset, dtype=np.float64)
+    K = engine.num_sets_fe
+    offs = _laplace_offsets(engine, offset)
     u0 = _laplace_u0(engine, y, config)
     handler, beta0 = _laplace_covariates(
         engine, y, config, X, None if offset is None else offs, True)
@@ -969,7 +1020,8 @@ def _optimize_laplace_device(engine, y, config: OptimConfig, X=None,
     def vag(x, st):
         x = x.detach().requires_grad_(True)
         u = u0_d.index_put((est_d,), x[:ne])
-        F = offs_d + Xd @ x[ne:] if has_covariates else offs_d
+        F = offs_d + _fixed_effects(Xd, x[ne:], K) if has_covariates \
+            else offs_d
         nll, (b, _) = engine._nll_raw(u, F, yd, st)
         (g,) = torch.autograd.grad(nll, x)
         return nll.detach(), g, b
@@ -985,8 +1037,9 @@ def _optimize_laplace_device(engine, y, config: OptimConfig, X=None,
     u = u0.copy()
     u[est_idx] = x[:ne]
     beta = x[ne:] if has_covariates else None
-    F = offs if not has_covariates else offs + handler.X @ beta
+    F = offs if not has_covariates \
+        else offs + _fixed_effects(handler.X, beta, K)
     nll, a = engine.laplace_nll(u, yd, F, b_state)
-    beta_out = handler.back_transform(beta) if has_covariates else None
+    beta_out = _back_transform(handler, beta, K) if has_covariates else None
     return _laplace_result(engine, u, nll, nit, conv, beta_out, a,
                            "device_lbfgs")

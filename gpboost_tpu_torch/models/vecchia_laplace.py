@@ -39,8 +39,9 @@ permuted twice. The mode state stays in the Vecchia order.
 `VecchiaLaplaceEngine` is the dense-precision path (the Cholesky half of
 the reference); `VecchiaLaplaceIterativeEngine`, below, the matrix-free
 one (matrix_inversion_method="iterative", the reference's :452-894).
-Two-predictor likelihoods (num_sets_fe == 2) and cluster_ids raise
-NotImplementedError on both.
+Both take the two-predictor likelihoods (num_sets_fe == 2: F is (2n,), both
+blocks permuted into the Vecchia order, the second entering log_lik2);
+cluster_ids raise NotImplementedError on both.
 """
 
 import numpy as np
@@ -258,10 +259,6 @@ class _VecchiaLaplaceBase(LaplaceEngineBase):
     def _init_vecchia(self, components, num_data, likelihood, num_neighbors,
                       vecchia_ordering, seed, dtype, weights, cluster_ids,
                       device):
-        if getattr(likelihood, "num_sets_fe", 1) == 2:
-            raise NotImplementedError(
-                "two-predictor likelihoods (num_sets_fe = 2) are not ported "
-                "yet for gp_approx='vecchia'")
         if cluster_ids is not None:
             raise NotImplementedError(
                 "cluster_ids with gp_approx='vecchia' are supported for the "
@@ -295,6 +292,13 @@ class _VecchiaLaplaceBase(LaplaceEngineBase):
 
     def _to_vecchia(self, v):
         return _Permute.apply(v, self._perm_d, self._inv_d)
+
+    def _F_to_vecchia(self, F):
+        """F in the Vecchia order, each predictor block on its own."""
+        if self.num_sets_fe == 1:
+            return self._to_vecchia(F)
+        n = self.n
+        return torch.cat([self._to_vecchia(F[:n]), self._to_vecchia(F[n:])])
 
     # parameter transforms (sigma2 = 1 for non-Gaussian likelihoods)
     def transform_pars(self, pars_orig):
@@ -366,7 +370,7 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
         """(nll, (mode state, Newton steps)) for y and F in data order,
         differentiable in u and F; the mode state is in the Vecchia
         order. The value is always computed (value is accepted)."""
-        nll, b = _VecchiaLaplaceNLL.apply(u, self._to_vecchia(F), self,
+        nll, b = _VecchiaLaplaceNLL.apply(u, self._F_to_vecchia(F), self,
                                           self._to_vecchia(y), b_init)
         return nll, (b, self.last_num_mode_it)
 
@@ -388,23 +392,24 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
         """(Q + W)^-1 g_b at the mode, W the determinant's curvature."""
         with torch.no_grad():
             Q, _, aux = self._Q_aux(u)
-            _, W = self._d1_W(y, b + F, aux, self._fisher_det, False)
+            _, W = self._d1_W(y, self._loc(b, F), aux, self._fisher_det, False)
             return self._solve_H(Q, W, g_b)
 
     def _newton(self, Q, aux, F, y, b):
         """Newton with Armijo backtracking on Q + W from b: one batched
         pass over the 20 step lengths and one host read per step."""
-        obj = -0.5 * (b @ (Q @ b)) + self._loglik(y, b + F, aux)
+        obj = -0.5 * (b @ (Q @ b)) + self._loglik(y, self._loc(b, F), aux)
         lrs = self._lrs[:, None]
         it = 0
         while it < MAXIT_MODE_NEWTON:
-            d1, W = self._d1_W(y, b + F, aux, self._fisher_mode, False)
+            d1, W = self._d1_W(y, self._loc(b, F), aux, self._fisher_mode,
+                               False)
             grad = d1 - Q @ b
             delta = self._solve_H(Q, W, grad)
             gdd = grad @ delta
             b_k = b + lrs * delta
             obj_k = -0.5 * torch.sum(b_k * (b_k @ Q), -1) \
-                + self._loglik(y, b_k + F, aux)
+                + self._loglik(y, self._loc(b_k, F), aux)
             k = self._armijo(obj_k, obj, gdd)
             b_new, obj_new = self._pick(k, b_k, obj_k)
             done = self._newton_done(obj_new, obj, it)
@@ -416,7 +421,7 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
 
     def _g_Q(self, Q, logdetQ, aux, F, b, y, create_graph):
         """(nll at the fixed mode b, the Cholesky factor of Q + W)."""
-        loc = b + F
+        loc = self._loc(b, F)
         _, W = self._d1_W(y, loc, aux, self._fisher_det, create_graph)
         half_logdet, L = _CholHalfLogdet.apply(Q + torch.diag(W))
         g = (0.5 * (b @ (Q @ b)) - self._loglik(y, loc, aux) + half_logdet
@@ -424,7 +429,7 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
         return g, L
 
     def _r_Q(self, Q, aux, F, b, y):
-        return Q @ b - self._d1(y, b + F, aux)
+        return Q @ b - self._d1(y, self._loc(b, F), aux)
 
     # ------------------------------------------------------------------
     def predict(self, pars_orig, aux_pars, y, F, pred_data, a_init=None,
@@ -444,7 +449,7 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
             ud = self._t(u)
             theta_log, aux = self._split_u(ud)
             yd = self._to_vecchia(self.prep_y(y))
-            Fd = self._to_vecchia(self._F(F))
+            Fd = self._F_to_vecchia(self._F(F))
             if a_init is None:
                 a_init = self.zero_mode()
             b, nit = self._mode_solve(ud, Fd, yd, a_init)
@@ -455,11 +460,9 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
             K_cross = v * cf.corr_from_dist(
                 _dist(self._vecchia.coords_ord, cp, self.dtype, self.device),
                 alphas)
-            loc = b + Fd
+            loc = self._loc(b, Fd)
             a, W = self._d1_W(yd, loc, aux, self._fisher_det, False)
-            mu = K_cross.T @ a                          # = K' Q b
-            if F_pred is not None:
-                mu = mu + self._F(F_pred)
+            mu, zeta = self._split_pred(K_cross.T @ a, F_pred)  # K' Q b
             var = cov = None
             if predict_var or predict_cov_mat or predict_response:
                 # K_pp - K' (Sigma + W^-1)^-1 K with
@@ -484,8 +487,7 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
                                     device=self.device), alphas)
                     var = k_pp - torch.sum(K_cross * M, 0)
             if predict_response:
-                m, vv = self.likelihood.response_mean_var(
-                    mu, torch.clamp(var, min=0.0), aux)
+                m, vv = self._response(mu, var, zeta, aux)
                 out = {"mu": self._host(m)[0]}
                 if predict_var or predict_cov_mat:
                     out["var"] = self._host(vv)[0]
@@ -765,7 +767,7 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
         """(nll, (mode state, Newton steps)) for y and F in data order,
         differentiable in u and F; the mode state is in the Vecchia
         order. value=False skips the SLQ value (nll is 0)."""
-        nll, b = _LaplaceNLL.apply(u, self._to_vecchia(F), self,
+        nll, b = _LaplaceNLL.apply(u, self._F_to_vecchia(F), self,
                                    self._to_vecchia(y), b_init, value)
         return nll, (b, self.last_num_mode_it)
 
@@ -780,19 +782,21 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
         """Newton with Armijo backtracking on Q + W, PCG inner solves: the
         20 step lengths in one batched pass (a Q v over their columns) and
         one host read per step, which also brings the CG count."""
-        obj = -0.5 * (b @ self._Qv(A, D, b)) + self._loglik(y, b + F, aux)
+        obj = -0.5 * (b @ self._Qv(A, D, b)) \
+            + self._loglik(y, self._loc(b, F), aux)
         lrs = self._lrs[:, None]
         cg = torch.zeros((), dtype=torch.int64, device=self.device)
         it = 0
         while it < MAXIT_MODE_NEWTON:
-            d1, W = self._d1_W(y, b + F, aux, self._fisher_mode, False)
+            d1, W = self._d1_W(y, self._loc(b, F), aux, self._fisher_mode,
+                               False)
             grad = d1 - self._Qv(A, D, b)
             delta, cg_it = self._solve_qw(A, D, W, grad, theta_log)
             cg = cg + cg_it
             gdd = grad @ delta
             b_k = b + lrs * delta
             obj_k = -0.5 * torch.sum(b_k * self._Qv(A, D, b_k.T).T, -1) \
-                + self._loglik(y, b_k + F, aux)
+                + self._loglik(y, self._loc(b_k, F), aux)
             k = self._armijo(obj_k, obj, gdd)
             b_new, obj_new = self._pick(k, b_k, obj_k)
             rel = DELTA_CONV_MODE * torch.abs(obj)
@@ -819,7 +823,7 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
         log-determinant's value (its gradient stays)."""
         theta_log, aux = self._split_u(u)
         A, D = self._vecchia._bd(theta_log, latent=True)
-        loc = b + F
+        loc = self._loc(b, F)
         _, W = self._d1_W(y, loc, aux, self._fisher_det, create_graph)
         logdetQ = -torch.sum(torch.log(D))
         return (0.5 * (b @ self._Qv(A, D, b)) - self._loglik(y, loc, aux)
@@ -828,14 +832,14 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
     def _r(self, u, F, b, y):
         theta_log, aux = self._split_u(u)
         A, D = self._vecchia._bd(theta_log, latent=True)
-        return self._Qv(A, D, b) - self._d1(y, b + F, aux)
+        return self._Qv(A, D, b) - self._d1(y, self._loc(b, F), aux)
 
     def _adjoint_solve(self, u, F, b, y, g_b):
         """(Q + W)^-1 g_b at the mode, W the determinant's curvature."""
         with torch.no_grad():
             theta_log, aux = self._split_u(u)
             A, D = self._vecchia._bd(theta_log, latent=True)
-            _, W = self._d1_W(y, b + F, aux, self._fisher_det, False)
+            _, W = self._d1_W(y, self._loc(b, F), aux, self._fisher_det, False)
             return self._solve_qw(A, D, W, g_b, theta_log)[0]
 
     # ------------------------------------------------------------------
@@ -868,7 +872,7 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
             ud = self._t(u)
             theta_log, aux = self._split_u(ud)
             yd = self._to_vecchia(self.prep_y(y))
-            Fd = self._to_vecchia(self._F(F))
+            Fd = self._F_to_vecchia(self._F(F))
             if a_init is None:
                 a_init = self.zero_mode()
             b, _ = self._mode_solve(ud, Fd, yd, a_init)
@@ -887,10 +891,9 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
             if predict_var or predict_response:
                 var = d_p + self._sim_var(theta_log, aux, yd, Fd, b, a_p,
                                           idx_d)
-            mu = mu if F_pred is None else mu + self._F(F_pred)
+            mu, zeta = self._split_pred(mu, F_pred)
             if predict_response:
-                m_, v_ = self.likelihood.response_mean_var(
-                    mu, torch.clamp(var, min=0.0), aux)
+                m_, v_ = self._response(mu, var, zeta, aux)
                 out = {"mu": self._host(m_)[0]}
                 if predict_var:
                     out["var"] = self._host(v_)[0]
@@ -904,7 +907,7 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
         """The variance over nsim_var_pred draws of x ~ N(0, (Q + W)^-1) of
         each prediction point's conditional mean a_p' x[neighbours]."""
         A, D = self._vecchia._bd(theta_log, latent=True)
-        _, W = self._d1_W(yd, b + Fd, aux, self._fisher_det, False)
+        _, W = self._d1_W(yd, self._loc(b, Fd), aux, self._fisher_det, False)
         sW = torch.sqrt(torch.clamp(W, min=0.0))
         rng = np.random.RandomState(self.seed_rand_vec_trace)
         nsim = self.nsim_var_pred

@@ -121,6 +121,8 @@ def test_unported_jax_model_dicts_raise(trained, change):
         np.testing.assert_array_equal(gp.gp_rand_coef_data, np.ones((N, 1)))
         return
     else:
+        # two predictor sets without a two-predictor likelihood (the
+        # two-predictor models load: tests/test_torch_two_predictor.py)
         d["num_sets"] = 2
     with pytest.raises(NotImplementedError):
         booster_from_jax_dict(d, device="cpu")

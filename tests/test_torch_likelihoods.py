@@ -18,8 +18,9 @@ the reference:
     0 there, so the port's value is held to a central finite difference.
 
 Also the option parser and every alias, label checks, the Gauss-Hermite
-response moments, test_neg_log_likelihood, and the families.py and tkc
-names, which raise NotImplementedError in the port.
+response moments, test_neg_log_likelihood, and the registration of the
+families.py names and the tkc suffix (tests/test_torch_families.py holds
+those families to the JAX package).
 """
 
 import numpy as np
@@ -179,10 +180,6 @@ def test_option_parser_and_aliases():
     for alias, target in tbase._ALIASES.items():
         if target == "gaussian":
             continue
-        if target in tbase.FAMILY_NAMES:
-            with pytest.raises(NotImplementedError, match=target):
-                tbase.get_likelihood(alias)
-            continue
         par = 0.4 if target == "asymmetric_laplace" else None
         lt = tbase.get_likelihood(alias, par)
         lj = jbase.get_likelihood(alias, par)
@@ -211,18 +208,20 @@ def test_options_set_like_the_reference():
 
 
 def test_unported_likelihoods_raise():
-    # every family of likelihoods/families.py, by its own name
+    """Every family of likelihoods/families.py is registered by its own
+    name (tests/test_torch_families.py holds each to the JAX package),
+    the tkc suffix takes the triangular-kernel curvature, and the port
+    supports the JAX package's likelihoods, no more and no fewer."""
     from gpboost_tpu.likelihoods.families import FAMILY_CLASSES
     assert sorted(c.name for c in FAMILY_CLASSES) \
         == sorted(tbase.FAMILY_NAMES)
     for nm in tbase.FAMILY_NAMES:
-        with pytest.raises(NotImplementedError, match=nm):
-            tbase.get_likelihood(nm)
-    # the triangular-kernel curvature (likelihoods/tkc.py)
-    with pytest.raises(NotImplementedError, match="tkc"):
-        tbase.get_likelihood("asymmetric_laplace_tkc", 0.5)
-    assert set(tbase.SUPPORTED_LIKELIHOODS) == set(
-        jbase.SUPPORTED_LIKELIHOODS) - set(tbase.FAMILY_NAMES)
+        assert tbase.get_likelihood(nm).name == nm
+    assert tbase.get_likelihood("asymmetric_laplace_tkc",
+                                0.5).approx_type == "tkc"
+    with pytest.raises(ValueError, match="triangular_kernel_curvature"):
+        tbase.get_likelihood("poisson_tkc")
+    assert tbase.SUPPORTED_LIKELIHOODS == jbase.SUPPORTED_LIKELIHOODS
 
 
 _REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
@@ -258,5 +257,6 @@ def test_import_check_covers_the_slice_modules():
                 "models/vecchia_laplace", "models/fitc",
                 "models/fitc_laplace", "models/fsa_iterative",
                 "models/fsva_iterative", "ops/taper", "ops/neighbor_bags",
-                "models/vecchia_grouped"):
+                "models/vecchia_grouped", "likelihoods/families",
+                "likelihoods/tkc"):
         assert f"gpboost_tpu_torch/{mod}.py" in _PORT_FILES

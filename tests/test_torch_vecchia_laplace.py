@@ -416,12 +416,19 @@ def test_unported_parts_raise():
     with pytest.raises(ValueError, match="predict_var"):
         gp = gpt.GPModel(**kw).fit(y=y, params={"maxit": 1})
         gp.predict_training_data_random_effects(predict_var=True)
-    lik = port_lik("bernoulli_probit")
-    lik.num_sets_fe = 2
-    with pytest.raises(NotImplementedError, match="num_sets_fe"):
-        VecchiaLaplaceEngine(
-            [GPComponent(coords, CovarianceFunction("exponential"))], 50,
-            lik, device="cpu")
+    # a two-predictor likelihood: F holds both blocks (2n), and the NLL
+    # moves with the second block (tests/test_torch_two_predictor.py holds
+    # the engine to the JAX package and the R goldens)
+    eng = VecchiaLaplaceEngine(
+        [GPComponent(coords, CovarianceFunction("exponential"))], 50,
+        port_lik("zero_inflated_regression_poisson"), device="cpu")
+    assert eng.num_sets_fe == 2
+    yz = np.where(np.arange(50) % 3 == 0, 0.0, 2.0)
+    nlls = [eng.neg_log_likelihood([1.0, 0.2], yz, fixed_effects=np.r_[
+        np.zeros(50), np.full(50, z)]) for z in (-1.0, 1.0)]
+    assert np.all(np.isfinite(nlls)) and nlls[0] != nlls[1]
+    with pytest.raises(ValueError, match="num_sets_fe"):
+        eng.neg_log_likelihood([1.0, 0.2], yz, fixed_effects=np.zeros(50))
     # gp_approx="fitc" takes the FITC-Laplace engine (tests/test_torch_
     # fitc.py holds it to the JAX package)
     assert isinstance(gpt.GPModel(**{**kw, "gp_approx": "fitc"})._engine,
