@@ -6,8 +6,8 @@
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
                                      # 24, 25, 26 each alone, 27-29, 30-32,
-                                     # 33-35, 36-38, 39-41 and 42-44); no
-                                     # result lines
+                                     # 33-35, 36-38, 39-41, 42-44 and
+                                     # 45-47); no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -147,8 +147,8 @@ Phases; any failure exits non-zero and prints no result line:
      matrix-free operator's times (a CG iteration, an S_J application, a
      Lanczos step) beside their byte bounds, the covariance parameters
      against phase 20's dense float64 fit (rtol 1e-1), the reference's
-     60.302 s; then one float32 fit, capped at 3 iterations since phases
-     39-41 came, with its solves at cg_max_num_it;
+     60.302 s; then one float32 fit, capped at 2 iterations since phases
+     45-47 came (3 since 39-41), with its solves at cg_max_num_it;
  25. hist_segment at n = 50,000, p = 5 (phase 3's checks and times), then
      binary Vecchia LaGaBoost at the reference's n = 50,000 (sim_lagab,
      seed 4; bench_reference.py:90-99, :190-203), iterative, float64, 31
@@ -180,11 +180,12 @@ Phases; any failure exits non-zero and prints no result line:
      float64, fitted on the device L-BFGS; then set_prediction_data and
      predict at 10,000 new points (seeded, unit square) for each of the
      five vecchia_pred_types, means and variances (the latent
-     cond_all ordering: means at 10,000, variances at 500 points, 1,000
-     before phases 39-41), each with seconds, host syncs, CG
-     iterations (latent) and peak device memory; the latent mean bitwise
-     equal in a second launch; predict_training_data_random_effects at
-     n = 100,000; one float32 latent solve's CG iterations; card against
+     cond_all ordering: means at 10,000, variances at 200 points, 500
+     until phases 45-47 came, 1,000 before phases 39-41), each with
+     seconds, host syncs, CG iterations (latent) and peak device
+     memory; the latent mean bitwise equal in a second launch;
+     predict_training_data_random_effects at n = 100,000; one float32
+     latent solve's CG iterations; card against
      CPU at n = 2,000 (200 points, fixed parameters) for every ordering and
      the training random effects, to 1e-8 of the largest value (the latent
      CG 1e-6);
@@ -233,8 +234,8 @@ Phases; any failure exits non-zero and prints no result line:
      l2, up to 40 rounds, early stopping 5 (seconds, seconds a
      fold-round, best_iter = argmin + 1, hist_segment launches), then
      grid_search_tune_parameters over learning_rate {0.05, 0.1} x
-     min_data_in_leaf {20, 100}, 1 random try of 20 rounds (2 before
-     phases 39-41); card
+     min_data_in_leaf {20, 100}, 1 random try of 10 rounds (2 of 20
+     before phases 39-41, 1 of 20 before 45-47); card
      against CPU at n = 1,000 (q = 50): cv mean and stdv curves to 1e-6
      over the rounds before any near-tie, best_iter and grid search's
      best_params equal;
@@ -268,8 +269,8 @@ Phases; any failure exits non-zero and prints no result line:
      exact engine's NLL (1e-10); the iterative full-scale tapering (taper
      range 0.02, shape 1, 100 inducing points) and full-scale Vecchia
      (100 inducing points, 30 neighbours) fits at n = 20,000 (lbfgs,
-     maxit 20): kmeans++, seconds, iterations, host syncs, peak memory,
-     CG solves, iterations and those at cg_max_num_it;
+     maxit 10, 20 before phases 45-47): kmeans++, seconds, iterations,
+     host syncs, peak memory, CG solves, iterations and those at cg_max_num_it;
  36. the combined Vecchia GP + grouped random effects engine at full
      width: binary LaGaBoost on sim_combined (n = 50,000 rows on 10,000
      sites, q = 1,000 groups, seed 4; bernoulli_probit, exponential, 20
@@ -284,8 +285,8 @@ Phases; any failure exits non-zero and prints no result line:
      unseen groups (whose latent variance must be the larger);
  37. GPBoost with a Gaussian response on the combined model (LaGaBoost
      over gaussian_latent, iterative) at n = 20,000: the first fit capped
-     at 2 iterations, then 1 round with the parameters held (3 and 2
-     before phases 39-41)
+     at 1 iteration, then 1 round with the parameters held (3 and 2
+     before phases 39-41, 2 and 1 before 45-47)
      (train_gp_model_cov_pars False), hist_segment launches (must be
      positive);
      the dense and the iterative formulation at
@@ -295,11 +296,12 @@ Phases; any failure exits non-zero and prints no result line:
      n = 2,000, on the dense Laplace engine (maxit 20);
  38. card against CPU, float64, relative 1e-8: the combined engine's dense
      formulation (gamma) and iterative one (probit, the same probes) at
-     n = 1,000 (NLL, g_u, g_F, Newton steps, CG iterations, predictions
+     n = 500 (1,000 before phases 45-47; NLL, g_u, g_F, Newton steps, CG
+     iterations, predictions
      with variances; the iterative variances, a batched CG, to 1e-6), the
      exact GP with a grouped effect (probit,
-     n = 500), a Gaussian Vecchia Newton fit (n = 1,000, iterations
-     equal), one combined LaGaBoost round (n = 1,000; the init score and
+     n = 500), a Gaussian Vecchia Newton fit (n = 500, iterations
+     equal), one combined LaGaBoost round (n = 500; the init score and
      the first fit to 1e-8, then phase 12's rule).
  39. GP random coefficients at full width: the R suite's combined SVC
      model (tests/test_combined_gp_re_golden.py:661-742: an exponential GP
@@ -365,6 +367,37 @@ Phases; any failure exits non-zero and prints no result line:
      tests/test_two_predictor_golden.py's TestHurdleRegressionLognormal
      and its Poisson evaluation on the card at that file's tolerances.
      Budget: ~15 s.
+ 45. space-time GPBoost at full width: sim_space_time (n = 100,000, time
+     binned into 1..20 as the R suite's space-time simulation, locations
+     uniform on the unit square, sim_gpboost's F of p = 5 covariates)
+     with matern_space_time (shape 1.5), Vecchia with 20 neighbours in
+     the time ordering, float64, 31 leaves, for 10 rounds; the first fit
+     capped at maxit 20 (two chunks on the device L-BFGS, the neighbour
+     sets re-determined in the range-scaled space after each): the first
+     search's, the fit's and each re-determination's seconds, the
+     fit's iterations and its NLL below the initial values', seconds a
+     round, host syncs of round 11, device busy share of rounds 12-13,
+     1,000 predictions, hist_segment launches (must be positive); card
+     against CPU at n = 2,000 (gradient descent, maxit 20): equal
+     iterations, re-determinations and neighbour sets, parameters to
+     1e-6;
+ 46. matern_estimate_shape on sim_vecchia (n = 100,000, m = 20, 42 M
+     kernel entries), float64, on the device L-BFGS with maxit 2: the
+     fit's seconds, NLL-and-gradient evaluations, host syncs an
+     evaluation (bessel_kv's reads among them) and peak memory, one
+     evaluation timed alone beside its byte bound; bessel_kv on the card
+     against scipy.special.kv (values) and kvp (the x-gradient) on the
+     JAX test's grid to 1e-10 relative; NLL and gradient card against
+     CPU at n = 2,000 (1e-9, 1e-7);
+ 47. the covariance breadth card against CPU at n = 500, float64: each of
+     the 14 kernels and ar1_mf_exponential on the dense engine, hurst,
+     linear and ar1_mf_exponential (vecchia_euclidean) on the Vecchia
+     engine, gaussian_ard on the tapering adapter and matern_ard on FITC:
+     NLL and gradient (1e-10 and 1e-8; the Bessel kernels 1e-9 and 1e-7),
+     the last two's predictions (1e-8); a two-iteration bernoulli_probit
+     fit with ar1_mf_exponential (iterations equal, parameters 1e-6); the
+     golden TestVecchiaAnisotropic::test_ard_full_neighbors_equals_dense
+     on the card. Budget for 45-47: 75 s.
 Every histogram row's library time is one torch.Tensor.index_add_ over the
 flat key f * B + bin (key and expanded float32 values built outside the
 timed window, sums held to the kernel's to 1e-5 of the largest entry);
@@ -423,6 +456,8 @@ ROUNDS_VL_DENSE = 1
 # (bench_reference.py:90-99, :190-203) and the grouped iterative branch
 VL_ITER = {**VL_MODEL, "matrix_inversion_method": "iterative"}
 N_VLB_ITER, MAXIT_VLB_ITER = 50_000, 5
+# phase 24's float32 fit (3 iterations before phases 45-47 came)
+MAXIT_VL32 = 2
 # phase 26's card against CPU, whose CPU side is most of the phase
 N_IT_CPU = 500
 N_GROUPED_ITER, Q_GROUPED_ITER = 100_000, 25_000
@@ -2679,12 +2714,13 @@ def phase_vecchia_laplace_iterative(torch, gpt, cov_dense64):
     m32 = gpt.GPModel(gp_coords=coords, dtype="float32", device="cuda",
                       **VL_ITER)
     t0 = time.perf_counter()
-    m32.fit(y=y, params={**VL_FIT, "maxit": 3})
+    m32.fit(y=y, params={**VL_FIT, "maxit": MAXIT_VL32})
     torch.cuda.synchronize()
     secs32 = time.perf_counter() - t0
     cg32 = m32._engine.cg_stats()
     cov32 = m32.get_cov_pars()
-    print(f"[vecchia-laplace iterative] float32 (maxit 3): {secs32:.3f} s, "
+    print(f"[vecchia-laplace iterative] float32 (maxit {MAXIT_VL32}): "
+          f"{secs32:.3f} s, "
           f"{m32.get_num_optim_iter()} iterations, "
           f"{m32._engine.total_num_mode_it} Newton steps, "
           f"{m32.get_total_num_cg_steps()} CG iterations in the mode "
@@ -2981,7 +3017,7 @@ VECCHIA_PRED_TYPES = ("order_obs_first_cond_obs_only", "order_pred_first",
                       "order_obs_first_cond_all",
                       "latent_order_obs_first_cond_all")
 LATENT_ALL = "latent_order_obs_first_cond_all"
-N_PRED_VECCHIA, N_LATENT_VAR, N_PRED_VCPU = 10_000, 500, 200
+N_PRED_VECCHIA, N_LATENT_VAR, N_PRED_VCPU = 10_000, 200, 200
 VECCHIA_FIT = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1],
                "maxit": MAXIT_VECCHIA}
 N_CLUSTERS, N_PER_CLUSTER, N_DENSE_CL, DENSE_CLUSTERS = 100, 1_000, 5_000, 10
@@ -3029,7 +3065,7 @@ def _rel_max(a, b):
 def phase_vecchia_pred(torch, gpt):
     """The headline's model in float64, fitted on the device L-BFGS, then
     every prediction ordering at 10,000 new points (latent variances at
-    1,000), the training random effects, one float32 latent solve, and the
+    N_LATENT_VAR), the training random effects, one float32 latent solve, and the
     orderings card against CPU at n = 2,000."""
     coords, y = sim_vecchia(N_VECCHIA)
     t0 = time.perf_counter()
@@ -3303,7 +3339,7 @@ N_VALID_BOOST, ROUNDS_VALID, STOP_VALID = 50_000, 150, 10
 N_VALID_GROUPED, ROUNDS_VALID_GP, STOP_VALID_GP = 20_000, 60, 5
 N_VALID_VECCHIA, ROUNDS_VALID_VECCHIA = 2_000, 20
 N_CV, ROUNDS_CV, ROUNDS_GRID, N_CV_CPU, Q_CV_CPU, ROUNDS_CV_CPU = \
-    20_000, 40, 20, 1_000, 50, 8
+    20_000, 40, 10, 1_000, 50, 8
 GRID = {"learning_rate": [0.05, 0.1], "min_data_in_leaf": [20, 100]}
 
 
@@ -3709,8 +3745,8 @@ def _cv_card_cpu(gpt):
 def phase_cv(torch, gpt, histogram):
     """cv of grouped GPBoost on phase 10's generator at n = 20,000 (q =
     1,000), 4 folds, l2, up to 40 rounds, early stopping 5; then
-    grid_search_tune_parameters over learning_rate x min_data_in_leaf, 2
-    random tries of 20 rounds; card against CPU at n = 1,000. Returns
+    grid_search_tune_parameters over learning_rate x min_data_in_leaf, 1
+    random try of ROUNDS_GRID rounds; card against CPU at n = 1,000. Returns
     hist_segment's launches of the cv run."""
     X, group, y = sim_grouped(N_CV, Q_GROUPED)
     _reset_launches(histogram)
@@ -3755,7 +3791,7 @@ def phase_cv(torch, gpt, histogram):
 N_FITC, M_FITC, N_FITC_PRED, N_FITCL, N_FITCL_CPU, M_FITCL_CPU = \
     100_000, 500, 10_000, 50_000, 1_000, 100
 ROUNDS_FITCL, ROUNDS_FSA_BOOST = 3, 1
-N_FSA, TAPER_FSA, M_FSA, NN_FSVA, MAXIT_FSA = 20_000, 0.02, 100, 30, 20
+N_FSA, TAPER_FSA, M_FSA, NN_FSVA, MAXIT_FSA = 20_000, 0.02, 100, 30, 10
 FITC_FIT = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.5, 1.0, 0.1]}
 
 
@@ -4068,7 +4104,7 @@ def phase_taper(torch, gpt):
 # phases 36-38: the combined Vecchia GP + grouped random effects engine
 N_CB, SITES_CB, Q_CB, Q_CB2, MAXIT_CB, ROUNDS_CB = \
     50_000, 10_000, 1_000, 200, 5, 1
-N_CB_GAUSS, MAXIT_CB_GAUSS, ROUNDS_CB_GAUSS = 20_000, 2, 1
+N_CB_GAUSS, MAXIT_CB_GAUSS, ROUNDS_CB_GAUSS = 20_000, 1, 1
 N_CB_SMALL, N_CB_CPU, N_CB_EXACT_CPU = 2_000, 1_000, 500
 CB_MODEL = {"cov_function": "exponential", "gp_approx": "vecchia",
             "num_neighbors": M_VL}
@@ -4370,14 +4406,15 @@ def _rel_errs(a, b):
 
 def phase_combined_card_vs_cpu(torch, gpt):
     """Card against CPU, float64, relative 1e-8: the combined engine's
-    dense formulation (gamma, n = 1,000) and its iterative one (probit,
-    n = 1,000, the same SLQ probes): NLL, g_u, g_F, Newton steps and CG
+    dense formulation (gamma, n = N_CB_CPU) and its iterative one (probit,
+    n = N_CB_CPU, the same SLQ probes): NLL, g_u, g_F, Newton steps and CG
     iterations equal, predictions with variances (the iterative ones, a
     batched CG at tol 1e-6, to 1e-6 as phase 27's latent CG); the exact
     GP with a
     grouped effect on the dense Laplace engine (probit, n = 500); a
-    Gaussian Vecchia Newton fit (n = 1,000): iterations equal, parameters;
-    one combined LaGaBoost round (n = 1,000) with the default GD refit:
+    Gaussian Vecchia Newton fit (n = N_CB_CPU): iterations equal,
+    parameters; one combined LaGaBoost round (n = N_CB_CPU) with the
+    default GD refit:
     the init score and the first fit (before the tree) to 1e-8, then
     phase 12's rule for the tree, the refitted parameters, the training
     score and the predictions (1e-4)."""
@@ -5421,11 +5458,434 @@ def _two_predictor_goldens(gpt):
           flush=True)
 
 
+# the covariance breadth: space-time GPBoost and the general-shape
+# Matern at full width, the 14 kernels card against CPU
+N_ST, T_ST, M_ST, MAXIT_ST, SEED_ST, N_ST_CPU = 100_000, 20, 20, 20, 14, 2_000
+ST_MODEL = {"cov_function": "matern_space_time", "cov_fct_shape": 1.5,
+            "gp_approx": "vecchia", "num_neighbors": M_ST,
+            "vecchia_ordering": "time"}
+N_MES, M_MES, MAXIT_MES, N_MES_CPU = 100_000, 20, 2, 2_000
+N_BREADTH = 500
+# the JAX test's grid (tests/test_cov_breadth_golden.py:25-50)
+BESSEL_X = np.concatenate([np.linspace(1e-3, 1.99, 40),
+                           np.linspace(2.0, 40, 40)])
+BESSEL_V = [0.01, 0.3, 0.5, 1.0, 1.7, 2.5, 5.8, 10.4]
+
+
+def sim_space_time(n, p=P, seed=SEED_ST):
+    """Space-time data: time binned into 1..20 as the R suite's space-time
+    simulation bins its uniforms (tests/test_cov_breadth_golden.py:125-146:
+    bin i holds [(i - 1)/20, i/20)), locations uniform on the unit square,
+    sim_gpboost's nonlinear F of p covariates, a smooth space-time field
+    and noise."""
+    rng = np.random.RandomState(seed)
+    t = np.floor(rng.rand(n) * T_ST) + 1.0
+    s = rng.rand(n, 2)
+    X = rng.rand(n, p)
+    f = np.sin(3 * X[:, 0]) + X[:, 1] ** 2
+    b = np.sin(6 * s[:, 0] + 0.3 * t) * np.cos(4 * s[:, 1] - 0.2 * t)
+    return np.column_stack([t, s]), X, f + b + 0.3 * rng.randn(n)
+
+
+def _st_fit_card_cpu(gpt):
+    """The space-time GP alone at n = 2,000 on the card and on the CPU,
+    maxit 20 (two chunks, a re-determination after each), by gradient
+    descent: scipy's L-BFGS-B, which n = 2,000 takes by default, stops on
+    relative changes of 1e-16 whose count of iterations moves with the
+    last bits of the objective (27 and 29 on the card and on the CPU, to
+    parameters within 6.3e-15 of each other), and the device L-BFGS's
+    unscaled first step leaves this data's ranges at 1e7-1e42."""
+    coords, _, y = sim_space_time(N_ST_CPU, seed=SEED_ST + 1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = gpt.GPModel(gp_coords=coords, device=dev, **ST_MODEL)
+        m.fit(y=y, params={"maxit": MAXIT_ST,
+                           "optimizer_cov": "gradient_descent"})
+        out[dev] = m
+    mg, mc = out["cuda"], out["cpu"]
+    errs = {"cov pars": _rel_max(mg.get_cov_pars(), mc.get_cov_pars())}
+    same_sets = np.array_equal(mg._engine._nn_idx_np, mc._engine._nn_idx_np)
+    redet = [c for c, _ in mg.neighbor_redeterminations]
+    if errs["cov pars"] > 1e-6 or not same_sets \
+            or mg.get_num_optim_iter() != mc.get_num_optim_iter() \
+            or redet != [c for c, _ in mc.neighbor_redeterminations] \
+            or not redet[0]:
+        raise AssertionError(
+            f"space-time card vs CPU: {errs}, sets equal {same_sets}, "
+            f"iterations {mg.get_num_optim_iter()} / "
+            f"{mc.get_num_optim_iter()}, re-determinations {redet} / "
+            f"{[c for c, _ in mc.neighbor_redeterminations]}")
+    print(f"[space-time card-vs-cpu] n={N_ST_CPU} m={M_ST} gradient "
+          f"descent, maxit {MAXIT_ST}: {mg.get_num_optim_iter()} iterations "
+          "on both, "
+          f"re-determinations {redet} (sets changed) on both, the neighbour "
+          f"sets after them equal index for index; relative cov pars "
+          f"{errs['cov pars']:.2e}", flush=True)
+
+
+def phase_space_time(torch, gpt, histogram):
+    """Space-time GPBoost at full width: matern_space_time (shape 1.5) on
+    [time, s1, s2], Vecchia with 20 neighbours in the time ordering,
+    float64, n = 100,000, p = 5, 31 leaves; the first fit capped at 20
+    iterations (two chunks, a neighbour re-determination in the
+    range-scaled space after each); 10 rounds, 1,000 predictions; then
+    card against CPU at n = 2,000. Returns hist_segment's launches over
+    the 10 rounds."""
+    coords, X, y = sim_space_time(N_ST)
+    t0 = time.perf_counter()
+    gp = gpt.GPModel(gp_coords=coords, device="cuda", **ST_MODEL)
+    search_s = time.perf_counter() - t0
+    gp.set_optim_params({"maxit": MAXIT_ST})
+    fits, fit = [], gp.fit
+
+    def timed_fit(*args, **kwargs):
+        t = time.perf_counter()
+        out = fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        r, resid = gp._fit_result, kwargs["y"]
+        if torch.is_tensor(resid):
+            resid = resid.cpu().numpy()
+        fits.append((time.perf_counter() - t, np.array(resid),
+                     r.cov_pars.copy(), r.num_it, r.optimizer,
+                     list(gp.neighbor_redeterminations)))
+        return out
+
+    gp.fit = timed_fit
+    bst = gpt.Booster(PARAMS, gpt.Dataset(X, label=y), gp_model=gp,
+                      device="cuda")
+    _reset_launches(histogram)
+    secs = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = histogram.hist_segment.launches
+    fit_s, resid, pars_fit, fit_it, fit_opt, redet = fits[0]
+    secs[0] -= fit_s
+    from collections import Counter
+    sites = Counter()
+    _, syncs = _count_syncs(torch, bst.update, sites)
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)], cpu=False)
+    rng = np.random.RandomState(SEED_ST + 2)
+    Xn = rng.rand(N_PRED, P)
+    cn = np.column_stack([np.floor(rng.rand(N_PRED) * T_ST) + 1.0,
+                          rng.rand(N_PRED, 2)])
+    t0 = time.perf_counter()
+    pred = bst.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    cov = gp.get_cov_pars()
+    _finite("space-time cov pars", cov, (4,), positive=True)
+    _finite("space-time first-fit pars", pars_fit, (4,), positive=True)
+    for k in ("response_mean", "response_var"):
+        _finite(f"space-time prediction {k}", pred[k], (N_PRED,))
+    # the first fit lowered the NLL of its residuals (both on the final
+    # neighbour sets)
+    nll_init = gp.neg_log_likelihood(gp._default_init_cov_pars(resid), resid)
+    nll_fit = gp.neg_log_likelihood(pars_fit, resid)
+    if not nll_fit < nll_init:
+        raise AssertionError(f"space-time first fit: NLL {nll_fit} not "
+                             f"below the initial values' {nll_init}")
+    if fit_opt != "device_lbfgs" or launches <= 0 \
+            or len(bst.trees) != ROUNDS + 3 or len(redet) > 2:
+        raise AssertionError(f"space-time GPBoost: {fit_opt}, {launches} "
+                             f"hist_segment launches, {len(bst.trees)} "
+                             f"trees, {len(redet)} re-determinations")
+    print(f"[space-time] n={N_ST} p={P} [time 1..{T_ST}, s1, s2] "
+          f"matern_space_time 1.5, m={M_ST}, time ordering, float64, 31 "
+          f"leaves: ordering and first neighbour search {search_s:.3f} s; "
+          f"first GP fit {fit_s:.3f} s ({fit_opt}, maxit {MAXIT_ST}, "
+          f"{fit_it} iterations; NLL {nll_fit:.4f} below the initial "
+          f"values' {nll_init:.4f}); re-determinations " + ", ".join(
+              f"{'changed' if c else 'unchanged'} (host search {t:.3f} s)"
+              for c, t in redet)
+          + "; seconds a round " + ", ".join(f"{v:.3f}" for v in secs)
+          + f"; host syncs of round {ROUNDS + 1}: {syncs} ("
+          + ", ".join(f"{k} x{v}" for k, v in sites.most_common(6))
+          + f"); device busy over rounds {ROUNDS + 2}-{ROUNDS + 3}: "
+          f"{_busy_txt(busy, wall, hist_s)}; predict {N_PRED} points "
+          f"{pred_s:.3f} s; cov pars {cov.tolist()}; hist_segment launches "
+          f"over the {ROUNDS} rounds {launches}", flush=True)
+    _st_fit_card_cpu(gpt)
+    return launches
+
+
+def _vag_card_cpu(gpt, kw, coords, y, pars):
+    """NLL and gradient wrt the internal parameters of one Gaussian model
+    on the card and on the CPU: (relative NLL difference, gradient
+    difference over its largest entry)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = gpt.GPModel(gp_coords=coords, device=dev, **kw)._engine
+        u = np.log(eng.transform_pars(np.asarray(pars, dtype=np.float64)))
+        v, g = eng.vag_full(u, eng.prep_y(y))
+        out[dev] = (float(v), np.asarray(g))
+    (vg, gg), (vc, gc) = out["cuda"], out["cpu"]
+    return abs(vg / vc - 1.0), _rel_max(gg, gc)
+
+
+def phase_matern_shape(torch, gpt):
+    """matern_estimate_shape at full width: sim_vecchia(100,000), m = 20,
+    float64, on the device L-BFGS with maxit 2; bessel_kv on the card
+    against scipy on the JAX test's grid; NLL and gradient card against
+    CPU at n = 2,000."""
+    from scipy import special
+    from gpboost_tpu_torch.ops import special_fns
+    coords, y = sim_vecchia(N_MES)
+    m = gpt.GPModel(gp_coords=coords, cov_function="matern_estimate_shape",
+                    gp_approx="vecchia", num_neighbors=M_MES, device="cuda")
+    eng = m._engine
+    evals, raw = [], eng.nll_profiled_raw
+
+    def counted(theta, yy):
+        evals.append(1)
+        return raw(theta, yy)
+
+    eng.nll_profiled_raw = counted
+    reads = special_fns.host_reads
+    _, fit_s, syncs, peak = _timed(torch, lambda: m.fit(
+        y=y, params={"maxit": MAXIT_MES}))
+    bessel_reads = special_fns.host_reads - reads
+    del eng.nll_profiled_raw
+    r = m._fit_result
+    _finite("matern_estimate_shape cov pars", r.cov_pars, (4,),
+            positive=True)
+    if r.optimizer != "device_lbfgs" or not evals:
+        raise AssertionError(f"matern_estimate_shape: {r.optimizer}, "
+                             f"{len(evals)} evaluations")
+    # one NLL-and-gradient evaluation alone, timed with a synchronize
+    theta = np.log(eng.transform_pars(r.cov_pars)[1:])
+    yd = eng.prep_y(y)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.nll_profiled_vag(theta, yd)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    entries = eng._d_all.numel()
+    # the correlation's own work: read the scaled distances and the
+    # incoming gradient, write the correlations and their gradient
+    bnd_ms, _ = bound(32 * entries, 0)
+    print(f"[matern shape] n={N_MES} m={M_MES} sim_vecchia float64 "
+          f"matern_estimate_shape: fit ({r.optimizer}, maxit {MAXIT_MES}) "
+          f"{fit_s:.3f} s, {r.num_it} iterations, {len(evals)} NLL-and-"
+          f"gradient evaluations ({fit_s / len(evals):.3f} s each), "
+          f"{syncs} host syncs ({syncs / len(evals):.2f} an evaluation, "
+          f"{bessel_reads} of them bessel_kv's reads), peak {peak:.2f} GiB;"
+          f" one evaluation alone {min(times):.3f} s (median "
+          f"{np.median(times):.3f}) over {entries} kernel entries, their "
+          f"byte bound {bnd_ms:.3f} ms; cov pars {r.cov_pars.tolist()}",
+          flush=True)
+    # bessel_kv on the card against scipy (values and the x-gradient)
+    worst = {"values": 0.0, "x-gradient": 0.0}
+    for v in BESSEL_V:
+        x = torch.as_tensor(BESSEL_X, device="cuda").requires_grad_(True)
+        vt = torch.tensor(v, dtype=torch.float64, device="cuda")
+        k = special_fns.bessel_kv(vt, x)
+        (gx,) = torch.autograd.grad(k.sum(), x)
+        kv = special.kv(v, BESSEL_X)
+        worst["values"] = max(worst["values"], float(np.max(np.abs(
+            k.detach().cpu().numpy() - kv) / kv)))
+        kvp = special.kvp(v, BESSEL_X)
+        worst["x-gradient"] = max(worst["x-gradient"], float(np.max(np.abs(
+            gx.cpu().numpy() - kvp) / np.abs(kvp))))
+    if worst["values"] > 1e-10 or worst["x-gradient"] > 1e-10:
+        raise AssertionError(f"bessel_kv on the card: {worst}")
+    coords2, y2 = sim_vecchia(N_MES_CPU, seed=1)
+    e_nll, e_g = _vag_card_cpu(
+        gpt, dict(cov_function="matern_estimate_shape", gp_approx="vecchia",
+                  num_neighbors=M_MES), coords2, y2, [0.3, 0.8, 0.1, 0.9])
+    if e_nll > 1e-9 or e_g > 1e-7:
+        raise AssertionError(f"matern_estimate_shape card vs CPU: NLL "
+                             f"{e_nll:.2e}, gradient {e_g:.2e}")
+    print(f"[matern shape] bessel_kv on the card against scipy on the JAX "
+          f"test's grid ({len(BESSEL_V)} orders x {len(BESSEL_X)} "
+          f"arguments): values {worst['values']:.2e}, x-gradient against "
+          f"kvp {worst['x-gradient']:.2e} relative; card against CPU at "
+          f"n={N_MES_CPU}: NLL {e_nll:.2e}, gradient {e_g:.2e}", flush=True)
+
+
+# (name, model, coordinates' kind, parameters): phase 47's cases
+BREADTH_CASES = [
+    ("exponential", dict(cov_function="exponential"), "c2", [0.5, 0.3]),
+    ("matern 1.0", dict(cov_function="matern", cov_fct_shape=1.0), "c2",
+     [0.5, 0.3]),
+    ("gaussian", dict(cov_function="gaussian"), "c2", [0.5, 0.3]),
+    ("powered_exponential", dict(cov_function="powered_exponential",
+                                 cov_fct_shape=1.3), "c2", [0.5, 0.3]),
+    ("matern_ard", dict(cov_function="matern_ard"), "c2", [0.5, 0.3, 0.6]),
+    ("gaussian_ard", dict(cov_function="gaussian_ard"), "c2",
+     [0.5, 0.3, 0.6]),
+    ("matern_space_time", dict(cov_function="matern_space_time"), "c3",
+     [0.5, 2.0, 0.3]),
+    ("wendland", dict(cov_function="wendland", cov_fct_taper_range=0.3),
+     "c2", [0.5]),
+    ("matern_estimate_shape", dict(cov_function="matern_estimate_shape"),
+     "c2", [0.5, 0.3, 0.8]),
+    ("matern_ard_estimate_shape", dict(
+        cov_function="matern_ard_estimate_shape"), "c2",
+     [0.5, 0.3, 0.6, 1.3]),
+    ("space_time_gneiting", dict(cov_function="space_time_gneiting"), "c3",
+     [1.0, 0.2, 2.0, 0.5, 1.5, 0.5, 2.0]),
+    ("hurst", dict(cov_function="hurst"), "c2", [0.5, 0.4]),
+    ("hurst_ard", dict(cov_function="hurst_ard"), "c2", [0.5, 0.4, 0.7]),
+    ("linear", dict(cov_function="linear"), "c2", [0.5]),
+    ("ar1_mf_exponential", dict(cov_function="ar1_mf_exponential"), "cf",
+     [0.5, 0.3, 0.2, 0.4, -0.4]),
+    ("vecchia hurst", dict(cov_function="hurst", gp_approx="vecchia"), "c2",
+     [0.5, 0.4]),
+    ("vecchia linear", dict(cov_function="linear", gp_approx="vecchia"),
+     "c2", [0.5]),
+    ("vecchia_euclidean ar1_mf_exponential", dict(
+        cov_function="ar1_mf_exponential", gp_approx="vecchia_euclidean"),
+     "cf", [0.5, 0.3, 0.2, 0.4, -0.4]),
+    ("tapering gaussian_ard", dict(cov_function="gaussian_ard",
+                                   gp_approx="tapering",
+                                   cov_fct_taper_range=0.3), "c2",
+     [0.5, 0.3, 0.6]),
+    ("fitc matern_ard", dict(cov_function="matern_ard", gp_approx="fitc",
+                             num_ind_points=50), "c2", [0.5, 0.3, 0.6]),
+]
+BREADTH_BESSEL = ("matern 1.0", "matern_estimate_shape",
+                  "matern_ard_estimate_shape", "space_time_gneiting")
+
+
+def _breadth_coords(n, seed):
+    rng = np.random.RandomState(seed)
+    c2 = rng.rand(n, 2)
+    return {"c2": c2,
+            "c3": np.column_stack([np.floor(rng.rand(n) * T_ST) + 1.0,
+                                   rng.rand(n, 2)]),
+            "cf": np.column_stack([rng.rand(n),
+                                   (rng.rand(n) < 0.4).astype(float)])}, \
+        np.sin(4 * c2[:, 0]) + 0.3 * rng.randn(n)
+
+
+def phase_breadth_card_vs_cpu(torch, gpt):
+    """The breadth card against CPU at n = 500, float64: each of the 14
+    kernels and ar1_mf_exponential on the dense engine, hurst, linear and
+    ar1_mf_exponential (vecchia_euclidean) on the Vecchia engine,
+    gaussian_ard on the tapering adapter and matern_ard on FITC: NLL and
+    gradient (relative 1e-10 and 1e-8; the Bessel kernels 1e-9 and 1e-7),
+    the last two's predictions (1e-8); a two-iteration Bernoulli fit with
+    ar1_mf_exponential; TestVecchiaAnisotropic's dense-equals-Vecchia
+    golden on the card."""
+    coords, y = _breadth_coords(N_BREADTH, SEED_ST + 5)
+    worst, bad = {}, []
+    t0 = time.perf_counter()
+    for name, kw, ck, pars in BREADTH_CASES:
+        kw = dict(kw, num_neighbors=20) if "vecchia" in kw.get(
+            "gp_approx", "") else kw
+        e_nll, e_g = _vag_card_cpu(gpt, kw, coords[ck], y, [0.2] + pars)
+        bessel = name in BREADTH_BESSEL
+        lim = (1e-9, 1e-7) if bessel else (1e-10, 1e-8)
+        worst[name] = (e_nll, e_g)
+        if e_nll > lim[0] or e_g > lim[1]:
+            bad.append(f"{name} (NLL {e_nll:.2e}, gradient {e_g:.2e})")
+    cp = _breadth_coords(50, SEED_ST + 6)[0]["c2"]
+    for name, kw, ck, pars in BREADTH_CASES[-2:]:
+        p = {}
+        for dev in ("cuda", "cpu"):
+            p[dev] = gpt.GPModel(gp_coords=coords[ck], device=dev,
+                                 **kw).predict(y=y, gp_coords_pred=cp,
+                                               cov_pars=[0.2] + pars,
+                                               predict_var=True)
+        e = max(_rel_max(p["cuda"][k], p["cpu"][k]) for k in ("mu", "var"))
+        worst[name + " predictions"] = (e, 0.0)
+        if e > 1e-8:
+            bad.append(f"{name} predictions {e:.2e}")
+    yb = (y > 0).astype(float)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        m = gpt.GPModel(gp_coords=coords["cf"], likelihood="bernoulli_probit",
+                        cov_function="ar1_mf_exponential", device=dev)
+        m.fit(y=yb, params={"maxit": 2})
+        fits[dev] = (m.get_cov_pars(), m.get_num_optim_iter())
+    e_fit = _rel_max(fits["cuda"][0], fits["cpu"][0])
+    if e_fit > 1e-6 or fits["cuda"][1] != fits["cpu"][1] \
+            or not np.all(np.isfinite(fits["cuda"][0])):
+        bad.append(f"ar1 bernoulli fit {e_fit:.2e}, iterations "
+                   f"{fits['cuda'][1]} / {fits['cpu'][1]}")
+    if bad:
+        raise AssertionError("breadth card vs CPU: " + "; ".join(bad))
+    print(f"[breadth card-vs-cpu] n={N_BREADTH} float64, "
+          f"{len(BREADTH_CASES)} models in {time.perf_counter() - t0:.2f} s;"
+          " relative NLL, gradient: " + ", ".join(
+              f"{k} {a:.1e}/{b:.1e}" for k, (a, b) in worst.items())
+          + f"; ar1_mf_exponential bernoulli_probit fit (maxit 2): "
+          f"{fits['cuda'][1]} iterations on both, cov pars {e_fit:.2e}",
+          flush=True)
+    _vecchia_aniso_golden(gpt)
+
+
+def _vecchia_aniso_golden(gpt):
+    """tests/test_vecchia_golden.py TestVecchiaAnisotropic::
+    test_ard_full_neighbors_equals_dense on the card: matern_ard Vecchia
+    with m = n - 1 gives the dense NLL and predictions at the file's
+    strict tolerance (1e-5), on the R suite's GP data (tests/conftest.py
+    gp_sim_data)."""
+    from gpboost_tpu_torch.utils.datasim import qnorm, r_matrix, sim_rand_unif
+    n = 100
+    coords = r_matrix(sim_rand_unif(n * 2, init_c=0.1), ncol=2)
+    D = np.sqrt(((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1))
+    C = np.linalg.cholesky(np.exp(-D / 0.1) + np.eye(n) * 1e-20)
+    y = C @ qnorm(sim_rand_unif(n, init_c=0.8)) \
+        + qnorm(sim_rand_unif(n, init_c=0.1)) / 5.0
+    cov_pars = [0.1, 1.3, 0.2, 0.4]
+    kw = dict(gp_coords=coords, cov_function="matern_ard", cov_fct_shape=1.5,
+              device="cuda")
+    dense = gpt.GPModel(**kw)
+    mv = gpt.GPModel(gp_approx="vecchia", num_neighbors=99,
+                     vecchia_ordering="none", **kw)
+    e_nll = abs(mv.neg_log_likelihood(cov_pars, y)
+                - dense.neg_log_likelihood(cov_pars, y))
+    ct = np.column_stack([[0.1, 0.2, 0.7], [0.9, 0.4, 0.55]])
+    exact = dense.predict(y=y, gp_coords_pred=ct, cov_pars=cov_pars,
+                          predict_var=True, predict_response=True)
+    mv.set_prediction_data(vecchia_pred_type="order_obs_first_cond_obs_only",
+                           num_neighbors_pred=100)
+    pred = mv.predict(y=y, gp_coords_pred=ct, cov_pars=cov_pars,
+                      predict_var=True, predict_response=True)
+    e_mu = float(np.max(np.abs(pred["mu"] - exact["mu"])))
+    e_var = float(np.max(np.abs(pred["var"] - exact["var"])))
+    if max(e_nll, e_mu, e_var) >= 1e-5:
+        raise AssertionError(f"aniso golden on the card: NLL {e_nll:.2e}, "
+                             f"mu {e_mu:.2e}, var {e_var:.2e}")
+    print(f"[aniso golden] TestVecchiaAnisotropic dense == Vecchia (m = 99) "
+          f"on the card: |NLL| {e_nll:.2e}, mu {e_mu:.2e}, var {e_var:.2e} "
+          "(< 1e-5)", flush=True)
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
           (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38),
-          (39, 41), (42, 44))
+          (39, 41), (42, 44), (45, 47))
+
+
+def _print_phase_time(fn):
+    """fn, printing its seconds as "[time] <name> <s> s" when it returns
+    or raises."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            print(f"[time] {fn.__name__} {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return run
+
+
+# every phase prints its own seconds
+for _name, _fn in list(globals().items()):
+    if _name.startswith("phase_") and callable(_fn):
+        globals()[_name] = _print_phase_time(_fn)
 
 
 def _groups(spec):
@@ -5581,6 +6041,14 @@ def main(argv=None):
         phase_families_card_vs_cpu(torch, gpt)
         print(f"[families] phases 42-44 in "
               f"{time.perf_counter() - t_f:.1f} s", flush=True)
+    if (45, 47) in groups:
+        t_b = time.perf_counter()
+        segment["launches_gpboost_space_time_n100k"] = phase_space_time(
+            torch, gpt, histogram)
+        phase_matern_shape(torch, gpt)
+        phase_breadth_card_vs_cpu(torch, gpt)
+        print(f"[breadth] phases 45-47 in "
+              f"{time.perf_counter() - t_b:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

@@ -72,7 +72,22 @@ beside a tapering or full-scale adapter on the main GP
 (gp_model.py:237-253); the Vecchia and FITC engines take one GP and
 raise NotImplementedError.
 
-GPs are exponential or matern with shape 0.5 / 1.5 / 2.5. Estimation runs
+A GP takes any of the 14 covariance functions of ops/cov_fcts.py
+(exponential, matern of any shape, gaussian, powered_exponential, the ARD
+and space-time kernels, wendland, matern_estimate_shape and its ARD form,
+space_time_gneiting, hurst(_ard), linear) or "ar1_mf_<base>", the AR1
+multifidelity kernel on a base kernel, whose last coordinate column is the
+fidelity (0 or 1; gp_approx="vecchia_euclidean" searches neighbours on
+the other columns, as "vecchia" does here), on every engine the JAX
+package runs them: dense, Vecchia, FITC, the tapering / FSA / VIF
+adapters and the Laplace engines; the iterative FSA / FSVA engines keep
+to isotropic bases, and the Vecchia-Laplace and combined engines'
+predictions to isotropic kernels, where the JAX package's fail. A
+Gaussian Vecchia fit of an anisotropic kernel (ARD, space-time) runs in
+chunks of max(10, maxit // 10) iterations with the neighbour sets
+re-determined in the range-scaled space after each
+(`neighbor_redeterminations` lists each one's (changed, host seconds)).
+Estimation runs
 every optimizer of models/optimize.py (gradient descent, Fisher scoring,
 Newton, L-BFGS on the host or on the device, Nelder-Mead, adam; for the
 Laplace engines gradient descent, L-BFGS, Nelder-Mead and adam), with
@@ -105,6 +120,9 @@ dtype: the engine's float type, "float64" (default, as the reference) or
 "float32".
 """
 
+import math
+import time
+
 import numpy as np
 import torch
 
@@ -124,7 +142,8 @@ from .models.vecchia import VecchiaGaussianEngine
 from .models.vecchia_grouped import VecchiaGroupedLaplaceEngine
 from .models.vecchia_laplace import (VecchiaLaplaceEngine,
                                      VecchiaLaplaceIterativeEngine)
-from .ops.cov_fcts import SUPPORTED_COV_FUNCTIONS, CovarianceFunction
+from .ops.cov_fcts import (SUPPORTED_COV_FUNCTIONS,
+                            AR1MultifidelityCovariance, CovarianceFunction)
 from .ops.taper import (FSACovarianceFunction, TaperedCovarianceFunction,
                         VIFCovarianceFunction)
 from .ops.distances import pairwise_dist
@@ -208,10 +227,18 @@ class GPModel:
             raise NotImplementedError(
                 f"gp_approx '{gp_approx}' is not ported yet (ported: "
                 f"{', '.join(_GP_APPROXES)})")
-        if cov_function not in SUPPORTED_COV_FUNCTIONS:
-            raise NotImplementedError(
-                f"cov_function '{cov_function}' is not ported yet "
-                f"(supported: {SUPPORTED_COV_FUNCTIONS})")
+        ar1 = cov_function.startswith("ar1_mf_")
+        if cov_function not in SUPPORTED_COV_FUNCTIONS and not ar1:
+            raise ValueError(
+                f"cov_function '{cov_function}' is not supported. "
+                f"Supported: {SUPPORTED_COV_FUNCTIONS} and 'ar1_mf_<base>'")
+        if ar1 and gp_coords is not None and not np.all(np.isin(
+                np.asarray(gp_coords, dtype=np.float64).reshape(
+                    len(gp_coords), -1)[:, -1], (0.0, 1.0))):
+            raise ValueError(
+                "The last column of gp_coords must contain only 0 "
+                "(low fidelity) and 1 (high fidelity) for AR1 "
+                "multifidelity covariance functions")
         unsupported = ["num_parallel_devices"] \
             if num_parallel_devices is not None else []
         if drop_intercept_group_rand_effect is not None \
@@ -254,6 +281,7 @@ class GPModel:
         self.vecchia_ordering = vecchia_ordering
         self.vecchia_pred_type = "order_obs_first_cond_obs_only"
         self.num_neighbors_pred = None
+        self.neighbor_redeterminations = []
         self.components = []
         self._par_names = ["Error_term"] if likelihood == "gaussian" else []
 
@@ -295,7 +323,8 @@ class GPModel:
             self.gp_coords = gp_coords
             cov_fn = self._gp_cov_fn(gp_coords, cov_function, cov_fct_shape)
             self.components.append(GPComponent(gp_coords, cov_fn, name="GP"))
-            self._par_names.extend(["GP_var", "GP_range"])
+            self._par_names.extend(_gp_cov_par_names(cov_function,
+                                                     gp_coords.shape[1]))
         # GP random coefficients (gp_model.py:237-253): one GP per column of
         # gp_rand_coef_data with its own plain kernel, also under a taper
         self.gp_rand_coef_data = None
@@ -306,14 +335,19 @@ class GPModel:
             if rc.ndim == 1:
                 rc = rc[:, None]
             self.gp_rand_coef_data = rc
+            base = _gp_cov_par_names(cov_function, self.gp_coords.shape[1])
             for ic in range(rc.shape[1]):
                 pre = f"GP_rand_coef_nb_{ic + 1}"
                 self.components.append(GPComponent(
                     self.gp_coords, CovarianceFunction(
                         cov_function, shape=cov_fct_shape,
-                        dim=self.gp_coords.shape[1]),
+                        dim=self.gp_coords.shape[1],
+                        taper_range=cov_fct_taper_range,
+                        taper_shape=cov_fct_taper_shape),
                     z=rc[:, ic], name=pre))
-                self._par_names.extend([pre + "_var", pre + "_range"])
+                self._par_names.extend(
+                    [pre + "_var"] + [pre + "_" + nm.replace("GP_", "")
+                                      for nm in base[1:]])
 
         self.num_data = len(self.group_data) if self.group_data is not None \
             else len(self.gp_coords)
@@ -488,8 +522,13 @@ class GPModel:
                         taper_shape=self.cov_fct_taper_shape,
                         taper_mu=(1.0 + dim) / 2.0
                         + self.cov_fct_taper_shape + 0.5)
-        cov_fn = CovarianceFunction(cov_function, shape=cov_fct_shape,
-                                    dim=dim)
+        if cov_function.startswith("ar1_mf_"):
+            cov_fn = AR1MultifidelityCovariance(
+                cov_function[len("ar1_mf_"):], shape=cov_fct_shape, dim=dim)
+        else:
+            # a "wendland" GP is the taper itself (gp_model.py:184-187)
+            cov_fn = CovarianceFunction(cov_function, shape=cov_fct_shape,
+                                        dim=dim, **taper_kw)
         approx = self.gp_approx
         if approx not in _TAPER_APPROXES + _FSVA_APPROXES:
             return cov_fn
@@ -612,12 +651,49 @@ class GPModel:
         X_fit = self.X
         if self._vecchia and X_fit is not None:
             X_fit = X_fit[self._engine.perm]
-        self._fit_result = optimize_gaussian(
-            self._engine, self._engine.prep_y(y_t), cfg, X=X_fit)
+        y_fit = self._engine.prep_y(y_t)
+        cf = self._engine.comp.cov_fn if self._vecchia else None
+        if cf is not None and not (cf.is_isotropic or cf.needs_coords):
+            self._fit_result = self._fit_aniso_vecchia(y_fit, cfg, X_fit)
+        else:
+            self._fit_result = optimize_gaussian(self._engine, y_fit, cfg,
+                                                 X=X_fit)
         self._coef_override = None
         self._cov_pars_override = None
         self.model_has_been_fitted = True
         return self
+
+    def _fit_aniso_vecchia(self, y_fit, cfg, X_fit):
+        """An anisotropic (ARD, space-time) Vecchia fit in chunks of
+        max(10, maxit // 10) iterations, each warm-started at the last
+        one's parameters, with the neighbour sets re-determined in the
+        range-scaled space after each (UpdateNearestNeighbors,
+        Vecchia_utils.h:354; re_model_template.h:5105; gp_model.py:
+        685-720). As there, a chunk's max_iter gives way to maxit when
+        that is set, and the loop ends when the sets stay the same and
+        the chunk stopped early."""
+        budget = cfg.maxit if cfg.maxit else cfg.max_iter
+        chunk = max(10, budget // 10)
+        total_it = 0
+        r = None
+        self.neighbor_redeterminations = []
+        while budget > 0:
+            step = OptimConfig(**{**cfg.__dict__,
+                                  "max_iter": min(chunk, budget)})
+            if r is not None:
+                step.init_cov_pars = r.cov_pars
+            r = optimize_gaussian(self._engine, y_fit, step, X=X_fit)
+            total_it += r.num_it
+            budget -= min(chunk, budget)
+            t_fit = self._engine.transform_pars(r.cov_pars)
+            t0 = time.perf_counter()
+            changed = self._engine.redetermine_neighbors(t_fit[2:])
+            self.neighbor_redeterminations.append(
+                (changed, time.perf_counter() - t0))
+            if not changed and r.num_it < min(chunk, budget + chunk):
+                break
+        r.num_it = total_it
+        return r
 
     def _fit_laplace(self, y, X, offset):
         """The non-Gaussian branch of fit (gp_model.py:664-670)."""
@@ -1006,6 +1082,13 @@ class GPModel:
                 cp = np.asarray(gp_coords_pred, dtype=np.float64)
                 if cp.ndim == 1:
                     cp = cp[:, None]
+                if self.cov_function_name.startswith("ar1_mf_"):
+                    bad = cp[~np.isin(cp[:, -1], (0.0, 1.0)), -1]
+                    if len(bad):
+                        raise ValueError(
+                            "The last column of gp_coords_pred must contain "
+                            "only 0 (low fidelity) and 1 (high fidelity), "
+                            f"found {bad[0]:g}")
                 pd["coords_pred"] = cp
                 n_pred = len(cp)
                 if comp.z is not None:
@@ -1179,24 +1262,100 @@ class GPModel:
             self.X = np.asarray(d["X"], dtype=np.float64)
 
 
+def _gp_cov_par_names(cov_function, dim):
+    """A GP component's covariance-parameter names (basic.py:5057-5076;
+    gp_model.py:1283-1309)."""
+    if cov_function.startswith("ar1_mf_"):
+        base = _gp_cov_par_names(cov_function[len("ar1_mf_"):], dim - 1)
+        return (["low_" + nm for nm in base]
+                + ["discrepancy_" + nm for nm in base] + ["rho"])
+    if cov_function == "space_time_gneiting":
+        return ["sigma2", "a", "c", "alpha", "nu", "beta", "delta"]
+    if cov_function == "matern_space_time":
+        return ["GP_var", "GP_range_time", "GP_range_space"]
+    if cov_function in ("matern_ard", "gaussian_ard"):
+        return ["GP_var"] + [f"GP_range_{i + 1}" for i in range(dim)]
+    if cov_function in ("wendland", "linear"):
+        return ["GP_var"]
+    if cov_function == "matern_estimate_shape":
+        return ["GP_var", "GP_range", "GP_smoothness"]
+    if cov_function == "matern_ard_estimate_shape":
+        return ["GP_var"] + [f"GP_range_{i + 1}" for i in range(dim)] \
+            + ["GP_smoothness"]
+    if cov_function in ("hurst", "hurst_ard"):
+        names = ["GP_var", "H"]
+        if cov_function == "hurst_ard":
+            names += [f"GP_range_{i + 1}" for i in range(1, dim)]
+        return names
+    return ["GP_var", "GP_range"]
+
+
+def _median_dist(x):
+    """Median pairwise distance of the rows of x (their mean if the median
+    is 0)."""
+    iu = np.triu_indices(len(x), k=1)
+    d = pairwise_dist(torch.as_tensor(x), method="direct").numpy()[iu]
+    md = np.median(d)
+    return md if md > 0 else np.mean(d)
+
+
+def _matern_c(shape):
+    return 3.0 if shape <= 1.0 else (4.7 if shape <= 2.0 else 5.9)
+
+
 def _init_ranges(comp):
-    """Initial range via the median-distance rule (cov_fcts.h:1599-1668
-    FindInitCovPar), on at most 1000 sampled points."""
+    """Initial ranges by the median-distance rule (cov_fcts.h:1599-1678
+    FindInitCovPar; gp_model.py:1311-1400), on at most 1,000 sampled
+    points; for an AR1 multifidelity kernel the base rule on the spatial
+    coordinates for both levels, a discrepancy variance of 1 and rho 0."""
+    cf = comp.cov_fn
+    t = cf.cov_fct_type
+    if t.startswith("ar1_mf_"):
+        base = _init_ranges(GPComponent(comp.coords[:, :-1], cf.base_low))
+        return base + [1.0] + base + [0.0]
+    if t in ("hurst", "hurst_ard"):
+        # H = 0.5 (Brownian motion), unit ranges (cov_fcts.h:1671-1678)
+        return [0.5] + [1.0] * (comp.coords.shape[1] - 1
+                                if t == "hurst_ard" else 0)
+    if t in ("linear", "wendland"):
+        return []
     coords = comp.coords
     n = len(coords)
     if n > 1000:
-        rng = np.random.RandomState(0)
-        coords = coords[rng.choice(n, 1000, replace=False)]
-    iu = np.triu_indices(len(coords), k=1)
-    d = pairwise_dist(torch.as_tensor(coords), method="direct").numpy()[iu]
-    md = np.median(d)
-    if md <= 0:
-        md = np.mean(d)
-    cf = comp.cov_fn
-    if cf.cov_fct_type == "exponential" or cf.shape <= 1.0:
-        alpha = 2.0 * 3.0 / md
-    elif cf.shape <= 2.0:
-        alpha = 2.0 * 4.7 / md
+        coords = coords[np.random.RandomState(0).choice(n, 1000,
+                                                        replace=False)]
+
+    def per_col():
+        return [_median_dist(coords[:, ic:ic + 1])
+                for ic in range(coords.shape[1])]
+    if t in ("exponential", "matern"):
+        c = 3.0 if t == "exponential" else _matern_c(cf.shape)
+        alpha = 2.0 * c / _median_dist(coords)
+    elif t == "gaussian":
+        alpha = 3.0 / (_median_dist(coords) / 2.0) ** 2
+    elif t == "powered_exponential":
+        alpha = 3.0 / (_median_dist(coords) / 2.0) ** cf.shape
+    elif t == "matern_ard":
+        alpha = np.asarray([2.0 * _matern_c(cf.shape) / m for m in per_col()])
+    elif t == "gaussian_ard":
+        alpha = np.asarray([3.0 / (m / 2.0) ** 2 for m in per_col()])
+    elif t == "matern_space_time":
+        c = _matern_c(cf.shape)
+        alpha = np.asarray([2.0 * c / _median_dist(coords[:, :1]),
+                            2.0 * c / _median_dist(coords[:, 1:])])
+    elif t == "space_time_gneiting":
+        # a, c, alpha, nu, beta, delta (cov_fcts.h:1640-1648)
+        ds = coords.shape[1] - 1
+        md_t = _median_dist(coords[:, :1])
+        a = (20.0 ** (2.0 / ds) - 1.0) / (md_t * md_t) * 4.0
+        return [a, 2.0 * 4.7 / _median_dist(coords[:, 1:]), 1.0, 1.5, 1.0,
+                1.0]
+    elif t == "matern_estimate_shape":
+        # the range on the original scale and shape 1.5 (cov_fcts.h:
+        # 1610-1613)
+        return [_median_dist(coords) * math.sqrt(3.0) / 2.0 / 4.7, 1.5]
+    elif t == "matern_ard_estimate_shape":
+        return [m * math.sqrt(3.0) / 2.0 / 4.7 for m in per_col()] + [1.5]
     else:
-        alpha = 2.0 * 5.9 / md
+        raise AssertionError(t)
     return list(np.atleast_1d(cf.range_from_transformed(alpha)))

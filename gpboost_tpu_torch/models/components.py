@@ -53,8 +53,9 @@ class GPComponent:
         return self.cov_fn.corr_from_coords(c, c, alphas)
 
     def cross_corr(self, coords_pred, alphas):
-        """(n, n_pred) correlations between training and new points of an
-        approximation adapter (an isotropic kernel's come from distances,
+        """(n, n_pred) correlations between training and new points of a
+        non-isotropic kernel or an approximation adapter, from coordinates
+        (components.py:56-84; an isotropic kernel's come from distances,
         models/gaussian_gp.py assemble_pred_covs)."""
         c = _like(self.coords, alphas)
         return self.cov_fn.corr_from_coords(

@@ -13,9 +13,11 @@ matrix products and two m x m Cholesky factorizations on the device, no
 n x n matrix. Gradients come from torch.autograd. The theta-independent
 (m, m) and (m, n) distances are computed once on the device by direct
 coordinate differences in float64 (the expansion |x|^2 + |y|^2 - 2<x, y>
-loses digits where an inducing point coincides with a training point).
-The inducing points are the JAX package's: the same host kmeans++ with
-the same RandomState draws.
+loses digits where an inducing point coincides with a training point);
+a non-isotropic kernel (ARD, space-time, the coordinate-pair and AR1
+kernels) evaluates K_uu, K_uf and K_up from the coordinates instead
+(fitc.py:91-95, :271-277). The inducing points are the JAX package's:
+the same host kmeans++ with the same RandomState draws.
 """
 
 import math
@@ -118,26 +120,42 @@ class FITCBlocks:
         self.ip = select_inducing_points(comp.coords, num_ind_points,
                                          ind_points_selection, seed)
         self.m = len(self.ip)
-        self._d_uu = device_dist(self.ip, self.ip, dtype, self.device)
-        self._d_uf = device_dist(self.ip, comp.coords, dtype, self.device)
+        if comp.cov_fn.is_isotropic:
+            self._d_uu = device_dist(self.ip, self.ip, dtype, self.device)
+            self._d_uf = device_dist(self.ip, comp.coords, dtype, self.device)
+        else:
+            # the other kernels from coordinates (fitc.py:91-95)
+            self._ip_d = self._coords(self.ip)
+            self._coords_d = self._coords(comp.coords)
+
+    def _coords(self, x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                               device=self.device).to(self.dtype)
 
     def L_uu(self, alpha):
         cf = self.comp.cov_fn
-        K_uu = cf.corr_from_dist(self._d_uu, alpha) + JITTER * torch.eye(
-            self.m, dtype=self.dtype, device=self.device)
+        K_uu = (cf.corr_from_dist(self._d_uu, alpha) if cf.is_isotropic
+                else cf.corr_from_coords(self._ip_d, self._ip_d, alpha)) \
+            + JITTER * torch.eye(self.m, dtype=self.dtype, device=self.device)
         return chol(K_uu)
 
     def V(self, alpha):
         """(L_uu, V = L_uu^-1 K_uf (m, n))."""
+        cf = self.comp.cov_fn
         L = self.L_uu(alpha)
-        K_uf = self.comp.cov_fn.corr_from_dist(self._d_uf, alpha)
+        K_uf = cf.corr_from_dist(self._d_uf, alpha) if cf.is_isotropic \
+            else cf.corr_from_coords(self._ip_d, self._coords_d, alpha)
         return L, torch.linalg.solve_triangular(L, K_uf, upper=False)
 
     def V_pred(self, L, alpha, coords_pred):
         """L_uu^-1 K_up (m, n_pred) for new points."""
-        d_up = device_dist(self.ip, coords_pred, self.dtype, self.device)
-        return torch.linalg.solve_triangular(
-            L, self.comp.cov_fn.corr_from_dist(d_up, alpha), upper=False)
+        cf = self.comp.cov_fn
+        K_up = cf.corr_from_dist(device_dist(
+            self.ip, coords_pred, self.dtype, self.device), alpha) \
+            if cf.is_isotropic \
+            else cf.corr_from_coords(self._ip_d, self._coords(coords_pred),
+                                     alpha)
+        return torch.linalg.solve_triangular(L, K_up, upper=False)
 
 
 class FITCGaussianEngine(GaussianEngineBase):

@@ -32,38 +32,69 @@ device:
     once on the host: no atomics, so two launches give the same bits.
 As in the reference, weights support only the first, clusters no
 prediction, and latent variances at most 2,000 points; Fisher scoring and
-Newton raise. A device mesh raises NotImplementedError; neighbour
-re-determination (anisotropic kernels) is not ported.
+Newton raise. A device mesh raises NotImplementedError.
+
+Every kernel of ops/cov_fcts.py runs here: an isotropic one from the
+precomputed neighbour distances, an anisotropic one (ARD, space-time)
+from precomputed coordinate differences scaled by its ranges, a
+coordinate-pair one (space_time_gneiting, hurst, linear, AR1
+multifidelity, whose search skips the fidelity column) from the
+neighbours' coordinates, with the non-stationary prior variances on D.
+`redetermine_neighbors` searches again in the range-scaled space of an
+anisotropic kernel and rebuilds what derives from the sets.
 """
 
 import math
+import os
 
 import numpy as np
 import torch
 
 from .gaussian_base import GaussianEngineBase, chol
 from ..ops.batched_chol import cho_solve_batched
-from ..ops.cov_fcts import _safe_sqrt
+from ..ops.cov_fcts import _safe_sqrt, pointwise_corr
 from ..ops.iterative import _cg
 from ..ops.neighbor_bags import bag_sums
 
 LATENT_CG_TOL = 1e-8
 LATENT_CG_MAXIT = 1000
 LATENT_VAR_MAX_POINTS = 2000
+# from this many points the neighbour search runs in chunks
+CHUNKED_SEARCH_MIN_N = 20000
 _COND_OBS_TYPES = ("order_obs_first_cond_obs_only", "order_pred_first",
                    "latent_order_obs_first_cond_obs_only")
 
 
-def _corr_sets(cov_fn, cn, ci, alphas, d_nn=None, d_ni=None):
+def _corr_sets(cov_fn, cn, ci, alphas):
     """Batched neighbour-set correlations (corr_nn (B, k, k), corr_ni (B, k))
     between each row's neighbour coords cn (B, k, d) and its own point
-    ci (B, d); precomputed distances may be passed."""
-    if d_nn is None:
-        d_nn = _safe_sqrt(
-            ((cn[:, :, None, :] - cn[:, None, :, :]) ** 2).sum(-1))
-        d_ni = _safe_sqrt(((cn - ci[:, None, :]) ** 2).sum(-1))
-    return cov_fn.corr_from_dist(d_nn, alphas), cov_fn.corr_from_dist(d_ni,
-                                                                       alphas)
+    ci (B, d) (vecchia.py:37-66): `pointwise_corr`, which folds an
+    anisotropic kernel's ranges into the coordinate differences (identical
+    points stay exactly zero, so _safe_sqrt's zero-gradient guard holds)
+    and evaluates a coordinate-pair kernel from the coordinates."""
+    return (pointwise_corr(cov_fn, cn[:, :, None, :], cn[:, None, :, :],
+                           alphas),
+            pointwise_corr(cov_fn, cn, ci[:, None, :], alphas))
+
+
+def _point_var(cov_fn, v, ci, alphas):
+    """The prior variance at each point ci (B, d): v, or for the
+    non-stationary kernels (hurst, linear, AR1; cov_fcts.h
+    variance_on_the_diagonal_ = false) v k(ci, ci)."""
+    if cov_fn.needs_coords:
+        return v * cov_fn.corr_pointwise(ci, ci, alphas)
+    return v
+
+
+def require_isotropic(cov_fn, what):
+    """Raise NotImplementedError for a non-isotropic kernel where the JAX
+    package evaluates only distances (its Vecchia-Laplace and combined
+    engines' predictions and the pivoted-Cholesky preconditioner:
+    vecchia_laplace.py:392-393, :596; vecchia_grouped.py:897-995)."""
+    if not cov_fn.is_isotropic:
+        raise NotImplementedError(
+            f"{what} takes isotropic covariance functions only (as the "
+            f"JAX package); '{cov_fn.cov_fct_type}' is not")
 
 
 def _col(d, v):
@@ -83,6 +114,9 @@ def nearest_preceding_neighbors(coords, m, clusters=None):
     on points [0, 2s) is queried with an over-allocation factor and indices
     >= i are filtered out; rare rows fall back to a brute-force pass.
 
+    From n = 20,000 (where the reference switches to its native 2-D search)
+    the chunked search below finds the same sets.
+
     Returns (idx (n, m) int64, mask (n, m) bool). Rows without a preceding
     neighbour are padded with the row's own index, masked out.
     """
@@ -98,6 +132,8 @@ def nearest_preceding_neighbors(coords, m, clusters=None):
             idx[sel] = sel[sub_idx]
             mask[sel] = sub_mask
         return idx, mask
+    if n >= CHUNKED_SEARCH_MIN_N:
+        return _nearest_preceding_chunked(coords, m)
     idx = np.zeros((n, m), dtype=np.int64)
     mask = np.zeros((n, m), dtype=bool)
     s = 1
@@ -122,6 +158,59 @@ def nearest_preceding_neighbors(coords, m, clusters=None):
         s = e
     idx[0, :] = 0
     return idx, mask
+
+
+def _nearest_preceding_chunked(coords, m, chunk=1024):
+    """The m nearest preceding points of every row, exactly, in chunks of
+    rows: a cKDTree on all rows before the chunk gives each row's m
+    nearest there, a dense distance block the m nearest of the chunk's
+    own preceding rows, and the m smallest of the two (by a stable sort
+    of the distances) are the row's set. The doubling search above falls
+    back to a brute-force pass over all preceding rows for a row whose
+    over-query finds too few of them, which the time orderings make the
+    rule (space-time data at n = 100,000: 50 s against 5.5 s on one CPU
+    core); the sets are the same, up to the order of equidistant points.
+    The chunks are independent and run on a thread pool (numpy and
+    cKDTree release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+    n = len(coords)
+    idx = np.zeros((n, m), dtype=np.int64)
+    mask = np.zeros((n, m), dtype=bool)
+    upper = np.triu(np.ones((chunk, chunk), dtype=bool))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        for f in [ex.submit(_chunk_neighbors, coords, m, a,
+                            min(a + chunk, n), upper, idx, mask)
+                  for a in range(0, n, chunk)]:
+            f.result()
+    idx[0, :] = 0
+    return idx, mask
+
+
+def _chunk_neighbors(coords, m, a, b, upper, idx, mask):
+    """Rows [a, b) of `_nearest_preceding_chunked`, written into idx and
+    mask."""
+    from scipy.spatial import cKDTree
+    q, c = coords[a:b], b - a
+    D = np.zeros((c, c))
+    for k in range(coords.shape[1]):
+        diff = q[:, None, k] - q[None, :, k]
+        D += diff * diff
+    np.sqrt(D, out=D)
+    D[upper[:c, :c]] = np.inf
+    kw = min(m, c)
+    part = np.argpartition(D, kw - 1, axis=1)[:, :kw]
+    cand_d, cand_i = [np.take_along_axis(D, part, 1)], [a + part]
+    if a:
+        k1 = min(m, a)
+        d1, i1 = cKDTree(coords[:a]).query(q, k=k1)
+        cand_d.append(d1.reshape(c, k1))
+        cand_i.append(i1.reshape(c, k1))
+    cd, ci = np.concatenate(cand_d, 1), np.concatenate(cand_i, 1)
+    order = np.argsort(cd, axis=1, kind="stable")[:, :m]
+    ok = np.isfinite(np.take_along_axis(cd, order, 1))
+    idx[a:b] = np.where(ok, np.take_along_axis(ci, order, 1),
+                        np.arange(a, b)[:, None])
+    mask[a:b] = ok
 
 
 def vecchia_permutation(coords, n, vecchia_ordering, seed):
@@ -210,38 +299,108 @@ class VecchiaGaussianEngine(GaussianEngineBase):
             else np.asarray(cluster_ids)
         self._clusters_ord = None if self.cluster_ids is None \
             else self.cluster_ids[perm]
+        # ar1 multifidelity: the Euclidean search runs on the spatial
+        # coordinates only, the fidelity is no distance axis
+        # (vecchia.py:186-191)
+        self._search_cols = slice(0, -1) if getattr(
+            comp.cov_fn, "cov_fct_type", "").startswith("ar1_mf_") \
+            else slice(None)
         # the prediction search's tree and its last result (_knn_obs)
         self._kdtree = self._knn_last = None
+        search = self.coords_ord[:, self._search_cols]
         idx = mask = None
-        if self.n >= 20000 and self.coords_ord.shape[1] == 2 \
+        if self.n >= 20000 and search.shape[1] == 2 \
                 and self._clusters_ord is None:
             # native cell-bucketed search, as the reference does at this size
             from ..native import nn_preceding_2d
-            res = nn_preceding_2d(self.coords_ord, self.m)
+            res = nn_preceding_2d(search, self.m)
             if res is not None:
                 idx, mask = res
         if idx is None:
             idx, mask = nearest_preceding_neighbors(
-                self.coords_ord, self.m, clusters=self._clusters_ord)
+                search, self.m, clusters=self._clusters_ord)
         dev = self.device
+        self._perm = torch.as_tensor(perm, device=dev)
+        self._eye = torch.eye(self.m, dtype=dtype, device=dev)[None]
+        self._coords_d = torch.as_tensor(self.coords_ord, device=dev).to(dtype)
+        # per-row inverse weights in the Vecchia order (nugget sigma2 / w_i)
+        self._winv = None if self.weights is None else torch.as_tensor(
+            1.0 / self.weights[perm], dtype=dtype, device=dev)
+        self.last_pred_cg_it = None
+        self._set_neighbors(idx, mask)
+
+    def _set_neighbors(self, idx, mask):
+        """The neighbour sets and what is derived from them on the device:
+        an isotropic kernel's distances among each row's neighbours and to
+        the row (theta-independent; vecchia.py:211-222), side by side in
+        one (n, m*m + m) tensor so that one kernel call covers both; an
+        anisotropic kernel's coordinate differences, likewise side by side
+        (n, m*m + m, d); a coordinate-pair kernel's neighbour
+        coordinates (n, m, d)."""
+        dev, dtype, m = self.device, self.dtype, self.m
+        cf = self.comp.cov_fn
         self._nn_idx_np = np.asarray(idx, dtype=np.int64)
         self._nn_idx = torch.as_tensor(self._nn_idx_np, device=dev)
         self._nn_mask = torch.as_tensor(mask, device=dev)
         self._pair_mask = self._nn_mask[:, :, None] & self._nn_mask[:, None, :]
-        self._perm = torch.as_tensor(perm, device=dev)
-        self._eye = torch.eye(self.m, dtype=dtype, device=dev)[None]
-        # per-row inverse weights in the Vecchia order (nugget sigma2 / w_i)
-        self._winv = None if self.weights is None else torch.as_tensor(
-            1.0 / self.weights[perm], dtype=dtype, device=dev)
-        # theta-independent neighbour distances, computed once on the host
-        cn = self.coords_ord[idx]                          # (n, m, d)
-        d_nn = np.sqrt(np.maximum(
-            ((cn[:, :, None, :] - cn[:, None, :, :]) ** 2).sum(-1), 0.0))
-        d_ni = np.sqrt(np.maximum(
-            ((cn - self.coords_ord[:, None, :]) ** 2).sum(-1), 0.0))
-        self._d_nn = torch.as_tensor(d_nn, dtype=dtype, device=dev)
-        self._d_ni = torch.as_tensor(d_ni, dtype=dtype, device=dev)
-        self.last_pred_cg_it = None
+        self._d_all = self._d_nn = self._d_ni = None
+        self._diff_all = self._cn = None
+        if cf.is_isotropic:
+            # computed once on the host in float64
+            cn = self.coords_ord[idx]                      # (n, m, d)
+            d_nn = np.sqrt(np.maximum(
+                ((cn[:, :, None, :] - cn[:, None, :, :]) ** 2).sum(-1), 0.0))
+            d_ni = np.sqrt(np.maximum(
+                ((cn - self.coords_ord[:, None, :]) ** 2).sum(-1), 0.0))
+            self._d_all = torch.as_tensor(np.concatenate(
+                [d_nn.reshape(self.n, m * m), d_ni], 1), dtype=dtype,
+                device=dev)
+            self._d_nn = self._d_all[:, :m * m].view(self.n, m, m)
+            self._d_ni = self._d_all[:, m * m:]
+        elif cf.needs_coords:
+            self._cn = self._coords_d[self._nn_idx]
+        else:
+            cn = self._coords_d[self._nn_idx]
+            self._diff_all = torch.cat(
+                [(cn[:, :, None, :] - cn[:, None, :, :]).reshape(
+                    self.n, m * m, -1),
+                 cn - self._coords_d[:, None, :]], 1)
+
+    def redetermine_neighbors(self, alphas):
+        """Re-determine the neighbour sets in the coordinate space scaled by
+        the anisotropic ranges alphas (transformed, host numpy)
+        (UpdateNearestNeighbors, Vecchia_utils.h:354;
+        re_model_template.h:5105; vecchia.py:243-272): True when they
+        changed, and then every structure derived from them is rebuilt."""
+        cf = self.comp.cov_fn
+        if cf.is_isotropic or cf.needs_coords:
+            return False
+        scale = cf.aniso_scale(torch.as_tensor(
+            np.asarray(alphas, dtype=np.float64)),
+            self.coords_ord.shape[1]).numpy()
+        sc = self._search_cols
+        idx, mask = nearest_preceding_neighbors(
+            self.coords_ord[:, sc] * scale[sc], self.m,
+            clusters=self._clusters_ord)
+        if np.array_equal(idx, self._nn_idx_np) \
+                and np.array_equal(mask, self._nn_mask.cpu().numpy()):
+            return False
+        self._set_neighbors(idx, mask)
+        return True
+
+    def _train_corr(self, alphas):
+        """(corr_nn (n, m, m), corr_ni (n, m)) of the training sets."""
+        cf, n, m = self.comp.cov_fn, self.n, self.m
+        if cf.is_isotropic:
+            c = cf.corr_from_dist(self._d_all, alphas)
+        elif cf.needs_coords:
+            return _corr_sets(cf, self._cn, self._coords_d, alphas)
+        else:
+            dd = self._diff_all * cf.aniso_scale(alphas,
+                                                 self._diff_all.shape[-1])
+            c = cf.base_corr_scaled_dist(_safe_sqrt((dd ** 2).sum(-1)),
+                                         alphas)
+        return c[:, :m * m].view(n, m, m), c[:, m * m:]
 
     # ------------------------------------------------------------------
     def prep_y(self, y):
@@ -257,8 +416,7 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         precision)."""
         v = torch.exp(theta_log[0])
         alphas = torch.exp(theta_log[1:])
-        corr_nn, corr_ni = _corr_sets(self.comp.cov_fn, None, None, alphas,
-                                      d_nn=self._d_nn, d_ni=self._d_ni)
+        corr_nn, corr_ni = self._train_corr(alphas)
         K_nn = v * corr_nn
         if not latent:
             if self._winv is None:
@@ -271,10 +429,10 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         K_nn = torch.where(self._pair_mask, K_nn, self._eye)
         k_ni = torch.where(self._nn_mask, k_ni, torch.zeros_like(k_ni))
         A = cho_solve_batched(K_nn, k_ni)
-        if latent:
-            diag_c = v
-        else:
-            diag_c = v + (1.0 if self._winv is None else self._winv)
+        # the non-stationary kernels' own prior variances (vecchia.py:303)
+        diag_c = _point_var(self.comp.cov_fn, v, self._coords_d, alphas)
+        if not latent:
+            diag_c = diag_c + (1.0 if self._winv is None else self._winv)
         D = diag_c - torch.sum(A * k_ni, dim=1)
         return A, D
 
@@ -286,14 +444,14 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         W^-1)."""
         v = torch.exp(theta_log[0])
         alphas = torch.exp(theta_log[1:])
-        corr_nn, corr_ni = _corr_sets(self.comp.cov_fn, None, None, alphas,
-                                      d_nn=self._d_nn, d_ni=self._d_ni)
+        corr_nn, corr_ni = self._train_corr(alphas)
         K_nn = v * corr_nn + add_diag[self._nn_idx][:, :, None] * self._eye
         K_nn = torch.where(self._pair_mask, K_nn, self._eye)
         k_ni = v * corr_ni
         k_ni = torch.where(self._nn_mask, k_ni, torch.zeros_like(k_ni))
         A = cho_solve_batched(K_nn, k_ni)
-        D = v + add_diag - torch.sum(A * k_ni, dim=1)
+        D = _point_var(self.comp.cov_fn, v, self._coords_d, alphas) \
+            + add_diag - torch.sum(A * k_ni, dim=1)
         return A, D
 
     def _B_apply(self, A, V):
@@ -399,7 +557,9 @@ class VecchiaGaussianEngine(GaussianEngineBase):
     # ------------------------------------------------------------------
     def _knn_obs(self, coords_pred, k):
         """k nearest observed points per prediction point (host cKDTree
-        over the observed points, built once). The search does not depend
+        over the observed points, built once; the spatial columns for an
+        AR1 multifidelity kernel; in the unscaled coordinates for an
+        anisotropic one, as in the JAX package). The search does not depend
         on the parameters: the last one is kept and returned again for the
         same points and k (a validation set, predicted every boosting
         round)."""
@@ -413,10 +573,11 @@ class VecchiaGaussianEngine(GaussianEngineBase):
         if last is not None and last[0] == k \
                 and np.array_equal(last[1], coords_pred):
             return last[2], last[3]
+        sc = self._search_cols
         if self._kdtree is None:
             from scipy.spatial import cKDTree
-            self._kdtree = cKDTree(self.coords_ord)
-        dist, idx = self._kdtree.query(coords_pred, k=k)
+            self._kdtree = cKDTree(self.coords_ord[:, sc])
+        dist, idx = self._kdtree.query(coords_pred[:, sc], k=k)
         p = len(coords_pred)
         self._knn_last = (k, coords_pred.copy(), idx.reshape(p, -1),
                           dist.reshape(p, -1))
@@ -460,7 +621,8 @@ class VecchiaGaussianEngine(GaussianEngineBase):
             K = torch.where(pair, K, pad * eye)
             kni = torch.where(valid, kni, torch.zeros_like(kni))
         a = cho_solve_batched(K, kni)
-        return a, v + diag_add - torch.sum(a * kni, dim=1)
+        return a, _point_var(self.comp.cov_fn, v, ci, alphas) + diag_add \
+            - torch.sum(a * kni, dim=1)
 
     def _pred_cond_obs(self, theta_log, cn, ci, y_nbr, winv_nbr=None):
         """Conditional mean and variance of each prediction point given its

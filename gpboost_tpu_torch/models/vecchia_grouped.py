@@ -55,7 +55,7 @@ from .gaussian_base import chol
 from .gaussian_gp import _dist
 from .grouped_re import SegmentSum
 from .laplace import DELTA_CONV_MODE, MAXIT_MODE_NEWTON, LaplaceEngineBase
-from .vecchia import VecchiaGaussianEngine, _col
+from .vecchia import VecchiaGaussianEngine, _col, require_isotropic
 from .vecchia_laplace import (_PC_ALIASES, PrecisionAssembly,
                               VecchiaOperators, _CholHalfLogdet)
 
@@ -583,6 +583,8 @@ class VecchiaGroupedLaplaceEngine(VecchiaOperators, LaplaceEngineBase):
 
         with H^-1 U from the dense factor (an LU where W can be negative)
         or from one batched CG over the prediction points."""
+        require_isotropic(self.comp.cov_fn,
+                          "the combined Vecchia + grouped engine's prediction")
         pars_orig = np.asarray(pars_orig, dtype=np.float64)
         u = self._u_from_pars(pars_orig, aux_pars, y)
         o = self._gp_off

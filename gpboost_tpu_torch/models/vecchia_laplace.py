@@ -55,7 +55,7 @@ from .gaussian_gp import _dist
 from .grouped_re import SegmentSum
 from .laplace import (DELTA_CONV_MODE, MAXIT_MODE_NEWTON, LaplaceEngineBase,
                       _LaplaceNLL)
-from .vecchia import VecchiaGaussianEngine, _col
+from .vecchia import VecchiaGaussianEngine, _col, require_isotropic
 from ..ops.neighbor_bags import NeighborBags, _At, _Att
 
 
@@ -439,6 +439,8 @@ class VecchiaLaplaceEngine(_VecchiaLaplaceBase):
         exact kernel, the training precision from Vecchia
         (PredictLaplaceApproxVecchia). Like the reference it ignores
         vecchia_pred_type."""
+        require_isotropic(self.comp.cov_fn,
+                          "the dense Vecchia-Laplace engine's prediction")
         pars_orig = np.asarray(pars_orig, dtype=np.float64)
         u = self._u_from_pars(pars_orig, aux_pars, y)
         cp = np.asarray(pred_data["comps"][0]["coords_pred"],
@@ -678,6 +680,7 @@ class VecchiaLaplaceIterativeEngine(VecchiaOperators, _VecchiaLaplaceBase):
         var = torch.exp(theta_log[0])
         alphas = torch.exp(theta_log[1:])
         cov_fn = self.comp.cov_fn
+        require_isotropic(cov_fn, "the pivoted_cholesky preconditioner")
         rank = min(self.piv_chol_rank, self.n)
         L, d_rem = pivoted_cholesky_kernel(
             self._coords_d, var,

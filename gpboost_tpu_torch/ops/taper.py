@@ -11,7 +11,9 @@
   the residual kernel k(x, x') - V(x)'V(x') (Vecchia_utils.cpp:1476);
   cross and prediction blocks use the exact kernel.
 
-Each adapter wraps a base CovarianceFunction and presents the coordinates
+Each adapter wraps a base CovarianceFunction (any of ops/cov_fcts.py's
+kernels or the AR1 multifidelity one, evaluated from distances when it is
+isotropic and from coordinates otherwise) and presents the coordinates
 interface (`is_isotropic` False, `corr_from_coords`, and `corr_train` for
 VIF), so the dense engines (models/gaussian_gp.py, models/laplace.py) run
 every path on it unchanged: the NLL, autograd gradients, Fisher
@@ -25,6 +27,7 @@ given; the adapters keep their data on the host as float64 numpy.
 import numpy as np
 import torch
 
+from .cov_fcts import _safe_sqrt, pointwise_corr
 from .distances import pairwise_dist
 
 _JITTER = 1e-10
@@ -45,6 +48,7 @@ class _CovAdapterBase:
     overrides the kernel evaluation."""
 
     is_isotropic = False
+    needs_coords = True
 
     def __init__(self, base):
         self.base = base
@@ -63,7 +67,9 @@ class _CovAdapterBase:
         return self.base.num_cov_par
 
     def _base_corr(self, x1, x2, alphas):
-        return self.base.corr_from_dist(pairwise_dist(x1, x2), alphas)
+        if self.base.is_isotropic:
+            return self.base.corr_from_dist(pairwise_dist(x1, x2), alphas)
+        return self.base.corr_from_coords(x1, x2, alphas)
 
 
 class TaperedCovarianceFunction(_CovAdapterBase):
@@ -75,8 +81,9 @@ class TaperedCovarianceFunction(_CovAdapterBase):
 
     def corr_from_coords(self, x1, x2, alphas):
         D = pairwise_dist(x1, x2)
-        return self.base.corr_from_dist(D, alphas) \
-            * self.taper._wendland_taper(D)
+        K = self.base.corr_from_dist(D, alphas) if self.base.is_isotropic \
+            else self.base.corr_from_coords(x1, x2, alphas)
+        return K * self.taper._wendland_taper(D)
 
 
 class FSACovarianceFunction(_CovAdapterBase):
@@ -199,9 +206,16 @@ class VIFCovarianceFunction(_CovAdapterBase):
         V = self._V_of(x, alphas)                              # (m_ip, n)
         idx = torch.as_tensor(self.nn_idx, device=dev)
         mask = torch.as_tensor(self.nn_mask, device=dev)
-        d_nn, d_ni = self._nn_dist(dt, dev)
-        c_nn = self.base.corr_from_dist(d_nn, alphas)
-        c_ni = self.base.corr_from_dist(d_ni, alphas)
+        if self.base.is_isotropic:
+            d_nn, d_ni = self._nn_dist(dt, dev)
+            c_nn = self.base.corr_from_dist(d_nn, alphas)
+            c_ni = self.base.corr_from_dist(d_ni, alphas)
+        else:
+            # the base kernel from coordinate pairs (taper.py:208-216)
+            cn = x[idx]                                        # (n, m, d)
+            c_nn = pointwise_corr(self.base, cn[:, :, None, :],
+                                  cn[:, None, :, :], alphas)
+            c_ni = pointwise_corr(self.base, cn, x[:, None, :], alphas)
         Vn = V.T[idx]                                          # (n, m, m_ip)
         r_nn = c_nn - torch.einsum("nik,njk->nij", Vn, Vn)
         r_ni = c_ni - torch.einsum("nik,nk->ni", Vn, V.T)
@@ -228,5 +242,4 @@ class VIFCovarianceFunction(_CovAdapterBase):
 def _pair_dist(xa, xb):
     """Distances between broadcast coordinate rows, with a zero gradient
     (not NaN) at coincident points."""
-    from .cov_fcts import _safe_sqrt
     return _safe_sqrt(((xa - xb) ** 2).sum(-1))

@@ -1,0 +1,511 @@
+"""Covariance breadth of the PyTorch port against the JAX package: the
+Bessel-K special functions, the 14 covariance functions and the AR1
+multifidelity kernel, and anisotropic Vecchia with neighbour
+re-determination.
+
+* bessel_kv and lgamma on the JAX test's grid (values against the JAX
+  package and scipy to 1e-10 relative, both gradients);
+* every kernel type's and ar1_mf_exponential's dense-engine NLL and
+  gradient (closed forms 1e-10, Bessel kernels: NLL 1e-9, gradient 1e-7,
+  the order derivative being a central difference);
+* the Vecchia engine with hurst, linear, space_time_gneiting and
+  ar1_mf_exponential (vecchia_euclidean), the tapering, full-scale and
+  FITC adapters on anisotropic and coordinate-pair kernels, the dense
+  Laplace engine with ar1_mf_exponential, the Vecchia-Laplace engines
+  with matern_ard, and the predictions the JAX package cannot make
+  raising NotImplementedError;
+* anisotropic Vecchia on test_vecchia_golden.py's aniso_data: NLL,
+  gradient, the neighbour sets after redetermine_neighbors index for
+  index, predictions; the chunked fit's iterations;
+* one matern_space_time Vecchia GPBoost round against the JAX host loop,
+  and model dicts both ways;
+* the R goldens of test_cov_breadth_golden.py, test_ar1_multifidelity.py
+  and test_vecchia_golden.py's TestVecchiaAnisotropic and
+  TestNeighborRedetermination, run through their own test bodies with the
+  port's GPModel (device="cpu").
+"""
+
+import copy
+import os
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+from scipy import special
+
+import gpboost_tpu as gpb
+from gpboost_tpu.ops import special_fns as jsf
+
+import gpboost_tpu_torch as gpt
+from gpboost_tpu_torch.convert import booster_from_jax_dict
+from gpboost_tpu_torch.ops import special_fns as tsf
+
+sys.path.insert(0, os.path.dirname(__file__))
+import test_ar1_multifidelity as gar1  # noqa: E402
+import test_cov_breadth_golden as gcb  # noqa: E402
+import test_vecchia_golden as gvg  # noqa: E402
+from test_ar1_multifidelity import ar1_data  # noqa: E402,F401
+from test_cov_breadth_golden import (  # noqa: E402,F401
+    hurst_data, linear_data, st_data)
+
+torch.set_num_threads(1)
+
+TOL, TOL_BESSEL_NLL, TOL_BESSEL_GRAD = 1e-10, 1e-9, 1e-7
+BESSEL_KERNELS = ("matern_general", "matern_estimate_shape",
+                  "matern_ard_estimate_shape", "space_time_gneiting")
+X_GRID = np.concatenate([np.linspace(1e-3, 1.99, 40),
+                         np.linspace(2.0, 40, 40)])
+V_GRID = [0.01, 0.3, 0.5, 1.0, 1.7, 2.5, 5.8, 10.4]
+
+
+def _rel(a, b):
+    a, b = np.atleast_1d(a), np.atleast_1d(b)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+# ---------------------------------------------------------------------
+# the special functions
+def test_bessel_kv_and_lgamma_match_jax_and_scipy():
+    xt = torch.as_tensor(X_GRID)
+    jkv = jax.jit(jsf.bessel_kv)
+    for v in V_GRID:
+        exp = special.kv(v, X_GRID)
+        got = tsf.bessel_kv(v, xt).numpy()
+        assert _rel(got, exp) < 1e-10, v
+        got_t = tsf.bessel_kv(torch.tensor(v, dtype=torch.float64),
+                              xt).numpy()
+        assert _rel(got_t, np.asarray(jkv(jnp.asarray(v),
+                                          jnp.asarray(X_GRID)))) < 1e-12, v
+    z = np.array([0.01, 0.3, 1.0, 1.5, 2.7, 10.4, 55.0])
+    np.testing.assert_allclose(tsf.lgamma(torch.as_tensor(z)).numpy(),
+                               np.asarray(jsf.lgamma(jnp.asarray(z))),
+                               rtol=1e-14)
+    np.testing.assert_allclose(tsf.lgamma(torch.as_tensor(z)).numpy(),
+                               special.gammaln(z), rtol=1e-13, atol=1e-14)
+    assert abs(tsf.lgamma(1.7) - float(jsf.lgamma(1.7))) < 1e-15
+
+
+def test_bessel_kv_gradients_match_jax():
+    """dK/dx from the forward recurrence, dK/dv by the central difference
+    at h = 1e-6 max(|v|, 1); the masked recurrences of v +- h cross the
+    half-integer at v = 2.5."""
+    jg = jax.jit(jax.grad(lambda v, x: jnp.sum(jsf.bessel_kv(v, x)),
+                          argnums=(0, 1)))
+    for v in (0.3, 1.7, 2.5 - 1e-7, 5.8):
+        vt = torch.tensor(v, dtype=torch.float64, requires_grad=True)
+        xt = torch.as_tensor(X_GRID).requires_grad_(True)
+        gv, gx = torch.autograd.grad(tsf.bessel_kv(vt, xt).sum(), (vt, xt))
+        jv, jx = jg(jnp.asarray(v), jnp.asarray(X_GRID))
+        assert _rel(gx.numpy(), np.asarray(jx)) < 1e-12, v
+        assert _rel(gv.item(), float(jv)) < 1e-7, v
+        assert _rel(gx.numpy(), special.kvp(v, X_GRID)) < 1e-10, v
+    # a fixed order: the x gradient alone, at 0 distance through the
+    # Matern correlation's guard
+    x = torch.tensor([0.0, 0.4, 3.0], dtype=torch.float64,
+                     requires_grad=True)
+    (g,) = torch.autograd.grad(tsf.matern_correlation_general(x, 1.3).sum(),
+                               x)
+    assert torch.isfinite(g).all() and g[0] == 0.0
+    # an order past the recurrence's bound (a wild line-search trial)
+    # gives +inf, a non-finite one NaN, without running the recurrence
+    x = torch.as_tensor(X_GRID[:5])
+    assert torch.isinf(tsf.bessel_kv(torch.tensor(
+        tsf.MAX_RECURRENCE + 1.0, dtype=torch.float64), x)).all()
+    assert torch.isnan(tsf.bessel_kv(torch.tensor(
+        float("inf"), dtype=torch.float64), x)).all()
+
+
+# ---------------------------------------------------------------------
+# every kernel on the dense engine
+def _coords(n=40, seed=0):
+    rng = np.random.RandomState(seed)
+    c2 = rng.rand(n, 2)
+    c3 = np.column_stack([rng.randint(1, 6, n).astype(float), rng.rand(n, 2)])
+    cf = np.column_stack([rng.rand(n), (rng.rand(n) < 0.4).astype(float)])
+    y = np.sin(4 * c2[:, 0]) + 0.3 * rng.randn(n)
+    return {"c2": c2, "c3": c3, "cf": cf}, y
+
+
+# (name, cov_function, cov_fct_shape, coordinates, parameters after the
+# error variance)
+KERNELS = [
+    ("exponential", "exponential", None, "c2", [0.5, 0.3]),
+    ("matern_general", "matern", 1.0, "c2", [0.5, 0.3]),
+    ("matern_25", "matern", 2.5, "c2", [0.5, 0.3]),
+    ("gaussian", "gaussian", None, "c2", [0.5, 0.3]),
+    ("powered_exponential", "powered_exponential", 1.3, "c2", [0.5, 0.3]),
+    ("matern_ard", "matern_ard", 1.5, "c2", [0.5, 0.3, 0.6]),
+    ("gaussian_ard", "gaussian_ard", None, "c2", [0.5, 0.3, 0.6]),
+    ("matern_space_time", "matern_space_time", 1.5, "c3", [0.5, 2.0, 0.3]),
+    ("wendland", "wendland", None, "c2", [0.5]),
+    ("matern_estimate_shape", "matern_estimate_shape", None, "c2",
+     [0.5, 0.3, 0.8]),
+    ("matern_ard_estimate_shape", "matern_ard_estimate_shape", None, "c2",
+     [0.5, 0.3, 0.6, 1.3]),
+    ("space_time_gneiting", "space_time_gneiting", None, "c3",
+     [1.0, 0.2, 2.0, 0.5, 1.5, 0.5, 2.0]),
+    ("hurst", "hurst", None, "c2", [0.5, 0.4]),
+    ("hurst_ard", "hurst_ard", None, "c2", [0.5, 0.4, 0.7]),
+    ("linear", "linear", None, "c2", [0.5]),
+    ("ar1_mf_exponential", "ar1_mf_exponential", None, "cf",
+     [0.5, 0.3, 0.2, 0.4, -0.4]),
+]
+
+
+def _pair(cov, shape, coords, **kw):
+    kw = dict(gp_coords=coords, cov_function=cov, **kw)
+    if shape is not None:
+        kw["cov_fct_shape"] = shape
+    if cov == "wendland":
+        kw["cov_fct_taper_range"] = 0.5
+    return gpb.GPModel(**kw), gpt.GPModel(**kw, device="cpu")
+
+
+@pytest.mark.parametrize("case", KERNELS, ids=[k[0] for k in KERNELS])
+def test_dense_engine_nll_and_gradient_match_jax(case):
+    name, cov, shape, ckey, p = case
+    coords, y = _coords()
+    jm, pm = _pair(cov, shape, coords[ckey])
+    assert pm.get_cov_par_names() == jm.get_cov_par_names()
+    pars = np.asarray([0.2] + p)
+    t = pm._engine.transform_pars(pars)
+    np.testing.assert_allclose(t, jm._engine.transform_pars(pars),
+                               rtol=1e-15)
+    np.testing.assert_allclose(pm._engine.back_transform_pars(t), pars,
+                               rtol=1e-13)
+    u = np.log(t)
+    vj, gj = jm._engine.vag_full(jnp.asarray(u), jnp.asarray(y))
+    vp, gp = pm._engine.vag_full(u, torch.as_tensor(y))
+    bessel = name in BESSEL_KERNELS
+    assert _rel(vp, float(vj)) < (TOL_BESSEL_NLL if bessel else TOL)
+    assert _rel(gp, np.asarray(gj)) < (TOL_BESSEL_GRAD if bessel else TOL)
+    from gpboost_tpu_torch.gp_model import _init_ranges
+    from gpboost_tpu.gp_model import _init_ranges as j_init_ranges
+    np.testing.assert_allclose(_init_ranges(pm.components[0]),
+                               j_init_ranges(jm.components[0]), rtol=1e-12)
+
+
+def test_bessel_kernel_fisher_and_hessian_match_jax():
+    """Forward mode through bessel_kv (torch.func.jacfwd, the Fisher
+    information of an estimated smoothness; 1e-7, the order derivative a
+    central difference) and a second backward (the Hessian of a general
+    fixed shape, 1e-10)."""
+    coords, y = _coords(n=30)
+    jm, pm = _pair("matern_estimate_shape", None, coords["c2"])
+    pars = np.array([0.2, 0.5, 0.3, 0.8])
+    u = np.log(pm._engine.transform_pars(pars))
+    np.testing.assert_allclose(
+        pm._engine.fisher_transformed(u, True),
+        np.asarray(jm._engine.fisher_transformed(jnp.asarray(u), True)),
+        rtol=1e-7)
+    jm, pm = _pair("matern", 1.2, coords["c2"])
+    u = np.log(pm._engine.transform_pars(pars[:3]))
+    np.testing.assert_allclose(
+        pm._engine.hess_full(u, torch.as_tensor(y)),
+        np.asarray(jm._engine.hess_full(jnp.asarray(u), jnp.asarray(y))),
+        rtol=1e-10)
+
+
+# ---------------------------------------------------------------------
+# the other engines and adapters
+ENGINES = [
+    ("vecchia_hurst", dict(cov_function="hurst", gp_approx="vecchia",
+                           num_neighbors=8), "c2", [0.2, 0.5, 0.6]),
+    ("vecchia_linear", dict(cov_function="linear", gp_approx="vecchia",
+                            num_neighbors=8), "c2", [0.2, 0.5]),
+    ("vecchia_gneiting", dict(cov_function="space_time_gneiting",
+                              gp_approx="vecchia", num_neighbors=8,
+                              vecchia_ordering="time"),
+     "c3", [0.2, 1.0, 0.2, 2.0, 0.5, 1.5, 0.5, 2.0]),
+    ("vecchia_euclidean_ar1", dict(cov_function="ar1_mf_exponential",
+                                   gp_approx="vecchia_euclidean",
+                                   num_neighbors=8),
+     "cf", [0.2, 0.5, 0.3, 0.2, 0.4, -0.4]),
+    ("tapering_gaussian_ard", dict(cov_function="gaussian_ard",
+                                   gp_approx="tapering",
+                                   cov_fct_taper_range=0.5),
+     "c2", [0.2, 0.5, 0.3, 0.6]),
+    ("fsa_matern_ard", dict(cov_function="matern_ard", gp_approx=(
+        "full_scale_tapering"), cov_fct_taper_range=0.3, num_ind_points=15),
+     "c2", [0.2, 0.5, 0.3, 0.6]),
+    ("vif_matern_space_time", dict(cov_function="matern_space_time",
+                                   gp_approx="full_scale_vecchia",
+                                   num_ind_points=15, num_neighbors=8),
+     "c3", [0.2, 0.5, 2.0, 0.3]),
+    ("fitc_matern_ard", dict(cov_function="matern_ard", gp_approx="fitc",
+                             num_ind_points=15), "c2", [0.2, 0.5, 0.3, 0.6]),
+    ("fitc_laplace_matern_ard", dict(cov_function="matern_ard",
+                                     gp_approx="fitc", num_ind_points=15,
+                                     likelihood="bernoulli_probit"),
+     "c2", [0.5, 0.3, 0.6]),
+    ("laplace_ar1", dict(cov_function="ar1_mf_exponential",
+                         likelihood="bernoulli_probit"),
+     "cf", [0.5, 0.3, 0.2, 0.4, -0.4]),
+]
+
+
+# the cases whose predictions are held too (each compiles a graph more in
+# the JAX package)
+PREDICTED = ("vecchia_gneiting", "vecchia_euclidean_ar1", "fitc_matern_ard")
+
+
+@pytest.mark.parametrize("case", ENGINES, ids=[e[0] for e in ENGINES])
+def test_engines_match_jax(case):
+    """NLL (1e-10; FITC-Laplace 1e-7 as in test_torch_fitc.py, its mode
+    finders stopping apart within their tolerance) at fixed parameters,
+    and for some the predictions with variances (1e-8 absolute)."""
+    name, kw, ckey, pars = case
+    coords, y = _coords(n=60, seed=1)
+    if "likelihood" in kw:
+        y = (y > 0).astype(float)
+    c = coords[ckey]
+    jm = gpb.GPModel(gp_coords=c, **kw)
+    pm = gpt.GPModel(gp_coords=c, device="cpu", **kw)
+    nj = jm.neg_log_likelihood(cov_pars=pars, y=y)
+    assert _rel(pm.neg_log_likelihood(cov_pars=pars, y=y), nj) \
+        < (1e-7 if name == "fitc_laplace_matern_ard" else TOL)
+    if name not in PREDICTED:
+        return
+    cp = _coords(n=5, seed=2)[0][ckey]
+    pk = dict(y=y, gp_coords_pred=cp, cov_pars=pars, predict_var=True)
+    if "likelihood" in kw:
+        pk["predict_response"] = False
+    a, b = jm.predict(**pk), pm.predict(**pk)
+    np.testing.assert_allclose(b["mu"], a["mu"], rtol=0, atol=1e-8)
+    np.testing.assert_allclose(b["var"], a["var"], rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("model", [
+    dict(gp_approx="vecchia", likelihood="bernoulli_probit",
+         matrix_inversion_method="cholesky"),
+    dict(gp_approx="vecchia", group_data=np.arange(60) % 4)])
+def test_vecchia_laplace_fits_and_refuses_what_jax_cannot_predict(model):
+    """The Vecchia-Laplace and combined engines fit an anisotropic kernel
+    through the Vecchia engine's factors (NLL against the JAX package);
+    their predictions take distances in the JAX package, which fails on
+    it, and the port raises NotImplementedError."""
+    coords, y = _coords(n=60, seed=3)
+    if "likelihood" in model:
+        y = (y > 0).astype(float)
+    kw = dict(gp_coords=coords["c2"], cov_function="matern_ard",
+              num_neighbors=8, **model)
+    jm, pm = gpb.GPModel(**kw), gpt.GPModel(**kw, device="cpu")
+    pars = [0.5, 0.3, 0.6] if "likelihood" in model else [0.4, 0.5, 0.3, 0.6]
+    aux = None if "likelihood" in model else [0.2]
+    assert _rel(pm.neg_log_likelihood(cov_pars=pars, y=y, aux_pars=aux),
+                jm.neg_log_likelihood(cov_pars=pars, y=y, aux_pars=aux)) \
+        < 1e-9
+    pk = dict(y=y, gp_coords_pred=coords["c2"][:3], cov_pars=pars,
+              group_data_pred=np.zeros(3, dtype=int))
+    if "group_data" not in model:
+        pk.pop("group_data_pred")
+    with pytest.raises(Exception):
+        jm.predict(**pk)
+    with pytest.raises(NotImplementedError, match="isotropic"):
+        pm.predict(**pk)
+
+
+# ---------------------------------------------------------------------
+# anisotropic Vecchia with neighbour re-determination
+@pytest.fixture(scope="module")
+def aniso():
+    fixture = gvg.TestNeighborRedetermination.__dict__["aniso_data"]
+    return fixture.__wrapped__(None)
+
+
+def test_aniso_vecchia_and_redetermination_match_jax(aniso):
+    kw = dict(gp_coords=aniso["coords"], cov_function="matern_ard",
+              cov_fct_shape=0.5, gp_approx="vecchia", num_neighbors=10,
+              vecchia_ordering="none")
+    jm, pm = gpb.GPModel(**kw), gpt.GPModel(**kw, device="cpu")
+    y = aniso["y"]
+    pars = np.asarray([0.1, 1.2, 0.07, 0.7])
+    t = pm._engine.transform_pars(pars)
+    u = jnp.asarray(np.log(t))
+    for step in range(2):
+        vj, gj = jm._engine.vag_full(u, jnp.asarray(y))
+        vp, gp = pm._engine.vag_full(np.log(t), torch.as_tensor(y))
+        assert _rel(vp, float(vj)) < TOL and _rel(gp, np.asarray(gj)) < TOL
+        if step == 0:
+            assert jm._engine.redetermine_neighbors(t[2:])
+            assert pm._engine.redetermine_neighbors(t[2:])
+            np.testing.assert_array_equal(pm._engine._nn_idx_np,
+                                          np.asarray(jm._engine._nn_idx))
+            np.testing.assert_array_equal(
+                pm._engine._nn_mask.numpy(),
+                np.asarray(jm._engine._nn_mask))
+            # unchanged sets report no change
+            assert not pm._engine.redetermine_neighbors(t[2:])
+    cp = np.random.RandomState(7).rand(6, 2)
+    for pt in ("order_obs_first_cond_obs_only", "order_obs_first_cond_all"):
+        jm.set_prediction_data(vecchia_pred_type=pt)
+        pm.set_prediction_data(vecchia_pred_type=pt)
+        a = jm.predict(y=y, gp_coords_pred=cp, cov_pars=pars,
+                       predict_var=True)
+        b = pm.predict(y=y, gp_coords_pred=cp, cov_pars=pars,
+                       predict_var=True)
+        np.testing.assert_allclose(b["mu"], a["mu"], rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(b["var"], a["var"], rtol=1e-8)
+
+
+def test_chunked_neighbor_search_equals_the_doubling_one():
+    """From n = 20,000 the neighbour search runs in chunks; on space-time
+    data in the time ordering (where the doubling search falls back to
+    brute force for most rows) both give the same sets index for
+    index."""
+    from gpboost_tpu_torch.models.vecchia import (
+        _nearest_preceding_chunked, nearest_preceding_neighbors,
+        vecchia_permutation)
+    rng = np.random.RandomState(12)
+    n = 3000
+    c = np.column_stack([rng.randint(1, 21, n).astype(float), rng.rand(n, 2)])
+    c = c[vecchia_permutation(c, n, "time", 0)]
+    for scale in ([1.0, 1.0, 1.0], [0.2, 18.0, 18.0]):
+        a = nearest_preceding_neighbors(c * scale, 20)
+        b = _nearest_preceding_chunked(c * scale, 20, chunk=256)
+        np.testing.assert_array_equal(b[0], a[0])
+        np.testing.assert_array_equal(b[1], a[1])
+
+
+def test_chunked_aniso_fit_matches_jax(aniso):
+    """The chunks of max(10, maxit // 10) iterations with a
+    re-determination after each (two chunks at maxit 20, each running to
+    maxit as in the JAX package): equal iterations, parameters to 1e-6,
+    the final neighbour sets index for index."""
+    kw = dict(gp_coords=aniso["coords"], cov_function="matern_ard",
+              cov_fct_shape=0.5, gp_approx="vecchia", num_neighbors=10,
+              vecchia_ordering="none")
+    params = {"optimizer_cov": "lbfgs", "maxit": 20}
+    jm = gpb.GPModel(**kw).fit(y=aniso["y"], params=dict(params))
+    pm = gpt.GPModel(**kw, device="cpu").fit(y=aniso["y"],
+                                             params=dict(params))
+    assert pm.get_num_optim_iter() == jm.get_num_optim_iter()
+    assert [c for c, _ in pm.neighbor_redeterminations] == [True, True]
+    assert _rel(pm.get_cov_pars(), jm.get_cov_pars()) < 1e-6
+    np.testing.assert_array_equal(pm._engine._nn_idx_np,
+                                  np.asarray(jm._engine._nn_idx))
+
+
+# ---------------------------------------------------------------------
+# a space-time GPBoost round
+def test_space_time_gpboost_round_matches_jax():
+    """One round of GPBoost with a matern_space_time Vecchia GP (time
+    binned into 1..20 as the R suite's space-time simulation), against the
+    JAX host loop: the first fit re-determines the neighbours, the round's
+    refit does not; init score 1e-10, training score 1e-8, parameters
+    1e-6; the booster dicts load both ways."""
+    rng = np.random.RandomState(11)
+    n = 150
+    c = np.column_stack([rng.randint(1, 21, n).astype(float),
+                         rng.rand(n, 2)])
+    X = rng.rand(n, 3)
+    y = (np.sin(3 * X[:, 0]) + np.sin(0.3 * c[:, 0]) * np.cos(4 * c[:, 1])
+         + 0.3 * rng.randn(n))
+    kw = dict(gp_coords=c, cov_function="matern_space_time",
+              cov_fct_shape=1.5, gp_approx="vecchia", num_neighbors=8,
+              vecchia_ordering="time")
+    params = {"objective": "regression", "learning_rate": 0.1,
+              "num_leaves": 4, "min_data_in_leaf": 5, "verbose": 0}
+    # the first fit: one chunk of at most 10 iterations (each
+    # re-determination re-compiles the JAX package's graphs)
+    gj = gpb.GPModel(**kw).set_optim_params({"maxit": 10})
+    bj = gpb.train(params, gpb.Dataset(X, label=y), num_boost_round=1,
+                   gp_model=gj, callbacks=[lambda env: None])
+    gp = gpt.GPModel(**kw, device="cpu").set_optim_params({"maxit": 10})
+    bp = gpt.train(params, gpt.Dataset(X, label=y), num_boost_round=1,
+                   gp_model=gp)
+    assert gp.get_num_optim_iter() == gj.get_num_optim_iter()
+    assert gp.neighbor_redeterminations[0][0]
+    np.testing.assert_array_equal(gp._engine._nn_idx_np,
+                                  np.asarray(gj._engine._nn_idx))
+    assert _rel(bp.init_score, bj.init_score) < 1e-10
+    # the leaf values are float32 histogram sums in another order: one
+    # float32 ulp (4.8e-8 at 0.8) apart
+    np.testing.assert_allclose(bp.F.numpy(), bj.F, rtol=2e-7)
+    assert _rel(gp.get_cov_pars(), gj.get_cov_pars()) < 1e-6
+    assert gp.get_cov_par_names() == ["Error_term", "GP_var",
+                                      "GP_range_time", "GP_range_space"]
+    Xn = rng.rand(4, 3)
+    cn = np.column_stack([[3.0, 7.0, 12.0, 25.0], rng.rand(4, 2)])
+    pj = bj.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    pp = bp.predict(Xn, gp_coords_pred=cn, predict_var=True)
+    # each package's booster dict loads in the other
+    pl = booster_from_jax_dict(copy.deepcopy(bj.model_to_dict()),
+                               device="cpu")[0].predict(
+        Xn, gp_coords_pred=cn, predict_var=True)
+    pjl = gpb.Booster(model_dict=copy.deepcopy(bp.model_to_dict())).predict(
+        Xn, gp_coords_pred=cn, predict_var=True)
+    for k in ("response_mean", "response_var"):
+        np.testing.assert_allclose(pp[k], pj[k], rtol=1e-6)
+        np.testing.assert_allclose(pl[k], pj[k], rtol=1e-8)
+        np.testing.assert_allclose(pjl[k], pp[k], rtol=1e-8)
+
+
+# ---------------------------------------------------------------------
+# the R goldens on the port
+class _PortGPModel(gpt.GPModel):
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("device", "cpu")
+        super().__init__(*args, **kwargs)
+
+
+def _port_fit_gp_model(y, X=None, params=None, **kwargs):
+    return _PortGPModel(**kwargs).fit(y=y, X=X, params=copy.deepcopy(params))
+
+
+# (module, class, test, its data fixture or None)
+GOLDENS = [
+    (gcb, "TestGeneralMatern", "test_nll_shape_05_pm_eps", "gp_sim_data"),
+    (gcb, "TestGeneralMatern", "test_nll_shape_15_pm_eps", "gp_sim_data"),
+    (gcb, "TestGeneralMatern", "test_nll_shape_25_pm_eps", "gp_sim_data"),
+    (gcb, "TestGeneralMatern", "test_fit_general_shape_15", "gp_sim_data"),
+    (gcb, "TestMaternEstimateShape", "test_fit", "gp_sim_data"),
+    (gcb, "TestSpaceTimeGneiting", "test_nll", "st_data"),
+    (gcb, "TestSpaceTimeGneiting", "test_fit_fixed_nu", "st_data"),
+    (gcb, "TestSpaceTimeGneiting", "test_matern_space_time_general_shape",
+     "st_data"),
+    (gcb, "TestHurst", "test_nll", "hurst_data"),
+    (gcb, "TestHurst", "test_fit_and_predict", "hurst_data"),
+    (gcb, "TestHurst", "test_nll_vecchia", "hurst_data"),
+    (gcb, "TestLinear", "test_nll", "linear_data"),
+    (gcb, "TestLinear", "test_fit_and_predict", "linear_data"),
+    (gar1, "TestGaussianAR1MF", "test_nll", "ar1_data"),
+    (gar1, "TestGaussianAR1MF", "test_fit_and_predict", "ar1_data"),
+    (gar1, "TestGaussianAR1MF", "test_ard_estimate_shape_base", "ar1_data"),
+    (gar1, "TestGaussianAR1MF", "test_vecchia_euclidean", "ar1_data"),
+    (gar1, "TestNonGaussianAR1MF", "test_bernoulli_exact_nll", "ar1_data"),
+    (gar1, "TestNonGaussianAR1MF", "test_bernoulli_fit_two_iters",
+     "ar1_data"),
+    (gar1, "TestValidation", "test_rejects_invalid_fidelity", "ar1_data"),
+    (gar1, "TestValidation", "test_rejects_invalid_pred_fidelity",
+     "ar1_data"),
+    (gvg, "TestVecchiaAnisotropic", "test_ard_full_neighbors_equals_dense",
+     "gp_sim_data"),
+    (gvg, "TestVecchiaAnisotropic", "test_space_time_vecchia_fits",
+     "gp_sim_data"),
+    (gvg, "TestNeighborRedetermination", "test_redetermination_improves_nll",
+     "aniso"),
+    (gvg, "TestNeighborRedetermination", "test_ard_fit_recovers_anisotropy",
+     "aniso"),
+]
+
+
+@pytest.mark.parametrize("case", GOLDENS, ids=[
+    ".".join([g[0].__name__[5:], g[1], g[2]]) for g in GOLDENS])
+def test_golden_on_the_port(case, request, monkeypatch):
+    mod, cls, name, data_name = case
+    port = types.SimpleNamespace(GPModel=_PortGPModel,
+                                 fitGPModel=_port_fit_gp_model)
+    for target in (mod, gpb):
+        # the module's own names, and those a test body imports from the
+        # package
+        monkeypatch.setattr(target, "GPModel", _PortGPModel, raising=False)
+        monkeypatch.setattr(target, "fitGPModel", _port_fit_gp_model,
+                            raising=False)
+    if hasattr(mod, "gpb"):
+        monkeypatch.setattr(mod, "gpb", port)
+    getattr(getattr(mod, cls)(), name)(request.getfixturevalue(data_name))

@@ -242,20 +242,40 @@ def test_lbfgs_fit_matches(data):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cov_function="gaussian"), dict(cov_fct_shape=1.0),
-    # FITC is ported (tests/test_torch_fitc.py), and so is a Vecchia GP
-    # with grouped random effects (tests/test_torch_vecchia_grouped.py),
-    # but not with cluster_ids
-    dict(group_data=np.arange(N) % 5, cluster_ids=np.zeros(N)),
-    dict(likelihood="bernoulli_probit", matrix_inversion_method="iterative",
-         cluster_ids=np.zeros(N)),
-    # cluster_ids are ported (tests/test_torch_vecchia_pred.py); GP random
-    # coefficients run on the dense engines only, as in the reference,
-    # whose Vecchia engine takes one GP component
-    dict(gp_rand_coef_data=np.ones(N))])
+    # the gaussian kernel and general Matern shapes are ported
+    # (tests/test_torch_cov_breadth.py): test_ported_kernels_match_jax
+    pytest.param(kw, id=f"kwargs{i + 2}") for i, kw in enumerate([
+        # FITC is ported (tests/test_torch_fitc.py), and so is a Vecchia
+        # GP with grouped random effects
+        # (tests/test_torch_vecchia_grouped.py), but not with cluster_ids
+        dict(group_data=np.arange(N) % 5, cluster_ids=np.zeros(N)),
+        dict(likelihood="bernoulli_probit",
+             matrix_inversion_method="iterative", cluster_ids=np.zeros(N)),
+        # cluster_ids are ported (tests/test_torch_vecchia_pred.py); GP
+        # random coefficients run on the dense engines only, as in the
+        # reference, whose Vecchia engine takes one GP component
+        dict(gp_rand_coef_data=np.ones(N))])])
 def test_unported_options_raise(data, kwargs):
     args = dict(gp_coords=data[0], cov_function="matern", gp_approx="vecchia",
                 device="cpu")
     args.update(kwargs)
     with pytest.raises(NotImplementedError):
         gpt.GPModel(**args)
+
+
+@pytest.mark.parametrize("kwargs", [
+    pytest.param(dict(cov_function="gaussian"), id="kwargs0"),
+    pytest.param(dict(cov_fct_shape=1.0), id="kwargs1")])
+def test_ported_kernels_match_jax(data, kwargs):
+    """The two models that raised before the covariance breadth was
+    ported now build and give the JAX package's NLL (rtol 1e-10; the
+    general shape through Bessel K, 1e-9)."""
+    args = dict(gp_coords=data[0], cov_function="matern", gp_approx="vecchia",
+                num_neighbors=M)
+    args.update(kwargs)
+    pm = gpt.GPModel(**args, device="cpu")
+    jm = gpb.GPModel(**args)
+    nll = pm.neg_log_likelihood(cov_pars=PARS, y=data[1])
+    np.testing.assert_allclose(
+        nll, jm.neg_log_likelihood(cov_pars=PARS, y=data[1]),
+        rtol=1e-10 if "cov_function" in kwargs else 1e-9)
