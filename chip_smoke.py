@@ -6,8 +6,8 @@
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
                                      # 24, 25, 26 each alone, 27-29, 30-32,
-                                     # 33-35, 36-38, 39-41, 42-44 and
-                                     # 45-47); no result lines
+                                     # 33-35, 36-38, 39-41, 42-44, 45-47
+                                     # and 48-50); no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -48,8 +48,9 @@ Phases; any failure exits non-zero and prints no result line:
      boosting_n200k_p50 (sim_boost, n = 200,000, p = 50, seed 2, 31 leaves,
      learning rate 0.1, Gaussian regression, no GP model) for 20 rounds
      with tree_learner="data" on a one-rank NCCL group; hist_masked's
-     launch count over that run must be positive. Then 5 rounds each of
-     the feature and voting (top_k 20) learners, which at one rank must
+     launch count over that run must be positive. Then 3 rounds each of
+     the feature and voting (top_k 20) learners (5 before phases 48-50),
+     which at one rank must
      grow the data learner's trees, and one round of the serial positional
      learner (hist_segment), whose tree must equal the data learner's first
      under phase 5's float32 near-tie rule. Device busy share from a
@@ -147,8 +148,9 @@ Phases; any failure exits non-zero and prints no result line:
      matrix-free operator's times (a CG iteration, an S_J application, a
      Lanczos step) beside their byte bounds, the covariance parameters
      against phase 20's dense float64 fit (rtol 1e-1), the reference's
-     60.302 s; then one float32 fit, capped at 2 iterations since phases
-     45-47 came (3 since 39-41), with its solves at cg_max_num_it;
+     60.302 s; then one float32 fit, capped at 1 iteration since phases
+     48-50 came (2 since 45-47, 3 since 39-41), with its solves at
+     cg_max_num_it;
  25. hist_segment at n = 50,000, p = 5 (phase 3's checks and times), then
      binary Vecchia LaGaBoost at the reference's n = 50,000 (sim_lagab,
      seed 4; bench_reference.py:90-99, :190-203), iterative, float64, 31
@@ -397,7 +399,31 @@ Phases; any failure exits non-zero and prints no result line:
      the last two's predictions (1e-8); a two-iteration bernoulli_probit
      fit with ar1_mf_exponential (iterations equal, parameters 1e-6); the
      golden TestVecchiaAnisotropic::test_ard_full_neighbors_equals_dense
-     on the card. Budget for 45-47: 75 s.
+     on the card. Budget for 45-47: 75 s;
+ 48. the tree learner's split breadth on sim_tabular at boosting_n200k_p50's
+     shape (n = 200,000, p = 50: 10 categorical columns of 5-500 levels, 10
+     with 20 % NaN, 10 dense with monotone +1, +1, -1 on three, 20 sparse
+     that EFB bundles into one int32 column of 5,101 bins): 20 rounds at
+     31 leaves, 10 at 255, 10 with path_smooth, interaction constraints and
+     the coupled, split and lazy CEGB penalties, 10 with extra trees and
+     forced splits; for each, seconds a round, the host syncs of a tree
+     (must be 1 + 1 a split + 2), the device busy share of two more
+     rounds, B1's launches by route (the int32, two-window route must be
+     taken), R^2 on 10,000 rows (above 0.1); categorical, missing-value and
+     bundle splits must all occur; pred_leaf and pred_contrib on 10,000
+     rows, whose rows must sum to the raw prediction to 1e-6;
+ 49. GPBoost with a grouped random intercept (n = 100,000, q = 1,000) on
+     such columns, 10 rounds: seconds a round, host syncs of a tree,
+     1,000 predictions with unseen groups' variances above the seen ones';
+ 50. card against CPU at n = 2,000, 3 rounds each of phase 48's 31-leaf,
+     options and extra-trees models: each node's feature, bin, category
+     set and (where a missing row reaches it) direction equal, or the
+     first difference a float32 near tie; else leaf values, predictions
+     and pred_contrib to 1e-6 and pred_leaf exactly; then B1 at B = 5,121
+     (int32 codes, two bin windows) at n = 200,000, p = 31: bitwise to its
+     emulation across launches and segment forms, whole and half
+     segments, under a row permutation, against the plain version (1e-5
+     of the largest entry), with its times. Budget for 48-50: 40 s.
 Every histogram row's library time is one torch.Tensor.index_add_ over the
 flat key f * B + bin (key and expanded float32 values built outside the
 timed window, sums held to the kernel's to 1e-5 of the largest entry);
@@ -410,6 +436,7 @@ import json
 import os
 import subprocess
 import sys
+import shutil
 import tempfile
 import time
 
@@ -420,7 +447,8 @@ N_FULL, N_CPU, P, ROUNDS, N_PRED = 10_000, 2_000, 5, 10, 1_000
 PARAMS = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
           "verbose": 0}
 # boosting_n200k_p50 (bench.py:302-327): plain boosting, no GP model
-N_BOOST, P_BOOST, SEED_BOOST, ROUNDS_BOOST, ROUNDS_MODE = 200_000, 50, 2, 20, 5
+# ROUNDS_MODE: 3 since phases 48-50 came (was 5)
+N_BOOST, P_BOOST, SEED_BOOST, ROUNDS_BOOST, ROUNDS_MODE = 200_000, 50, 2, 20, 3
 N_RAGGED, N_TWO_RANKS = 123_457, 20_000
 BOOST = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
          "verbose": 0}
@@ -457,7 +485,7 @@ ROUNDS_VL_DENSE = 1
 VL_ITER = {**VL_MODEL, "matrix_inversion_method": "iterative"}
 N_VLB_ITER, MAXIT_VLB_ITER = 50_000, 5
 # phase 24's float32 fit (3 iterations before phases 45-47 came)
-MAXIT_VL32 = 2
+MAXIT_VL32 = 1
 # phase 26's card against CPU, whose CPU side is most of the phase
 N_IT_CPU = 500
 N_GROUPED_ITER, Q_GROUPED_ITER = 100_000, 25_000
@@ -528,7 +556,12 @@ def new_points(n, p=P, seed=SEED + 1):
     return rng.rand(n, p), rng.rand(n, 2)
 
 
+# the card's name and power limit as nvidia-smi reports them (phase 1)
+CARD = None
+
+
 def phase_device(torch):
+    global CARD
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke test runs on the GPU "
                            "only")
@@ -536,6 +569,7 @@ def phase_device(torch):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    CARD = card
     print(card)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
@@ -874,6 +908,7 @@ def _reset_launches(histogram):
     for fn in (histogram.hist_segment, histogram.hist_masked,
                histogram.hist_block):
         fn.launches = 0
+    histogram.hist_segment.routes.clear()
 
 
 def _split_records(tree):
@@ -5859,11 +5894,441 @@ def _vecchia_aniso_golden(gpt):
           "(< 1e-5)", flush=True)
 
 
+# phases 48-50: the tree learner's data and split breadth on mixed tabular
+# data at boosting_n200k_p50's shape
+N_TAB, SEED_TAB, N_TAB_PRED, N_TAB_CPU = 200_000, 16, 10_000, 2_000
+TAB_CARDS = (5, 10, 20, 40, 80, 120, 200, 300, 400, 500)
+TAB_CAT, TAB_NAN, TAB_DENSE, TAB_SPARSE = 10, 10, 10, 20
+ROUNDS_TAB, ROUNDS_TAB_255, ROUNDS_TAB_OPT, ROUNDS_TAB_CPU = 20, 10, 10, 3
+N_TAB_GP, Q_TAB_GP = 100_000, 1_000
+TAB = {"objective": "regression", "learning_rate": 0.1, "num_leaves": 31,
+       "verbose": 0}
+# learner features: the 30 kept columns in order, then the bundle (30)
+TAB_MONO = [0] * 20 + [1, 1, -1] + [0] * 7
+TAB_OPTS = {"path_smooth": 10.0,
+            "interaction_constraints": [list(range(0, 10)) + [20, 21, 30],
+                                        list(range(10, 30))],
+            "cegb_tradeoff": 1.0, "cegb_penalty_split": 1e-7,
+            "cegb_penalty_feature_coupled": [0.02] * 10 + [0.0] * 40,
+            "cegb_penalty_feature_lazy": [0.0] * 20 + [1e-6] * 30}
+TAB_FORCED = {"feature": 20, "threshold": 0.5,
+              "left": {"feature": 21, "threshold": 0.3},
+              "right": {"feature": 10, "threshold": 0.0}}
+# the R^2 on 10,000 training rows each model must pass (10-20 rounds at
+# learning rate 0.1 reach 0.37-0.52; extra trees with forced splits 0.19)
+TAB_MIN_R2 = 0.1
+# B1 at an EFB bundle of 20 features of 255 bins and the all-default bin
+WIDE_BINS = 1 + 20 * 256
+
+
+def sim_tabular(n, seed=SEED_TAB):
+    """Mixed tabular data: TAB_CAT categorical columns (TAB_CARDS levels,
+    Zipf(1.1) frequencies), TAB_NAN numeric columns with 20 % NaN,
+    TAB_DENSE dense numeric columns (y rises with the first two and falls
+    with the third), then TAB_SPARSE sparse columns, ~95 % zeros each and
+    at most one non-zero of them a row (one EFB bundle of ~5,100 bins; y
+    moves with which of them is set and with its value). A missing value
+    moves y by its column's own shift."""
+    rng = np.random.RandomState(seed)
+    cols, F = [], np.zeros(n)
+    for k in TAB_CARDS:
+        w = 1.0 / np.arange(1, k + 1) ** 1.1
+        c = rng.choice(k, n, p=w / w.sum())
+        cols.append(c.astype(float))
+        F += 0.5 * rng.randn(k)[c]
+    for j in range(TAB_NAN):
+        x = rng.randn(n)
+        miss = rng.rand(n) < 0.2
+        F += np.where(miss, 0.8 * (-1) ** j, 0.4 * np.tanh(x))
+        x[miss] = np.nan
+        cols.append(x)
+    D = rng.rand(n, TAB_DENSE)
+    F += 2 * D[:, 0] + D[:, 1] - 1.5 * D[:, 2] + np.sin(4 * D[:, 3])
+    cols.extend(D.T)
+    # distinct frequencies (5.9 % down to 4.1 %): EFB orders a bundle's
+    # members by their counts, so the bundle's bins follow the columns
+    pw = 1.0 - 0.015 * np.arange(TAB_SPARSE)
+    who = rng.choice(TAB_SPARSE, n, p=pw / pw.sum())
+    S = np.zeros((n, TAB_SPARSE))
+    S[np.arange(n), who] = rng.rand(n) + 0.1
+    F += 1.2 * (who >= TAB_SPARSE // 2) \
+        + 0.5 * ((who % 3) - 1) * S[np.arange(n), who]
+    cols.extend(S.T)
+    return np.column_stack(cols), F + 0.5 * rng.randn(n)
+
+
+def _tab_dataset(gpt, X, y, **kw):
+    return gpt.Dataset(X, label=y, categorical_feature=list(range(TAB_CAT)),
+                       params={"enable_bundle": True}, **kw)
+
+
+def _tab_params(kind, forced_path=None):
+    if kind == "opts":
+        return {**TAB, "monotone_constraints": TAB_MONO, **TAB_OPTS}
+    if kind == "extra":
+        return {**TAB, "monotone_constraints": TAB_MONO, "extra_trees": True,
+                "forcedsplits_filename": forced_path}
+    if kind == "255":
+        return {**TAB, "monotone_constraints": TAB_MONO, "num_leaves": 255}
+    return {**TAB, "monotone_constraints": TAB_MONO}
+
+
+def _tree_syncs(torch, bst, what):
+    """(host syncs of one steady round's tree, its splits) by torch's sync
+    debug mode around the learner's train; they must be 1 + 1 a split +
+    2 (the sites are printed where they are not)."""
+    from collections import Counter
+    res, sites = [], Counter()
+    train = bst.learner.train
+
+    def counted(*args, **kwargs):
+        out, s = _count_syncs(torch, lambda: train(*args, **kwargs), sites)
+        res.append((s, int(out[0].num_leaves) - 1))
+        return out
+
+    bst.learner.train = counted
+    try:
+        bst.update()
+    finally:
+        bst.learner.train = train
+    syncs, splits = res[0]
+    # a warning raised on the line where torch.cuda.set_sync_debug_mode
+    # switches the mode back (once in some trees) is the counter's own
+    # call, not the tree's
+    import inspect
+    fn = torch.cuda.set_sync_debug_mode
+    lines, first = inspect.getsourcelines(fn)
+    own = sites.pop(f"{os.path.relpath(inspect.getsourcefile(fn))}:"
+                    + str(first + next(i for i, ln in enumerate(lines)
+                                       if "_cuda_set_sync_debug_mode" in ln)),
+                    0)
+    syncs -= own
+    if syncs != 1 + splits + 2:
+        raise AssertionError(f"{what}: {syncs} host syncs in a tree of "
+                             f"{splits} splits: " + ", ".join(
+                                 f"{k} x{v}" for k, v in sites.items()))
+    return syncs, splits
+
+
+def _route_txt(histogram):
+    r = histogram.hist_segment.routes
+    return ", ".join(f"{k} x{v}" for k, v in sorted(r.items())) or "none"
+
+
+def phase_tabular(torch, gpt, histogram, kernel_row):
+    """Plain regression boosting on mixed tabular data at
+    boosting_n200k_p50's shape (n = 200,000, p = 50: 10 categorical, 10
+    with 20 % NaN, 10 dense, 20 sparse columns that EFB bundles into one
+    int32 column of ~5,100 bins; monotone +1, +1, -1 on three dense
+    columns): 20 rounds at 31 leaves and 10 at 255, then 10 rounds with
+    path_smooth, interaction constraints and the coupled, split and lazy
+    CEGB penalties and 10 with extra_trees and forced splits; pred_leaf
+    and pred_contrib on 10,000 rows. Host syncs of a tree must be 1 + 1 a
+    split + 2. Returns hist_segment's launches over the main path."""
+    t0 = time.perf_counter()
+    X, y = sim_tabular(N_TAB)
+    ds = _tab_dataset(gpt, X, y)
+    ds.construct()
+    data_s = time.perf_counter() - t0
+    if len(ds.bundles) != 1 or not ds.num_bins > histogram.WINDOW_BINS:
+        raise AssertionError(f"tabular: {len(ds.bundles)} bundles, "
+                             f"{ds.num_bins} bins")
+    out, launches = {}, 0
+    tmp = tempfile.mkdtemp()
+    forced_path = os.path.join(tmp, "forced.json")
+    with open(forced_path, "w") as f:
+        json.dump(TAB_FORCED, f)
+    models = {}
+    try:
+        for kind, rounds in (("31", ROUNDS_TAB), ("255", ROUNDS_TAB_255),
+                             ("opts", ROUNDS_TAB_OPT),
+                             ("extra", ROUNDS_TAB_OPT)):
+            bst = gpt.Booster(_tab_params(kind, forced_path), ds,
+                              device="cuda")
+            _reset_launches(histogram)
+            secs = []
+            for _ in range(rounds):
+                t = time.perf_counter()
+                bst.update()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            launches += histogram.hist_segment.launches
+            k_launches = histogram.hist_segment.launches
+            routes = _route_txt(histogram)
+            if not histogram.hist_segment.routes.get(
+                    ("int32", histogram.bin_windows(ds.num_bins))):
+                raise AssertionError(f"tabular {kind}: B1's wide int32 route "
+                                     f"not taken ({routes})")
+            syncs, splits = _tree_syncs(torch, bst, f"tabular {kind}")
+            busy, wall, hist_s = _device_busy_s(
+                torch, lambda: [bst.update() for _ in range(2)], cpu=False)
+            models[kind] = bst
+            p = bst.predict(X[:N_TAB_PRED])
+            _finite(f"tabular {kind} predictions", p, (N_TAB_PRED,))
+            r2 = 1.0 - np.var(y[:N_TAB_PRED] - p) / np.var(y[:N_TAB_PRED])
+            print(f"[tabular] {CARD}: n={N_TAB} p={X.shape[1]} "
+                  f"({len(ds.kept_features)} kept + 1 bundle, {ds.num_bins} "
+                  f"bins, int32) {kind}: seconds a round " + ", ".join(
+                      f"{v:.3f}" for v in secs)
+                  + f" (mean {np.mean(secs):.4f}); host syncs of a tree "
+                  f"{syncs} = 1 + {splits} splits + 2; device busy over 2 "
+                  f"rounds {_busy_txt(busy, wall, hist_s)}; hist_segment "
+                  f"launches {k_launches} ({routes}); R^2 on {N_TAB_PRED} "
+                  f"rows {r2:.4f}", flush=True)
+            if not r2 > TAB_MIN_R2:
+                raise AssertionError(f"tabular {kind}: R^2 {r2:.3f}")
+            out[kind] = float(np.mean(secs))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bst = models["31"]
+    for t in models["extra"].trees:
+        if t.split_feature[0] != 20 or t.split_feature[t.left[0]] != 21:
+            raise AssertionError("tabular extra: a forced split missing")
+    used = {int(f) for t in models["31"].trees
+            for f in t.split_feature[:t.num_nodes][~t.is_leaf[:t.num_nodes]]}
+    kinds = {"categorical": bool(used & set(range(TAB_CAT))),
+             "NaN": any(t.missing_bin[i] >= 0 for t in models["31"].trees
+                        for i in range(t.num_nodes) if not t.is_leaf[i]),
+             "bundle": 30 in used}
+    if not all(kinds.values()):
+        raise AssertionError(f"tabular: split kinds {kinds}")
+    Xp = X[:N_TAB_PRED]
+    t0 = time.perf_counter()
+    leaf = bst.predict(Xp, pred_leaf=True)
+    leaf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    contrib = bst.predict(Xp, pred_contrib=True)
+    shap_s = time.perf_counter() - t0
+    raw = bst.predict(Xp, raw_score=True)
+    sum_err = float(np.max(np.abs(contrib.sum(1) - raw)))
+    if leaf.shape != (N_TAB_PRED, ROUNDS_TAB + 3) \
+            or contrib.shape != (N_TAB_PRED, X.shape[1] + 1) \
+            or not sum_err <= 1e-6:
+        raise AssertionError(f"tabular: pred_leaf {leaf.shape}, "
+                             f"pred_contrib {contrib.shape}, rows sum to "
+                             f"the raw prediction to {sum_err:.3g}")
+    print(f"[tabular] {CARD}: data and binning {data_s:.2f} s; split kinds "
+          f"{kinds}; "
+          f"pred_leaf {leaf.shape} {leaf_s:.3f} s; pred_contrib "
+          f"{contrib.shape} (TreeSHAP over {len(bst.trees)} trees) "
+          f"{shap_s:.3f} s, rows sum to the raw prediction to "
+          f"{sum_err:.3g}", flush=True)
+    kernel_row["tabular_n200k_p50_s_a_round"] = out
+    return launches
+
+
+def phase_tabular_gpboost(torch, gpt, histogram):
+    """GPBoost with a grouped random intercept (n = 100,000, q = 1,000,
+    as examples/03) on the mixed tabular columns, 10 rounds at 31 leaves
+    with the monotone constraints; 1,000 predictions, half in unseen
+    groups. Returns hist_segment's launches."""
+    X, F = sim_tabular(N_TAB_GP, seed=SEED_TAB + 1)
+    rng = np.random.RandomState(SEED_TAB + 2)
+    group = rng.randint(0, Q_TAB_GP, N_TAB_GP)
+    y = F + 0.8 * rng.randn(Q_TAB_GP)[group]
+    gp = gpt.GPModel(group_data=group, device="cuda")
+    ds = _tab_dataset(gpt, X, y)
+    bst = gpt.Booster(_tab_params("31"), ds, gp_model=gp, device="cuda")
+    _reset_launches(histogram)
+    secs = []
+    for _ in range(ROUNDS):
+        t = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = histogram.hist_segment.launches
+    syncs, splits = _tree_syncs(torch, bst, "tabular GPBoost")
+    Xn = X[:N_PRED]
+    gn = np.concatenate([group[:N_PRED // 2],
+                         Q_TAB_GP + np.arange(N_PRED - N_PRED // 2)])
+    pred = bst.predict(Xn, group_data_pred=gn, predict_var=True)
+    cov = gp.get_cov_pars()
+    _finite("tabular GPBoost cov pars", cov, (2,), positive=True)
+    for k in ("response_mean", "response_var"):
+        _finite(f"tabular GPBoost {k}", pred[k], (N_PRED,))
+    var = pred["response_var"]
+    if not np.min(var[N_PRED // 2:]) > np.max(var[:N_PRED // 2]) \
+            or launches <= 0:
+        raise AssertionError("tabular GPBoost: unseen groups' variances "
+                             f"not above the seen ones', {launches} "
+                             "launches")
+    print(f"[tabular-gpboost] {CARD}: n={N_TAB_GP} q={Q_TAB_GP} "
+          f"p={X.shape[1]} "
+          f"({ds.num_bins} bins): first round {secs[0]:.3f} s (the first "
+          f"GP fit), then mean {np.mean(secs[1:]):.4f} s a round; host syncs "
+          f"of a tree {syncs} = 1 + {splits} + 2; cov pars {cov.tolist()}; "
+          f"hist_segment launches {launches} ({_route_txt(histogram)})",
+          flush=True)
+    return launches
+
+
+def _tab_compare(what, bc, bg, X):
+    """Card booster bg against CPU booster bc grown from the same data:
+    each node's split feature, bin, category bit set and, where a missing
+    row reaches it, missing direction equal, or the first node that
+    differs a float32 near tie (phase 5's rule: a relative gain gap below
+    1e-5; later trees are then not compared); where every tree is equal,
+    leaf values, predictions and pred_contrib to 1e-6 and pred_leaf
+    exactly."""
+    bins = bc.learner.bins_pos.numpy().astype(np.int64)
+    for t, (a, b) in enumerate(zip(bc.trees, bg.trees)):
+        reached = _tab_missing_reached(a, bins)
+        for i in range(max(a.num_nodes, b.num_nodes)):
+            if i >= min(a.num_nodes, b.num_nodes):
+                raise AssertionError(f"{what}: tree {t} has {b.num_nodes} "
+                                     f"nodes, not {a.num_nodes}")
+            if a.is_leaf[i] and b.is_leaf[i]:
+                continue
+            diff = [k for k in ("is_leaf", "split_feature", "threshold_bin")
+                    if getattr(a, k)[i] != getattr(b, k)[i]]
+            if reached[i] and a.default_left[i] != b.default_left[i]:
+                diff.append("default_left")
+            ca, cb = a.cat_left_bins.get(i), b.cat_left_bins.get(i)
+            if (ca is None) != (cb is None) or (
+                    ca is not None and not np.array_equal(ca, cb)):
+                diff.append("category set")
+            if not diff:
+                continue
+            gap = abs(a.split_gain[i] - b.split_gain[i]) / max(
+                abs(a.split_gain[i]), 1e-30)
+            print(f"[{what}] tree {t} node {i}: {', '.join(diff)} differ "
+                  f"(cpu feature {a.split_feature[i]} bin "
+                  f"{a.threshold_bin[i]}, card {b.split_feature[i]} "
+                  f"{b.threshold_bin[i]}), relative gain gap {gap:.3g}",
+                  flush=True)
+            if not gap < 1e-5:
+                raise AssertionError(f"{what}: splits differ beyond an f32 "
+                                     "near-tie")
+            return f"near tie at tree {t} node {i}"
+    errs = {"leaf values": max(float(np.max(np.abs(
+        a.leaf_value[:a.num_nodes] - b.leaf_value[:b.num_nodes])))
+        for a, b in zip(bc.trees, bg.trees)),
+        "predictions": float(np.max(np.abs(bc.predict(X) - bg.predict(X)))),
+        "pred_contrib": float(np.max(np.abs(
+            bc.predict(X, pred_contrib=True)
+            - bg.predict(X, pred_contrib=True))))}
+    if not max(errs.values()) <= 1e-6 or not np.array_equal(
+            bc.predict(X, pred_leaf=True), bg.predict(X, pred_leaf=True)):
+        raise AssertionError(f"{what}: max |diff| {errs} or pred_leaf")
+    return "all trees equal, pred_leaf equal; max |diff| " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+
+
+def _tab_missing_reached(tree, bins):
+    """(nodes,) bool: a training row whose split value is missing reaches
+    the node (elsewhere the two missing directions tie exactly)."""
+    out = np.zeros(tree.num_nodes, dtype=bool)
+    stack = [(0, np.arange(len(bins)))]
+    while stack:
+        i, rows = stack.pop()
+        if tree.is_leaf[i]:
+            continue
+        b = bins[rows, tree.split_feature[i]]
+        is_m = (tree.missing_bin[i] >= 0) & (b == tree.missing_bin[i])
+        out[i] = bool(is_m.any())
+        go = np.where(is_m, tree.default_left[i], b <= tree.threshold_bin[i])
+        lb = tree.cat_left_bins.get(i)
+        if lb is not None:
+            go = lb[np.clip(b, 0, len(lb) - 1)]
+        stack += [(tree.left[i], rows[go]), (tree.right[i], rows[~go])]
+    return out
+
+
+def phase_tabular_card_vs_cpu(torch, gpt, histogram, kernel_row):
+    """Card against CPU at n = 2,000 with the options of phase 48 (the 31-
+    leaf model, path_smooth + interaction constraints + CEGB, extra trees
+    + forced splits; 3 rounds each), then B1 on the card at B = 5,121 (a
+    20-member bundle, int32 codes, two bin windows) at n = 200,000:
+    bitwise to its fixed-point emulation, across launches, under a row
+    permutation, whole and half segments, and against the plain version,
+    and at B = 4,096 (int32, one window) and 255 (uint8) on the same rows;
+    the times of the three go into kernel_row under
+    "at_tabular_n200k_p31_<codes>_b<B>"."""
+    X, y = sim_tabular(N_TAB_CPU, seed=SEED_TAB + 3)
+    tmp = tempfile.mkdtemp()
+    forced_path = os.path.join(tmp, "forced.json")
+    with open(forced_path, "w") as f:
+        json.dump(TAB_FORCED, f)
+    try:
+        for kind in ("31", "opts", "extra"):
+            bs, secs = {}, {}
+            for dev in ("cpu", "cuda"):
+                t0 = time.perf_counter()
+                bs[dev] = gpt.train(_tab_params(kind, forced_path),
+                                    _tab_dataset(gpt, X, y),
+                                    num_boost_round=ROUNDS_TAB_CPU,
+                                    device=dev)
+                secs[dev] = time.perf_counter() - t0
+            print(f"[tabular-card-vs-cpu] n={N_TAB_CPU} {kind}, "
+                  f"{ROUNDS_TAB_CPU} rounds (card {secs['cuda']:.3f} s, cpu "
+                  f"{secs['cpu']:.3f} s): "
+                  + _tab_compare(f"tabular {kind}", bs["cpu"], bs["cuda"],
+                                 X), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # B1 at B = 5,121: 30 kept columns of 255 bins and the bundle's codes
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED_TAB + 4)
+    n, p = N_TAB, 31
+    codes = np.empty((n, p), dtype=np.int32)
+    codes[:, :30] = rng.randint(0, 255, size=(n, 30))
+    member = rng.randint(0, 20, n)
+    codes[:, 30] = 1 + 256 * member + rng.randint(0, 256, n)
+    codes[rng.rand(n) < 0.05, 30] = 0
+    stats = np.ones((n, 3), dtype=np.float32)
+    stats[:, 0] = rng.randn(n)
+    stats[:, 1] = rng.rand(n) + 0.5
+    bins = torch.as_tensor(codes, device=dev)
+    stats_d = torch.as_tensor(stats, device=dev)
+    gen = torch.Generator().manual_seed(SEED_TAB)
+    err = 0.0
+    for name, s0, cnt in (("whole", 0, n), ("half", 777, n // 2)):
+        tol = 1e-5 * float(histogram.hist_segment_plain(
+            bins, stats_d, s0, cnt, WIDE_BINS)[:, :2].abs().max())
+        err = max(err, _segment_case(
+            torch, histogram, f"hist_segment B={WIDE_BINS} int32 {name}",
+            bins, stats_d, s0, cnt, WIDE_BINS, max(tol, 1e-5), gen))
+    amax = histogram.stat_amax(stats_d, 0)
+    # the same rows at the slice's other layouts: uint8 codes of 255 bins
+    # and int32 codes of 4,096 bins (one window), beside the two windows
+    layouts = [("int32", bins, WIDE_BINS),
+               ("int32", torch.remainder(bins, 4096), 4096),
+               ("uint8", torch.remainder(bins, 255).to(torch.uint8), 255)]
+    for code, b, nb in layouts[1:]:
+        err = max(err, _segment_case(
+            torch, histogram, f"hist_segment B={nb} {code}", b, stats_d, 0,
+            n, nb, 1e-5 * float(histogram.hist_segment_plain(
+                b, stats_d, 0, n, nb)[:, :2].abs().max()), gen))
+    for code, b, nb in layouts:
+        def kernel():
+            return histogram.hist_segment(b, stats_d, 0, n, nb, amax=amax)
+        def plain():
+            return histogram.hist_segment_plain(b, stats_d, 0, n, nb)
+        row = dict(ms=_time_ms(torch, kernel),
+                   device_ms=_device_ms(torch, kernel),
+                   plain_ms=_time_ms(torch, plain, reps=10),
+                   library_ms=_segment_library_ms(torch, b, stats_d, 0, n,
+                                                  nb, kernel()),
+                   max_abs_err=err)
+        row["bound_ms"], row["bound_by"] = bound(
+            b.element_size() * n * p + 12 * n + 12 * p * nb, 3 * n * p)
+        kernel_row[f"at_tabular_n200k_p31_{code}_b{nb}"] = row
+        print(f"[kernel] {CARD}: hist_segment n={n} p={p} B={nb} {code} "
+              f"({histogram.bin_windows(nb)} bin windows): kernel "
+              f"{row['ms']:.4f} ms by events, {_fmt_ms(row['device_ms'])} "
+              f"device; plain {row['plain_ms']:.4f} ms; index_add_ "
+              f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})", flush=True)
+    print(f"[kernel] hist_segment B={WIDE_BINS}, 4096 and 255 at n={n}: "
+          f"whole, half and permuted segments bitwise to the emulation, max "
+          f"|err| {err:.3g} from the plain version", flush=True)
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
           (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38),
-          (39, 41), (42, 44), (45, 47))
+          (39, 41), (42, 44), (45, 47), (48, 50))
 
 
 def _print_phase_time(fn):
@@ -6049,6 +6514,15 @@ def main(argv=None):
         phase_breadth_card_vs_cpu(torch, gpt)
         print(f"[breadth] phases 45-47 in "
               f"{time.perf_counter() - t_b:.1f} s", flush=True)
+    if (48, 50) in groups:
+        t_t = time.perf_counter()
+        segment["launches_tabular_n200k_p50"] = phase_tabular(
+            torch, gpt, histogram, segment)
+        segment["launches_tabular_gpboost_n100k"] = phase_tabular_gpboost(
+            torch, gpt, histogram)
+        phase_tabular_card_vs_cpu(torch, gpt, histogram, segment)
+        print(f"[tabular] phases 48-50 in "
+              f"{time.perf_counter() - t_t:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

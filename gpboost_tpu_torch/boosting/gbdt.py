@@ -66,10 +66,19 @@ The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
 defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked; the
 options outside the port raise NotImplementedError naming the ROADMAP item
 that ports them: DART, GOSS, RF, multiclass, ranking, Grabit, mean-scale,
-constraints, categorical and missing-value options (A12), init_model
-(A14), a GP model or a non-Gaussian objective or sampling on a parallel
-tree learner (A15). boost_from_average=False starts plain boosting from
-score 0.
+linear trees and refit (A12b), init_model (A14), a GP model or a
+non-Gaussian objective or sampling on a parallel tree learner, and the
+split options below on one (A15). boost_from_average=False starts plain
+boosting from score 0.
+
+The tree learner's split breadth passes through (gbdt.py:560-644):
+categorical features, missing values (use_missing, zero_as_missing), EFB
+bundles (the Dataset's enable_bundle), monotone_constraints,
+interaction_constraints, forcedsplits_filename, the CEGB penalties,
+path_smooth and extra_trees (extra_seed + 131 * trees so far seeds a
+tree's thresholds). `predict` re-encodes rows into the learner's bins for
+EFB, and gives pred_leaf (leaf indices) and pred_contrib (TreeSHAP); the
+model dict carries the EFB encoder and the pandas categories.
 """
 
 import numpy as np
@@ -109,7 +118,7 @@ _OBJ_ALIASES = {
 # xentropy_objective.hpp)
 _SPECIAL_OBJECTIVES = ("quantile", "l1", "huber", "fair", "mape", "tweedie",
                        "cross_entropy", "binary_lgb", "cross_entropy_lambda")
-# objectives outside the port (ROADMAP A12)
+# objectives outside the port (ROADMAP A12b)
 _UNPORTED_OBJECTIVES = ("multiclass", "tobit", "mean_scale_regression",
                         "lambdarank", "rank_xendcg")
 _BINARY_OBJECTIVES = ("bernoulli_logit", "bernoulli_probit", "cross_entropy",
@@ -140,26 +149,23 @@ _BOOST_PARAM_DEFAULTS = dict(
     forcedsplits_filename="", cegb_penalty_split=0.0,
     cegb_penalty_feature_coupled=None, cegb_penalty_feature_lazy=None,
     num_parallel_devices=None, tree_learner="serial", top_k=20,
+    # the categorical search (config.h cat_smooth, cat_l2,
+    # max_cat_threshold, min_data_per_group), CEGB's tradeoff, the
+    # extra-trees seed and the missing-value handling
+    cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,
+    min_data_per_group=100, cegb_tradeoff=1.0, extra_seed=6,
+    use_missing=True, zero_as_missing=False,
 )
 # the options of unported features (DART, GOSS, multiclass, ranking,
-# refit, categorical splits, CEGB, extra trees, missing values): only
-# their defaults pass
+# refit; ROADMAP A12b): only their defaults pass
 _UNPORTED_DEFAULTS = dict(
     drop_rate=0.1, max_drop=50, skip_drop=0.5, drop_seed=4, top_rate=0.2,
     other_rate=0.1, num_class=1, lambdarank_norm=True,
     lambdarank_truncation_level=30, refit_decay_rate=0.9,
-    cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,
-    min_data_per_group=100, label_gain=None, objective_seed=5,
-    eval_at=(1, 2, 3, 4, 5), cegb_tradeoff=1.0, extra_seed=6,
-    use_missing=True, zero_as_missing=False,
+    label_gain=None, objective_seed=5, eval_at=(1, 2, 3, 4, 5),
 )
 _BOOST_PARAM_DEFAULTS.update(_UNPORTED_DEFAULTS)
-_UNPORTED_IF_CHANGED = (
-    "boosting", "path_smooth", "extra_trees", "linear_tree",
-    "monotone_constraints", "interaction_constraints",
-    "forcedsplits_filename", "cegb_penalty_split",
-    "cegb_penalty_feature_coupled", "cegb_penalty_feature_lazy") \
-    + tuple(_UNPORTED_DEFAULTS)
+_UNPORTED_IF_CHANGED = ("boosting", "linear_tree") + tuple(_UNPORTED_DEFAULTS)
 # tree_learner values and their aliases -> the learner's parallel_mode
 # (gbdt.py:590-596)
 _TREE_LEARNERS = {
@@ -282,12 +288,13 @@ def _parse_params(raw, laplace=False):
     changed = [k for k in _UNPORTED_IF_CHANGED
                if _changed(p[k], _BOOST_PARAM_DEFAULTS[k])]
     if changed:
-        raise NotImplementedError("not ported yet (ROADMAP A12): " + ", ".join(
-            f"{k}={p[k]!r}" for k in changed))
+        raise NotImplementedError(
+            "not ported yet (ROADMAP A12b): "
+            + ", ".join(f"{k}={p[k]!r}" for k in changed))
     obj = p["objective"]
     if not laplace and _OBJ_ALIASES.get(obj, obj) in _UNPORTED_OBJECTIVES:
         raise NotImplementedError(f"objective '{obj}' is not ported yet "
-                                  "(ROADMAP A12)")
+                                  "(ROADMAP A12b)")
     if str(p["tree_learner"]) not in _TREE_LEARNERS:
         raise ValueError(f"Unknown tree_learner '{p['tree_learner']}'")
     return p
@@ -296,6 +303,50 @@ def _parse_params(raw, laplace=False):
 def _raw_X(data):
     X = np.asarray(data, dtype=np.float64)
     return X[:, None] if X.ndim == 1 else X
+
+
+def _load_forced_splits(path):
+    """forcedsplits_filename: the nested JSON of forced splits, or None."""
+    if not path:
+        return None
+    import json
+    with open(path) as f:
+        return json.load(f)
+
+
+def _parse_interaction_constraints(ic):
+    """config.h interaction_constraints: LightGBM's string form
+    "[0,1,2],[2,3]" or a list of index lists; a list of lists or None."""
+    if ic is None or ic == "":
+        return None
+    if isinstance(ic, str):
+        import json
+        return json.loads(f"[{ic}]")
+    return [list(s) for s in ic]
+
+
+def _cegb_config(p, num_features):
+    """The tradeoff-scaled CEGB penalties of the parameters
+    (cost_effective_gradient_boosting.hpp; gbdt.py:597-621): a dict with
+    'coupled' (p,), 'split' and 'lazy' (p,) or None, or None when CEGB is
+    off."""
+    coupled = p.get("cegb_penalty_feature_coupled")
+    lazy = p.get("cegb_penalty_feature_lazy")
+    if coupled is None and lazy is None \
+            and float(p["cegb_penalty_split"]) <= 0.0:
+        return None
+    tr = float(p["cegb_tradeoff"])
+    out = {"coupled": np.zeros(num_features), "lazy": None,
+           "split": tr * float(p["cegb_penalty_split"])}
+    for key, name in (("coupled", "cegb_penalty_feature_coupled"),
+                      ("lazy", "cegb_penalty_feature_lazy")):
+        v = p.get(name)
+        if v is not None:
+            v = np.asarray(v, dtype=np.float64)
+            if len(v) != num_features:
+                raise ValueError(f"{name} must have one entry per feature")
+            out[key] = tr * v
+    return out
 
 
 class _RunningScore:
@@ -308,7 +359,7 @@ class _RunningScore:
     `predict(num_iteration=k, raw_score=True)` bit for bit."""
 
     def __init__(self, booster, data):
-        self.X = _raw_X(data)
+        self.X = booster._prep_X(data)
         self.F = [np.zeros(len(self.X)) for _ in range(booster._nsets)]
         self.lag = None
         self.k = 0
@@ -357,7 +408,17 @@ class Booster:
             device = gp_model.device
         self.device = resolve_device(device)
         self.train_set = train_set
+        self._pandas_categorical = getattr(train_set, "pandas_categorical",
+                                           None)
         self.gp_model = gp_model
+        raw = {_PARAM_ALIASES.get(k, k) for k in (params or {})}
+        if not train_set._constructed and raw & {"use_missing",
+                                                 "zero_as_missing"}:
+            # the missing-value handling comes with the train parameters
+            # when the Dataset was built without its own (config.h
+            # use_missing; gbdt.py:564-569)
+            train_set.use_missing = bool(p["use_missing"])
+            train_set.zero_as_missing = bool(p["zero_as_missing"])
         train_set.construct()
         self.n = train_set.num_data
         y = train_set.get_label()
@@ -380,6 +441,7 @@ class Booster:
             raise NotImplementedError(
                 "a non-Gaussian objective, bagging or feature_fraction on a "
                 "parallel tree learner is not ported yet (ROADMAP A15)")
+        cegb = _cegb_config(p, train_set.num_features)
         self.learner = SerialTreeLearner(
             train_set, num_leaves=int(p["num_leaves"]),
             max_depth=int(p["max_depth"]),
@@ -389,7 +451,20 @@ class Booster:
             min_gain_to_split=float(p["min_gain_to_split"]),
             device=self.device,
             parallel_mode=_TREE_LEARNERS[str(p["tree_learner"])],
-            top_k=int(p["top_k"]), group=group)
+            top_k=int(p["top_k"]), group=group,
+            monotone_constraints=p["monotone_constraints"],
+            path_smooth=float(p["path_smooth"]), cegb=cegb,
+            extra_trees=bool(p["extra_trees"]),
+            forced_splits=_load_forced_splits(p["forcedsplits_filename"]),
+            cat_params=(float(p["cat_smooth"]), float(p["cat_l2"]),
+                        float(p["max_cat_threshold"]),
+                        float(p["min_data_per_group"])),
+            interaction_constraints=_parse_interaction_constraints(
+                p["interaction_constraints"]))
+        # CEGB's model-wide record of the features split on (coupled
+        # penalty)
+        self._cegb_used = None if cegb is None \
+            else np.zeros(self.learner.p, dtype=np.float32)
         self.trees = []
         # a likelihood with two predictor sets (num_sets_fixed_effects = 2,
         # c_api.cpp:132): two trees a round, one per block, interleaved in
@@ -851,6 +926,15 @@ class Booster:
             if node is not None:
                 tree.leaf_value[node] = v_
 
+    def _note_cegb_usage(self, tree):
+        """Record the features the model has split on, for the coupled
+        CEGB penalty (cost_effective_gradient_boosting.hpp:93-103
+        UpdateUsed; gbdt.py:1477)."""
+        if self._cegb_used is None:
+            return
+        nn = tree.num_nodes
+        self._cegb_used[tree.split_feature[:nn][~tree.is_leaf[:nn]]] = 1.0
+
     def _momentum_mu(self, i):
         p = self.params
         return _nesterov_schedule(i, int(p["momentum_schedule_version"]),
@@ -880,7 +964,11 @@ class Booster:
         for k in range(K):
             blk = slice(k * n, (k + 1) * n)
             tree, slot_of_row, leaf_value_of_slot = self.learner.train(
-                grad[blk], hess[blk], row_mask=row_mask, feat_mask=feat_mask)
+                grad[blk], hess[blk], row_mask=row_mask, feat_mask=feat_mask,
+                cegb_used=self._cegb_used,
+                extra_seed=int(self.params["extra_seed"])
+                + 131 * len(self.trees))
+            self._note_cegb_usage(tree)
             if self.gp_model is None and self.objective_name in (
                     "l1", "quantile", "mape"):
                 self._renew_leaf_values(tree, slot_of_row,
@@ -918,7 +1006,37 @@ class Booster:
             elif it > 1:
                 mu = self._momentum_mu(it)
                 F, lag = (1.0 + mu) * F - mu * lag, F
-        return F + self.trees[it].predict_raw(X), lag
+        return F + self._tree_predict(self.trees[it], X), lag
+
+    def _tree_leaf_index(self, tree, X):
+        """Leaf node index per raw row; with EFB bundles the rows are
+        re-encoded into the learner's bins, where the bundle splits live
+        (gbdt.py:2202-2208)."""
+        if getattr(self.train_set, "bundles", None):
+            return tree.leaf_index_binned(self.train_set.encode_raw(X))
+        return tree.leaf_index_raw(X)
+
+    def _tree_predict(self, tree, X):
+        """One tree's output on raw rows (`_tree_leaf_index`)."""
+        if getattr(self.train_set, "bundles", None):
+            return tree.leaf_value[self._tree_leaf_index(tree, X)]
+        return tree.predict_raw(X)
+
+    def _prep_X(self, data):
+        """Raw rows as the trees read them (gbdt.py:1910-1927): a pandas
+        frame coded with the training categories, then use_missing=False
+        maps NaN to 0 and zero_as_missing maps 0 to NaN, as the binning
+        did."""
+        if hasattr(data, "dtypes") and hasattr(data, "columns"):
+            from .dataset import _data_from_pandas
+            data = _data_from_pandas(
+                data, pandas_categorical=self._pandas_categorical)[0]
+        X = _raw_X(data)
+        if not self.params.get("use_missing", True):
+            X = np.nan_to_num(X, nan=0.0)
+        elif self.params.get("zero_as_missing", False):
+            X = np.where(X == 0.0, np.nan, X)
+        return X
 
     def _raw_predict(self, X, start_iteration, num_iteration, pred_early_stop,
                      pred_early_stop_freq, pred_early_stop_margin):
@@ -934,7 +1052,7 @@ class Booster:
                 or num_iteration <= 0 else int(num_iteration)
             Fk = [np.zeros(len(X)), np.zeros(len(X))]
             for i, tree in enumerate(self.trees[2 * s: 2 * (s + nit)]):
-                Fk[i % 2] = Fk[i % 2] + tree.predict_raw(X)
+                Fk[i % 2] = Fk[i % 2] + self._tree_predict(tree, X)
             if s == 0:
                 Fk = [Fk[0] + self.init_score, Fk[1] + self.init_score2]
             return np.concatenate(Fk)
@@ -962,10 +1080,10 @@ class Booster:
                         >= float(pred_early_stop_margin)]] = False
                     if not active.any():
                         break
-                F[active] += self.trees[it].predict_raw(X[active])
+                F[active] += self._tree_predict(self.trees[it], X[active])
         else:
             for it in used:
-                F = F + self.trees[it].predict_raw(X)
+                F = F + self._tree_predict(self.trees[it], X)
         if s == 0:
             # the init score belongs to iteration 0, so raw slices over
             # start_iteration sum to the full prediction
@@ -1001,11 +1119,27 @@ class Booster:
         / 'prior_samples' with the trees' fixed effect added (for a
         non-Gaussian model only with pred_latent, as the reference,
         gbdt.py:2117-2150)."""
-        if pred_contrib or pred_leaf:
-            raise NotImplementedError("pred_contrib and pred_leaf are not "
-                                      "ported yet (ROADMAP A12)")
+        X = self._prep_X(data)
+        if pred_leaf or pred_contrib:
+            K = self._nsets
+            nit = num_iteration if num_iteration and num_iteration > 0 \
+                else len(self.trees) // K - int(start_iteration)
+            used = self.trees[K * int(start_iteration):
+                              K * (int(start_iteration) + int(nit))]
+            if pred_leaf:
+                # the leaf node index of every row in every tree used
+                # (basic.py predict pred_leaf; gbdt.py:1933-1942)
+                return np.stack([self._tree_leaf_index(t, X) for t in used],
+                                axis=1).astype(np.int32)
+            # TreeSHAP (gbdt.py:1943-1966): (n, p + 1) per predictor block,
+            # the expected value last; the init scores belong to iteration 0
+            mats = [self._shap_matrix(used[k::K], X) for k in range(K)]
+            if int(start_iteration) == 0:
+                for k, c in enumerate((self.init_score, self.init_score2)[:K]):
+                    mats[k][:, -1] += c
+            return np.concatenate(mats, axis=1)
         F_pred = self._raw_predict(
-            _raw_X(data), start_iteration, num_iteration, pred_early_stop,
+            X, start_iteration, num_iteration, pred_early_stop,
             pred_early_stop_freq, pred_early_stop_margin)
         return self._predict_output(
             F_pred, raw_score=raw_score, pred_latent=pred_latent,
@@ -1018,6 +1152,62 @@ class Booster:
             cov_pars=cov_pars, sample_posterior=sample_posterior,
             sample_prior=sample_prior, num_post_samples=num_post_samples,
             num_prior_samples=num_prior_samples, seed=seed)
+
+    def _shap_matrix(self, used, X):
+        """(n, p + 1) TreeSHAP contributions of the trees `used` on raw rows
+        X, the expected value last (gbdt.py:1838-1889; the native
+        gpb_tree_shap). With EFB the trees are read in the learner's bins
+        (a numeric feature's missing bin as NaN, so that it follows the
+        split's default direction, as the bins do) and each bundle
+        column's attribution goes to the row's active member, split evenly
+        when none is. A categorical split reads one more column, whether
+        the row goes left there, whose attribution goes to its feature:
+        the rows sum to the prediction, and a feature split once on a
+        path gets its exact TreeSHAP value."""
+        from ..native import tree_shap
+        ds = self.train_set
+        bundles = getattr(ds, "bundles", None)
+        if bundles:
+            bins = ds.encode_raw(X)
+            Xs = bins.astype(np.float64)
+            for lj, j in enumerate(ds.kept_features):
+                m = ds.mappers[j]
+                if not getattr(m, "is_categorical", False) \
+                        and getattr(m, "has_nan", False):
+                    Xs[bins[:, lj] == m.nan_bin, lj] = np.nan
+        else:
+            Xs = X
+        n, ps = Xs.shape
+        phi_s = np.zeros((n, ps + 1))
+        for tree in used:
+            shadow, Xe, back = _shap_tree(tree, Xs, bool(bundles))
+            if not back:
+                tree_shap(shadow, Xe, phi_s)
+                continue
+            phi_e = np.zeros((n, Xe.shape[1] + 1))
+            tree_shap(shadow, Xe, phi_e)
+            phi_s[:, :ps] += phi_e[:, :ps]
+            phi_s[:, -1] += phi_e[:, -1]
+            for k, f in enumerate(back):
+                phi_s[:, f] += phi_e[:, ps + k]
+        if not bundles:
+            return phi_s
+        phi = np.zeros((n, X.shape[1] + 1))
+        kept = ds.kept_features
+        for lj, j in enumerate(kept):
+            phi[:, j] = phi_s[:, lj]
+        for bi, b in enumerate(bundles):
+            col = phi_s[:, len(kept) + bi]
+            members = np.asarray(b.feature_ids)
+            active = np.isfinite(X[:, members]) & (X[:, members] != 0.0)
+            any_active = active.any(axis=1)
+            first = np.argmax(active, axis=1)
+            for mi, f in enumerate(members):
+                hit = any_active & (first == mi)
+                phi[hit, f] += col[hit]
+                phi[~any_active, f] += col[~any_active] / len(members)
+        phi[:, -1] = phi_s[:, -1]
+        return phi
 
     def _predict_output(self, F_pred, raw_score=False, pred_latent=False,
                         group_data_pred=None, group_rand_coef_data_pred=None,
@@ -1179,6 +1369,29 @@ class Booster:
         }
         if self._binary_lw is not None:
             d["binary_label_weights"] = list(self._binary_lw)
+        if self._pandas_categorical:
+            d["pandas_categorical"] = {str(k): v for k, v
+                                       in self._pandas_categorical.items()}
+        ds = self.train_set
+        if getattr(ds, "bundles", None):
+            # the EFB encoder (gbdt.py:2306-2314), and what the JAX
+            # package's dict leaves out: which kept features have a missing
+            # bin, and a categorical kept feature's categories
+            kept = list(ds.kept_features)
+            cats = {str(j): np.asarray(ds.mappers[j].categories).tolist()
+                    for j in kept
+                    if getattr(ds.mappers[j], "is_categorical", False)}
+            d["efb"] = {
+                "kept_features": kept,
+                "kept_upper_bounds": [
+                    np.asarray(getattr(ds.mappers[j], "upper_bounds",
+                                       [])).tolist() for j in kept],
+                "kept_has_nan": [bool(getattr(ds.mappers[j], "has_nan",
+                                              False)) for j in kept],
+                "kept_categories": cats,
+                "bundles": [b.to_dict() for b in ds.bundles],
+                "num_features": ds.num_features,
+            }
         if self._lik is not None:
             d["likelihood_aux"] = self._aux.cpu().numpy().tolist()
         if self.gp_model is not None and self.gp_model.model_has_been_fitted:
@@ -1193,8 +1406,7 @@ class Booster:
         """Rebuild a booster that predicts from a model dict (gbdt.py:2330
         _load), with its GP model, if it has one, on `device`."""
         from ..gp_model import GPModel
-        unsupported = [k for k in ("efb", "init_scores", "pandas_categorical")
-                       if d.get(k)]
+        unsupported = [k for k in ("init_scores",) if d.get(k)]
         laplace = bool(d.get("has_gp_model")) \
             and d["gp_model"]["likelihood"] not in ("gaussian", "regression")
         self._nsets = int(d.get("num_sets", 1))
@@ -1204,7 +1416,7 @@ class Booster:
                     "num_sets_fe", 1) == 2):
             # multi-output boosting without a two-predictor GP model
             # (multiclass, mean_scale_regression)
-            unsupported.append("num_sets (ROADMAP A12)")
+            unsupported.append("num_sets (ROADMAP A12b)")
         if d["objective"] in _UNPORTED_OBJECTIVES:
             unsupported.append(f"objective '{d['objective']}'")
         if unsupported:
@@ -1217,7 +1429,11 @@ class Booster:
         self.init_score2 = float(d.get("init_score2", 0.0))
         self.objective_name = d["objective"]
         self.trees = [Tree.from_dict(td) for td in d["trees"]]
-        self.train_set = None
+        self._pandas_categorical = {
+            int(k): v for k, v in d.get("pandas_categorical", {}).items()} \
+            or None
+        self.train_set = _efb_dataset(d["efb"], self.trees) \
+            if d.get("efb") else None
         self.current_iteration_ = len(self.trees) // self._nsets
         self.device = resolve_device(device)
         self.gp_model = None
@@ -1246,6 +1462,82 @@ class Booster:
 
 def _full(t, value):
     return torch.full_like(t, value)
+
+
+def _efb_dataset(efb, trees):
+    """A bare Dataset that carries a model dict's EFB encoder
+    (gbdt.py:2345-2367): the kept features' mappers and the bundles. A
+    dict without "kept_has_nan" (the JAX package's) gives a kept feature
+    the missing bin that the trees' splits on it record."""
+    from .dataset import (BinMapper, CategoricalBinMapper, Dataset,
+                          FeatureBundle)
+    ds = Dataset.__new__(Dataset)
+    ds.bundles = [FeatureBundle.from_dict(bd) for bd in efb["bundles"]]
+    ds.kept_features = list(efb["kept_features"])
+    ds.num_features = efb["num_features"]
+    ds.categorical_feature = []
+    mappers = [None] * ds.num_features
+    cats = efb.get("kept_categories") or {}
+    has_nan = efb.get("kept_has_nan")
+    if has_nan is None:
+        split_nan = {int(t.split_feature[i]) for t in trees
+                     for i in range(t.num_nodes)
+                     if not t.is_leaf[i] and t.missing_bin[i] >= 0}
+        has_nan = [lj in split_nan for lj in range(len(ds.kept_features))]
+    for j, ub, nan in zip(ds.kept_features, efb["kept_upper_bounds"],
+                          has_nan):
+        if str(j) in cats:
+            m = CategoricalBinMapper.__new__(CategoricalBinMapper)
+            m.categories = np.asarray(cats[str(j)], dtype=np.float64)
+            m.num_bins = len(m.categories) + 1
+            m.other_bin = m.nan_bin = m.num_bins - 1
+            m.has_nan = False
+            ds.categorical_feature.append(j)
+        else:
+            m = BinMapper.__new__(BinMapper)
+            m.upper_bounds = np.asarray(ub)
+            m.has_nan = bool(nan)
+            m.num_bins = len(m.upper_bounds) + int(m.has_nan)
+            m.nan_bin = m.num_bins - 1 if m.has_nan else -1
+        mappers[j] = m
+    for b in ds.bundles:
+        for fid, bm in zip(b.feature_ids, b.mappers):
+            mappers[fid] = bm
+    ds.mappers = mappers
+    ds._constructed = True
+    return ds
+
+
+def _shap_tree(tree, Xs, binned):
+    """(shadow tree, input, features) for `native.tree_shap`: the tree's
+    arrays with thresholds in the bins (binned) or the raw values, and
+    each categorical split rewritten as a split at 0.5 on one more column
+    of Xs, 0 where the row goes left there; `features` lists the feature
+    of each added column."""
+    import types
+    nn = tree.num_nodes
+    sf = tree.split_feature[:nn].copy()
+    thr = tree.threshold_bin[:nn].astype(np.float64) if binned \
+        else tree.threshold_real[:nn].copy()
+    cols, back = [], []
+    p = Xs.shape[1]
+    for node in sorted(tree.cat_left_bins if binned
+                       else tree.cat_left_values):
+        x = Xs[:, sf[node]]
+        if binned:
+            lb = tree.cat_left_bins[node]
+            left = lb[np.clip(x.astype(np.int64), 0, len(lb) - 1)]
+        else:
+            left = np.isin(x, tree.cat_left_values[node]) & np.isfinite(x)
+        cols.append(np.where(left, 0.0, 1.0))
+        back.append(int(sf[node]))
+        sf[node] = p + len(back) - 1
+        thr[node] = 0.5
+    shadow = types.SimpleNamespace(
+        num_nodes=nn, split_feature=sf, threshold_real=thr, left=tree.left,
+        right=tree.right, is_leaf=tree.is_leaf, leaf_value=tree.leaf_value,
+        cover=tree.cover, default_left=tree.default_left)
+    return shadow, np.column_stack([Xs] + cols) if cols else Xs, back
 
 
 def train(params, train_set, num_boost_round=100, gp_model=None,
@@ -1303,7 +1595,7 @@ def train(params, train_set, num_boost_round=100, gp_model=None,
     chosen_canon = _METRIC_ALIASES.get(chosen, chosen) if chosen else None
     if chosen_canon in _RANK_METRICS:
         raise NotImplementedError(f"metric '{chosen}' (ranking) is not "
-                                  "ported yet (ROADMAP A12)")
+                                  "ported yet (ROADMAP A12b)")
     if vsets and chosen_canon in _GP_TRAIN_METRICS and gp_model is None:
         raise ValueError(f"metric '{chosen}' requires a gp_model")
     # each validation set's running raw score, advanced once a round

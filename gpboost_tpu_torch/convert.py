@@ -50,6 +50,6 @@ def booster_from_jax_dict(d, device=None):
     with a two-predictor likelihood's interleaved trees (num_sets = 2:
     even trees the first block, odd ones the second); any other model,
     among them multi-output boosting without a GP model (multiclass,
-    mean_scale_regression; ROADMAP A12), raises NotImplementedError."""
+    mean_scale_regression; ROADMAP A12b), raises NotImplementedError."""
     booster = Booster(model_dict=d, device=device)
     return booster, booster.gp_model

@@ -33,6 +33,11 @@ namespace gpb {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBins = 4096;             // one feature's histogram: 96 KB
+// hist_segment takes more bins (an EFB bundle of many features) in
+// windows of at most kMaxBins: each block owns one window of its features'
+// bins and skips the codes outside it
+constexpr int kWindowBins = kMaxBins;
+constexpr int kMaxSegmentBins = 1 << 20;
 constexpr int kHistBudget = 48 * 1024;     // shared histogram bytes a block
 constexpr int kBlocksPerSm = 2;
 // bins a launch may flush to the global accumulator: row blocks per
@@ -109,22 +114,27 @@ __device__ inline void add_row(unsigned* h, int num_bins, int b,
 
 // Called by every thread of every block after its last add (and a
 // __syncthreads). Adds the block's non-zero bins of features
-// [f0, f0 + g) into acc, then takes a ticket on its feature group's
-// counter. The group's last block converts the group's accumulator to f32
-// into out and zeroes it and the counter again, so the cached scratch is
-// ready for the next launch on the stream.
-__device__ inline void finish(const unsigned* s_hist, bool has_rows,
-                              int f0, int g, int num_bins, long long* acc,
-                              int* counter, int blocks_in_group,
-                              const Scale& sc, float* out) {
+// [f0, f0 + g), bins [w0, w0 + wn) of num_bins, into acc, then takes a
+// ticket on its (feature group, window)'s counter. The last block of the
+// group and window converts that part of the accumulator to f32 into out
+// and zeroes it and the counter again, so the cached scratch is ready for
+// the next launch on the stream. s_hist holds wn bins a channel.
+__device__ inline void finish_window(const unsigned* s_hist, bool has_rows,
+                                     int f0, int g, int w0, int wn,
+                                     int num_bins, long long* acc,
+                                     int* counter, int blocks_in_group,
+                                     const Scale& sc, float* out) {
   __shared__ int s_last;
-  const int len = g * 3 * num_bins;
-  long long* acc_g = acc + (long long)f0 * 3 * num_bins;
+  const int len = g * 3 * wn;
+  // entry j of the window: row j / wn of the group's (feature, channel)
+  // rows, bin w0 + j % wn
+  long long* acc_g = acc + (long long)f0 * 3 * num_bins + w0;
   if (has_rows) {
     for (int j = threadIdx.x; j < len; j += blockDim.x) {
-      const int w = j / num_bins * 2 * num_bins + j % num_bins;
-      const u64 v = (u64)s_hist[w] | ((u64)s_hist[w + num_bins] << 32);
-      if (v) atomicAdd((u64*)&acc_g[j], v);
+      const int r = j / wn, b = j - r * wn;
+      const int w = r * 2 * wn + b;
+      const u64 v = (u64)s_hist[w] | ((u64)s_hist[w + wn] << 32);
+      if (v) atomicAdd((u64*)&acc_g[(long long)r * num_bins + b], v);
     }
   }
   __threadfence();
@@ -134,27 +144,49 @@ __device__ inline void finish(const unsigned* s_hist, bool has_rows,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  float* out_g = out + (long long)f0 * 3 * num_bins;
+  float* out_g = out + (long long)f0 * 3 * num_bins + w0;
   constexpr int kUnroll = 8;                 // loads in flight per thread
   for (int j0 = 0; j0 < len; j0 += kUnroll * blockDim.x) {
     long long v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u * blockDim.x + threadIdx.x;
-      v[u] = j < len ? __ldcg(&acc_g[j]) : 0;
+      const int r = j / wn;
+      v[u] = j < len ? __ldcg(&acc_g[(long long)r * num_bins + j - r * wn])
+                     : 0;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u * blockDim.x + threadIdx.x;
       if (j >= len) break;
-      const int c = (j / num_bins) % 3;
-      out_g[j] = sc.finite[c]
-                     ? __double2float_rn(__ll2double_rn(v[u]) * sc.down[c])
-                     : __int_as_float(0x7fc00000);   // quiet NaN
-      acc_g[j] = 0;
+      const int r = j / wn;
+      const long long at = (long long)r * num_bins + j - r * wn;
+      const int c = r % 3;
+      out_g[at] = sc.finite[c]
+                      ? __double2float_rn(__ll2double_rn(v[u]) * sc.down[c])
+                      : __int_as_float(0x7fc00000);   // quiet NaN
+      acc_g[at] = 0;
     }
   }
   if (threadIdx.x == 0) *counter = 0;
+}
+
+// finish_window over all num_bins bins of the features.
+__device__ inline void finish(const unsigned* s_hist, bool has_rows,
+                              int f0, int g, int num_bins, long long* acc,
+                              int* counter, int blocks_in_group,
+                              const Scale& sc, float* out) {
+  finish_window(s_hist, has_rows, f0, g, 0, num_bins, num_bins, acc,
+                counter, blocks_in_group, sc, out);
+}
+
+// Bin windows of a histogram of num_bins bins: (count, bins per window),
+// one window up to kWindowBins, else as few as hold at most kWindowBins
+// each, evenly sized.
+inline int plan_windows(int num_bins, int* win_bins) {
+  const int windows = (num_bins + kWindowBins - 1) / kWindowBins;
+  *win_bins = (num_bins + windows - 1) / windows;
+  return windows;
 }
 
 // Features per block: as many whole histograms as kHistBudget holds,

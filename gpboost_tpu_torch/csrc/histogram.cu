@@ -39,7 +39,16 @@
 //   3. adds each row once into the shared int64 histogram of each feature
 //      of its group (32-bit atomicAdd on each int64's two halves).
 // Then the non-zero bins go to the global int64 accumulator and the
-// group's last block converts to f32 (hist_common.cuh finish).
+// group's last block converts to f32 (hist_common.cuh finish_window).
+//
+// More bins than one block's shared histogram holds (kMaxBins, 4096: an
+// EFB bundle of many features, int32 codes) are split into windows of at
+// most kWindowBins (hist_common.cuh plan_windows): the grid's y axis runs
+// over (feature group, window), each block adds only the codes inside its
+// window and flushes and finishes that window alone. The sums are the same
+// integers, so the bits do not depend on the windows; each window's blocks
+// read the segment's codes again, a simple design whose speed is later
+// work.
 
 #include "hist_common.cuh"
 
@@ -67,21 +76,23 @@ hist_segment_kernel(const BinT* __restrict__ bins,
                     const float* __restrict__ amax, int log2_rows,
                     const int32_t* __restrict__ seg_dev, long long s0_host,
                     long long cnt_host, long long n, int p, int num_bins,
-                    int group_feats, int tile, int staged,
-                    long long* __restrict__ acc, int* __restrict__ counters,
-                    float* __restrict__ out) {
+                    int group_feats, int windows, int win_bins, int tile,
+                    int staged, long long* __restrict__ acc,
+                    int* __restrict__ counters, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   long long* s_q = (long long*)smem;                        // 3 x tile
   unsigned* s_hist = (unsigned*)(s_q + 3 * tile);
   const size_t hist_bytes =
-      (size_t)hist_words(group_feats, num_bins) * sizeof(unsigned);
+      (size_t)hist_words(group_feats, win_bins) * sizeof(unsigned);
   unsigned char* s_codes =
       (unsigned char*)s_hist + ((hist_bytes + 15) & ~(size_t)15);
   __shared__ Scale sc;
 
   const int tid = threadIdx.x;
-  const int f0 = blockIdx.y * group_feats;
+  const int f0 = (blockIdx.y / windows) * group_feats;
   const int g = min(group_feats, p - f0);
+  const int w0 = (blockIdx.y % windows) * win_bins;   // this block's bins
+  const int wn = min(win_bins, num_bins - w0);
   long long s0 = seg_dev ? (long long)seg_dev[0] : s0_host;
   long long cnt = seg_dev ? (long long)seg_dev[1] : cnt_host;
   s0 = s0 < 0 ? 0 : (s0 > n ? n : s0);
@@ -89,7 +100,7 @@ hist_segment_kernel(const BinT* __restrict__ bins,
   const long long tiles = (cnt + tile - 1) / tile;
   const bool has_rows = blockIdx.x < tiles;
   load_scale(&sc, amax, log2_rows);
-  if (has_rows) zero_hist(s_hist, hist_words(g, num_bins));
+  if (has_rows) zero_hist(s_hist, hist_words(g, wn));
   __syncthreads();
 
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -123,12 +134,12 @@ hist_segment_kernel(const BinT* __restrict__ bins,
       if ((q0 | q1 | q2) == 0) continue;
       const BinT b =
           *(const BinT*)(src + ((long long)i * p + f0 + fl) * sizeof(BinT));
-      add_row(s_hist + fl * 6 * num_bins, num_bins, (int)b, q0, q1, q2);
+      add_row(s_hist + fl * 6 * wn, wn, (int)b - w0, q0, q1, q2);
     }
     __syncthreads();                             // before the next tile
   }
-  finish(s_hist, has_rows, f0, g, num_bins, acc, counters + blockIdx.y,
-         gridDim.x, sc, out);
+  finish_window(s_hist, has_rows, f0, g, w0, wn, num_bins, acc,
+                counters + blockIdx.y, gridDim.x, sc, out);
 }
 
 template <typename BinT>
@@ -136,15 +147,16 @@ cudaError_t launch(int device, dim3 grid, size_t smem, cudaStream_t stream,
                    const void* bins, const float* stats, const float* amax,
                    int log2_rows, const int32_t* seg_dev, long long s0_host,
                    long long cnt_host, long long n, int p, int num_bins,
-                   int group_feats, int tile, int staged, long long* acc,
-                   int* counters, float* out) {
+                   int group_feats, int windows, int win_bins, int tile,
+                   int staged, long long* acc, int* counters, float* out) {
   static size_t limit[64];
   auto kernel = hist_segment_kernel<BinT>;
   const cudaError_t err = allow_smem(kernel, device, smem, limit);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
       (const BinT*)bins, stats, amax, log2_rows, seg_dev, s0_host, cnt_host,
-      n, p, num_bins, group_feats, tile, staged, acc, counters, out);
+      n, p, num_bins, group_feats, windows, win_bins, tile, staged, acc,
+      counters, out);
   return cudaGetLastError();
 }
 
@@ -156,15 +168,17 @@ extern "C" {
 // seg_dev, when not null, overrides s0_host / cnt_host and the grid is
 // sized for the largest segment, n rows; otherwise for cnt_host rows.
 // amax (3,) f32 on the device; log2_rows = L with n <= 2^L. acc holds
-// p * 3 * num_bins int64 and counters p int32, both zero, and both are
-// zero again when the launch ends.
+// p * 3 * num_bins int64 and counters p * windows int32 (windows =
+// ceil(num_bins / kWindowBins)), both zero, and both are zero again when
+// the launch ends.
 int gpb_hist_segment(int device, const void* bins, int bins_is_u8,
                      const float* stats, const float* amax, int log2_rows,
                      const int32_t* seg_dev, long long s0_host,
                      long long cnt_host, long long n, int p, int num_bins,
                      long long* acc, int* counters, float* out,
                      void* stream_ptr) {
-  if (p < 1 || p > 65535 || num_bins < 1 || num_bins > kMaxBins || n < 0)
+  if (p < 1 || p > 65535 || num_bins < 1 || num_bins > kMaxSegmentBins
+      || n < 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -172,25 +186,30 @@ int gpb_hist_segment(int device, const void* bins, int bins_is_u8,
   const int code_bytes = bins_is_u8 ? 1 : 4;
   bool staged = false;
   const int tile_max = max_tile_rows(p, code_bytes, &staged);
+  int win_bins = num_bins;
+  const int windows = plan_windows(num_bins, &win_bins);
   int group_feats = 1;
-  const int groups = plan_groups(p, num_bins, &group_feats);
+  const int groups = plan_groups(p, win_bins, &group_feats);
+  if ((long long)groups * windows > 65535) return (int)cudaErrorInvalidValue;
   int tile = 32, row_blocks = 1;
-  plan_rows(device, groups, p, num_bins, seg_dev ? n : cnt_host, 32,
-            tile_max, &tile, &row_blocks);
-  const dim3 grid(row_blocks, groups);
+  plan_rows(device, groups * windows, p, num_bins, seg_dev ? n : cnt_host,
+            32, tile_max, &tile, &row_blocks);
+  const dim3 grid(row_blocks, groups * windows);
   const size_t hist_bytes =
-      (size_t)hist_words(group_feats, num_bins) * sizeof(unsigned);
+      (size_t)hist_words(group_feats, win_bins) * sizeof(unsigned);
   const size_t smem = 3 * (size_t)tile * sizeof(long long)
                       + ((hist_bytes + 15) & ~(size_t)15)
                       + (staged ? (size_t)tile * p * code_bytes + 32 : 0);
   if (bins_is_u8)
     err = launch<uint8_t>(device, grid, smem, stream, bins, stats, amax, log2_rows,
                           seg_dev, s0_host, cnt_host, n, p, num_bins,
-                          group_feats, tile, staged, acc, counters, out);
+                          group_feats, windows, win_bins, tile, staged, acc,
+                          counters, out);
   else
     err = launch<int32_t>(device, grid, smem, stream, bins, stats, amax, log2_rows,
                           seg_dev, s0_host, cnt_host, n, p, num_bins,
-                          group_feats, tile, staged, acc, counters, out);
+                          group_feats, windows, win_bins, tile, staged, acc,
+                          counters, out);
   return (int)err;
 }
 

@@ -52,7 +52,7 @@ _METRIC_ALIASES = {
 _MAXIMIZE_METRICS = {"auc", "ndcg", "map"}
 
 # metrics needing query information (rank_metric.hpp, map_metric.hpp);
-# they wait with the ranking objectives (ROADMAP A12)
+# they wait with the ranking objectives (ROADMAP A12b)
 _RANK_METRICS = {"ndcg", "map"}
 
 # GP-routed metrics evaluated on the training data from the GP model's
@@ -93,7 +93,7 @@ def _metric_fn(name):
     name = _METRIC_ALIASES.get(name, name)
     if name in _RANK_METRICS:
         raise NotImplementedError(f"metric '{name}' (ranking) is not ported "
-                                  "yet (ROADMAP A12)")
+                                  "yet (ROADMAP A12b)")
     if name == "mae":
         return lambda y, p: float(np.mean(np.abs(y - p)))
     if name == "l2":

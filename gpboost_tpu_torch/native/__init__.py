@@ -2,8 +2,9 @@
 
 Both packages load the same source, built on demand with g++ into the same
 content-hashed path (native/build/libgpb_native-<hash>.so), so they bin
-features and search Vecchia neighbours alike. Every entry point keeps the
-reference's numpy fallback for hosts without a compiler.
+features, search Vecchia neighbours and take TreeSHAP values alike. Every
+entry point keeps the reference's numpy fallback for hosts without a
+compiler.
 """
 
 import ctypes
@@ -60,6 +61,14 @@ def _load():
         np.ctypeslib.ndpointer(np.float64), ctypes.c_longlong,
         ctypes.c_int, np.ctypeslib.ndpointer(np.int64),
         np.ctypeslib.ndpointer(np.uint8)]
+    lib.gpb_tree_shap.restype = None
+    lib.gpb_tree_shap.argtypes = [
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.float64),
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
+        np.ctypeslib.ndpointer(np.uint8), np.ctypeslib.ndpointer(np.float64),
+        np.ctypeslib.ndpointer(np.float64), np.ctypeslib.ndpointer(np.uint8),
+        np.ctypeslib.ndpointer(np.float64), ctypes.c_longlong, ctypes.c_int,
+        np.ctypeslib.ndpointer(np.float64)]
     return lib
 
 
@@ -91,3 +100,99 @@ def nn_preceding_2d(coords, m):
     mask = np.empty((n, m), dtype=np.uint8)
     lib.gpb_nn_preceding_2d(coords, n, m, idx, mask)
     return idx, mask.astype(bool)
+
+
+def tree_shap(tree, X, phi):
+    """Add one tree's exact TreeSHAP attributions (Lundberg et al. 2018)
+    to phi (n, p + 1), the tree's expected value to its last column: the
+    native gpb_tree_shap, or the same algorithm in Python without a
+    compiler. tree: split_feature, threshold_real, left, right, is_leaf,
+    leaf_value, cover and default_left arrays and num_nodes; a row goes
+    left where x <= threshold, a missing x where default_left."""
+    nn = tree.num_nodes
+    sf = np.ascontiguousarray(tree.split_feature[:nn], dtype=np.int32)
+    thr = np.ascontiguousarray(tree.threshold_real[:nn], dtype=np.float64)
+    lc = np.ascontiguousarray(tree.left[:nn], dtype=np.int32)
+    rc = np.ascontiguousarray(tree.right[:nn], dtype=np.int32)
+    il = np.ascontiguousarray(tree.is_leaf[:nn], dtype=np.uint8)
+    lv = np.ascontiguousarray(tree.leaf_value[:nn], dtype=np.float64)
+    cov = np.ascontiguousarray(tree.cover[:nn], dtype=np.float64)
+    dl = np.ascontiguousarray(tree.default_left[:nn], dtype=np.uint8)
+    X = np.ascontiguousarray(X, dtype=np.float64)
+    n, p = X.shape
+    if phi.shape != (n, p + 1) or phi.dtype != np.float64 \
+            or not phi.flags.c_contiguous:
+        raise ValueError("phi must be a C-contiguous float64 (n, p + 1)")
+    lib = _load()
+    if lib is not None:
+        lib.gpb_tree_shap(sf, thr, lc, rc, il, lv, cov, dl, X, n, p, phi)
+        return
+
+    def expected(j):
+        if il[j]:
+            return lv[j]
+        return (cov[lc[j]] * expected(lc[j])
+                + cov[rc[j]] * expected(rc[j])) / cov[j]
+
+    def extend(path, zf, of, fi):
+        path = path + [[fi, zf, of, 1.0 if not path else 0.0]]
+        ud = len(path) - 1
+        for i in range(ud - 1, -1, -1):
+            path[i + 1][3] += of * path[i][3] * (i + 1) / (ud + 1)
+            path[i][3] = zf * path[i][3] * (ud - i) / (ud + 1)
+        return path
+
+    def unwind(path, pi):
+        ud = len(path) - 1
+        of, zf = path[pi][2], path[pi][1]
+        next_one = path[ud][3]
+        path = [list(e) for e in path]
+        for i in range(ud - 1, -1, -1):
+            if of != 0:
+                tmp = path[i][3]
+                path[i][3] = next_one * (ud + 1) / ((i + 1) * of)
+                next_one = tmp - path[i][3] * zf * (ud - i) / (ud + 1)
+            else:
+                path[i][3] = path[i][3] * (ud + 1) / (zf * (ud - i))
+        for i in range(pi, ud):
+            path[i][:3] = path[i + 1][:3]
+        return path[:-1]
+
+    def unwound_sum(path, pi):
+        ud = len(path) - 1
+        of, zf = path[pi][2], path[pi][1]
+        next_one = path[ud][3]
+        total = 0.0
+        for i in range(ud - 1, -1, -1):
+            if of != 0:
+                tmp = next_one * (ud + 1) / ((i + 1) * of)
+                total += tmp
+                next_one = path[i][3] - tmp * zf * (ud - i) / (ud + 1)
+            else:
+                total += path[i][3] / zf / ((ud - i) / (ud + 1))
+        return total
+
+    def recurse(j, x, phi_row, path, pzf, pof, pfi):
+        path = extend([list(e) for e in path], pzf, pof, pfi)
+        if il[j]:
+            ud = len(path) - 1
+            for i in range(1, ud + 1):
+                w = unwound_sum(path, i)
+                phi_row[path[i][0]] += w * (path[i][2] - path[i][1]) * lv[j]
+            return
+        f = sf[j]
+        xv = x[f]
+        go_left = (xv <= thr[j]) if np.isfinite(xv) else bool(dl[j])
+        hot, cold = (lc[j], rc[j]) if go_left else (rc[j], lc[j])
+        izf = iof = 1.0
+        pi = next((i for i, e in enumerate(path) if e[0] == f), None)
+        if pi is not None:
+            izf, iof = path[pi][1], path[pi][2]
+            path = unwind(path, pi)
+        recurse(hot, x, phi_row, path, cov[hot] / cov[j] * izf, iof, f)
+        recurse(cold, x, phi_row, path, cov[cold] / cov[j] * izf, 0.0, f)
+
+    ev = expected(0)
+    for i in range(n):
+        phi[i, p] += ev
+        recurse(0, X[i], phi[i], [], 1.0, 1.0, -1)

@@ -20,6 +20,7 @@ repeat that arithmetic in plain torch. On a CPU tensor a wrapper runs the
 plain version, the reference's one-hot einsum in float32.
 """
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -44,11 +45,20 @@ _BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# rows per block of the plain versions (the reference's non-TPU row block)
+# rows per block of the plain versions (the reference's non-TPU row block);
+# where a block's one-hot would pass _PLAIN_BLOCK_ELEMENTS (p * B > 16,384,
+# an EFB bundle of thousands of bins) they scatter-add instead
 _PLAIN_ROW_BLOCK = 8192
-# what the kernels take (csrc/hist_common.cuh kMaxBins; row offsets and
-# node ids are int32 on the learners' side)
-MAX_KERNEL_BINS = 4096
+_PLAIN_BLOCK_ELEMENTS = 2 ** 27
+# what the kernels take (row offsets and node ids are int32 on the
+# learners' side). hist_masked: one feature's shared histogram, at most
+# csrc/hist_common.cuh kMaxBins. hist_segment: any bin count that int32
+# codes hold, in windows of WINDOW_BINS (kWindowBins), up to
+# MAX_KERNEL_BINS (kMaxSegmentBins): 2^20 bins, a histogram and its int64
+# scratch of 12 bytes a (feature, channel, bin), 36 MB a feature
+MAX_MASKED_BINS = 4096
+WINDOW_BINS = 4096
+MAX_KERNEL_BINS = 2 ** 20
 MAX_ROWS = 2 ** 31 - 1
 
 
@@ -137,10 +147,16 @@ def _device_index(dev):
 
 
 # (device index, p, num_bins) -> (int64 accumulator (p * 3 * num_bins,),
-# int32 ticket counters (p,)): zero at rest; every launch leaves them zero
-# again, so one pair serves every launch of that shape on the device's
-# stream (launches on one device run in stream order)
+# int32 ticket counters (p * bin windows,)): zero at rest; every launch
+# leaves them zero again, so one pair serves every launch of that shape on
+# the device's stream (launches on one device run in stream order)
 _SCRATCH = {}
+
+
+def bin_windows(num_bins):
+    """The bin windows of a hist_segment launch (hist_common.cuh
+    plan_windows): 1 up to WINDOW_BINS bins."""
+    return -(-int(num_bins) // WINDOW_BINS)
 
 
 def _scratch(dev, p, num_bins):
@@ -148,7 +164,8 @@ def _scratch(dev, p, num_bins):
     if key not in _SCRATCH:
         _SCRATCH[key] = (
             torch.zeros(p * 3 * num_bins, dtype=torch.int64, device=dev),
-            torch.zeros(p, dtype=torch.int32, device=dev))
+            torch.zeros(p * bin_windows(num_bins), dtype=torch.int32,
+                        device=dev))
     return _SCRATCH[key]
 
 
@@ -254,11 +271,35 @@ def hist_block_fixed_point_reference(bins_T, stats_T, num_bins, amax=None):
                              num_bins, down, finite)
 
 
+def _one_hot_fits(p, num_bins):
+    return _PLAIN_ROW_BLOCK * p * num_bins <= _PLAIN_BLOCK_ELEMENTS
+
+
+def _scatter_hist(codes, stats, num_bins):
+    """(p, 3, num_bins) f32 sums of stats (m, 3) by codes (m, p), codes
+    outside [0, num_bins) nowhere: one float32 index_add_, the plain
+    versions' form where a one-hot would not fit."""
+    m, p = codes.shape
+    dev = codes.device
+    codes = codes.to(torch.int64)
+    valid = (codes >= 0) & (codes < num_bins)
+    key = torch.where(valid, codes + num_bins * torch.arange(p, device=dev),
+                      torch.full_like(codes, p * num_bins))
+    acc = torch.zeros((p * num_bins + 1, 3), dtype=torch.float32, device=dev)
+    acc.index_add_(0, key.reshape(-1),
+                   stats[:, None, :].expand(m, p, 3).reshape(-1, 3))
+    return acc[:-1].reshape(p, num_bins, 3).permute(0, 2, 1).contiguous()
+
+
 def hist_segment_plain(bins_pos, stats_pos, s0, cnt, num_bins):
     """Plain PyTorch version: the one-hot einsum of tree_learner.py:659-662
-    in float32, over row blocks of the segment. (p, 3, num_bins) f32."""
+    in float32, over row blocks of the segment (a float32 index_add_ where
+    p * num_bins passes 16,384). (p, 3, num_bins) f32."""
     s0, cnt = int(s0), int(cnt)
     p = bins_pos.shape[1]
+    if not _one_hot_fits(p, num_bins):
+        return _scatter_hist(bins_pos[s0:s0 + cnt],
+                             stats_pos[s0:s0 + cnt], num_bins)
     bvals = torch.arange(num_bins, dtype=torch.int32, device=bins_pos.device)
     acc = torch.zeros((p, 3, num_bins), dtype=torch.float32,
                       device=bins_pos.device)
@@ -276,12 +317,12 @@ def _check_amax(name, amax, dev):
         raise ValueError(f"{name}: amax must be (3,) float32 on {dev}")
 
 
-def _check_kernel_size(name, n, num_bins):
+def _check_kernel_size(name, n, num_bins, max_bins):
     if n > MAX_ROWS:
         raise ValueError(f"{name} takes at most {MAX_ROWS} rows, got {n}")
-    if num_bins > MAX_KERNEL_BINS:
-        raise ValueError(f"{name}'s kernel holds at most {MAX_KERNEL_BINS} "
-                         f"bins, got {num_bins}")
+    if num_bins > max_bins:
+        raise ValueError(f"{name}'s kernel holds at most {max_bins} bins, "
+                         f"got {num_bins}")
 
 
 def _check(bins_pos, stats_pos, num_bins):
@@ -334,7 +375,7 @@ def hist_segment(bins_pos, stats_pos, s0, cnt, num_bins, amax=None):
     if dev.type != "cuda":
         raise ValueError(f"hist_segment runs on cuda or cpu, not {dev.type}")
     n, p = bins_pos.shape
-    _check_kernel_size("hist_segment", n, num_bins)
+    _check_kernel_size("hist_segment", n, num_bins, MAX_KERNEL_BINS)
     _check_amax("hist_segment", amax, dev)
     if isinstance(s0, torch.Tensor):
         if cnt is None:
@@ -364,12 +405,16 @@ def hist_segment(bins_pos, stats_pos, s0, cnt, num_bins, amax=None):
             num_bins, acc.data_ptr(), counters.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     hist_segment.launches += 1
+    hist_segment.routes[("uint8" if bins_pos.dtype == torch.uint8
+                         else "int32", bin_windows(num_bins))] += 1
     return out
 
 
 # kernel launches since the last reset (chip_smoke.py reads it to show the
-# main path went through the kernel)
+# main path went through the kernel), and by route: (code type, bin
+# windows)
 hist_segment.launches = 0
+hist_segment.routes = collections.Counter()
 
 
 def _onehot_hist_T(bins_T, stats_T, weight, num_bins):
@@ -380,6 +425,9 @@ def _onehot_hist_T(bins_T, stats_T, weight, num_bins):
     bvals = torch.arange(num_bins, dtype=torch.int32, device=bins_T.device)
     acc = torch.zeros((p, 3, num_bins), dtype=torch.float32,
                       device=bins_T.device)
+    if not _one_hot_fits(p, num_bins):
+        s = stats_T if weight is None else stats_T * weight[None, :]
+        return _scatter_hist(bins_T.T, s.T, num_bins)
     for start in range(0, n, _PLAIN_ROW_BLOCK):
         stop = min(start + _PLAIN_ROW_BLOCK, n)
         s = stats_T[:, start:stop]
@@ -440,7 +488,7 @@ def _launch_masked(bins_T, node, stats_T, target, num_bins, amax):
     variant."""
     dev = bins_T.device
     p, n = bins_T.shape
-    _check_kernel_size("hist_masked", n, num_bins)
+    _check_kernel_size("hist_masked", n, num_bins, MAX_MASKED_BINS)
     _check_amax("hist_masked", amax, dev)
     tgt = None
     target_host = 0

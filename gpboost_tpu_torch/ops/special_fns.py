@@ -194,13 +194,24 @@ def _kv_up(v, xp, k, n_up, masked):
     return rkmu, rk1
 
 
+def _kv_graph(v, x, perm, k, n_up, masked):
+    """(K_v, K_{v+1}) in x's shape from `_kv_up` on the sorted arguments
+    x.reshape(-1)[perm], whose first k lie below 2, with autograd
+    recording every step (the backward's differentiable evaluation)."""
+    kv_p, kv1_p = _kv_up(v, x.reshape(-1)[perm], k, n_up, masked)
+    kv = torch.index_copy(torch.zeros_like(kv_p), 0, perm, kv_p)
+    kv1 = torch.index_copy(torch.zeros_like(kv1_p), 0, perm, kv1_p)
+    return kv.view_as(x), kv1.view_as(x)
+
+
 class _BesselKv(torch.autograd.Function):
     """K_v(x) elementwise; v a 0-dim tensor (x's dtype and device) or a
     float, x > 0 of any shape. Outputs K_v and, not differentiable, what
     the derivatives reuse: K_{v+1}, the sort of the flat arguments, and
     [size of the x < 2 part, recurrence length] on the host. Reverse mode
-    (backward; with a graph of its own, for a Hessian, from differentiable
-    evaluations of K_v, K_{v+1} and K_{v+-h}) and forward mode (jvp, which
+    (backward; with a graph of its own, for a Hessian, from `_kv_graph`,
+    the plain evaluations of K_v, K_{v+1} and K_{v+-h} under autograd)
+    and forward mode (jvp, which
     torch.func.jacfwd takes under vmap for the Fisher information) apply
     the same derivatives."""
 
@@ -271,17 +282,31 @@ class _BesselKv(torch.autograd.Function):
         want_x, want_v = ctx.needs_input_grad[:2]
         if torch.is_grad_enabled():
             # a graph of the backward (a Hessian): the same derivatives
-            # from differentiable evaluations
-            x = ctx.saved_tensors[0]
+            # from the plain series, CF2 and recurrence evaluated under
+            # autograd, so a second derivative in v is the central
+            # difference of the series' own v derivative, as the JAX
+            # package's custom_jvp differences its plain _bessel_kv_impl
+            # (special_fns.py:212-226), and not a difference of a
+            # difference
+            x, perm = ctx.saved_tensors[0], ctx.saved_tensors[4]
             v = ctx.order
-            av = torch.abs(v) if torch.is_tensor(v) else abs(v)
+            vt = v.to(x.dtype) if torch.is_tensor(v) \
+                else x.new_full((), float(v))
+            k, n_up = ctx.part
             gx = gv = None
+            if n_up < 0:
+                nan = torch.full_like(x, math.nan)
+                return (g * nan if want_x else None,
+                        torch.sum(g * nan) if want_v else None)
             if want_x:
-                gx = g * (av / x * bessel_kv(v, x) - bessel_kv(av + 1.0, x))
+                kv, kv1 = _kv_graph(vt, x, perm, k, n_up, False)
+                gx = g * (torch.abs(vt) / x * kv - kv1)
             if want_v:
-                h = 1e-6 * torch.clamp_min(av, 1.0)
-                gv = torch.sum(g * (bessel_kv(v + h, x)
-                                    - bessel_kv(v - h, x))) / (2.0 * h)
+                h = 1e-6 * torch.clamp_min(torch.abs(vt), 1.0)
+                gv = torch.sum(g * (
+                    _kv_graph(vt + h, x, perm, k, n_up + 1, True)[0]
+                    - _kv_graph(vt - h, x, perm, k, n_up + 1, True)[0])
+                ) / (2.0 * h)
             return gx, gv
         dx, dv = _BesselKv._derivatives(ctx, want_x, want_v)
         return (None if dx is None else g * dx,

@@ -210,6 +210,38 @@ def test_bessel_kernel_fisher_and_hessian_match_jax():
         rtol=1e-10)
 
 
+# (name, coordinates, parameters with the error variance first, atol as a
+# fraction of the Hessian's largest entry)
+ESTIMATED_SHAPE_HESSIANS = [
+    ("matern_estimate_shape", "c2", [0.2, 0.5, 0.3, 0.8], 0.0),
+    ("matern_ard_estimate_shape", "c2", [0.2, 0.5, 0.3, 0.6, 1.3], 0.0),
+    # nu = 1.3: at KERNELS' nu = 1.5 the JAX package's own Hessian is not
+    # symmetric (its forward-mode derivative of K_{|v - 1|} sits on the
+    # half-integer order 0.5, 9 % off in the nu column). Its cross entry
+    # in (nu, delta), 0.015 beside a largest entry of 17, carries the
+    # central difference's 1/h times the two packages' ~1e-14 relative
+    # differences in K_v (XLA's and libm's log and exp), 2.4e-7 relative
+    ("space_time_gneiting", "c3", [0.2, 1.0, 0.2, 2.0, 0.5, 1.3, 0.5, 2.0],
+     1e-9),
+]
+
+
+@pytest.mark.parametrize("case", ESTIMATED_SHAPE_HESSIANS,
+                         ids=[c[0] for c in ESTIMATED_SHAPE_HESSIANS])
+def test_estimated_shape_hessian_matches_jax(case):
+    """The dense engine's Hessian with the smoothness estimated: a second
+    derivative in the order is the central difference of the series' own
+    order derivative, as in the JAX package, to 1e-7 relative."""
+    name, ckey, pars, atol_frac = case
+    coords, y = _coords(n=30)
+    jm, pm = _pair(name, None, coords[ckey])
+    u = np.log(pm._engine.transform_pars(np.asarray(pars)))
+    want = np.asarray(jm._engine.hess_full(jnp.asarray(u), jnp.asarray(y)))
+    np.testing.assert_allclose(
+        pm._engine.hess_full(u, torch.as_tensor(y)), want, rtol=1e-7,
+        atol=atol_frac * np.max(np.abs(want)))
+
+
 # ---------------------------------------------------------------------
 # the other engines and adapters
 ENGINES = [

@@ -153,11 +153,12 @@ def test_float32_engine_trains():
         "response_mean"]))
 
 
-# use_nesterov_acc is ported (tests/test_torch_weights_clusters.py), and
-# bagging with a GP model (tests/test_torch_objectives.py); extra_trees and
-# linear trees are not
+# use_nesterov_acc is ported (tests/test_torch_weights_clusters.py),
+# bagging with a GP model (tests/test_torch_objectives.py) and extra_trees
+# (tests/test_torch_tree_breadth.py); random forests and linear trees are
+# not
 @pytest.mark.parametrize("params", [{"boosting": "dart"},
-                                    {"extra_trees": True},
+                                    {"boosting": "rf"},
                                     {"objective": "binary"},
                                     {"linear_tree": True}])
 def test_unported_booster_options_raise(params):
@@ -211,7 +212,8 @@ def test_plain_boosting_options_match_jax(case):
 
 
 # bagging, feature_fraction, is_unbalance, alpha and the sampling seeds
-# are ported (tests/test_torch_objectives.py)
+# are ported (tests/test_torch_objectives.py), and the tree learner's split
+# options (tests/test_torch_tree_breadth.py)
 @pytest.mark.parametrize("params,key", [
     ({"boosting_type": "goss"}, "boosting"),
     ({"boost": "rf"}, "boosting"),
@@ -219,13 +221,13 @@ def test_plain_boosting_options_match_jax(case):
     ({"other_rate": 0.2}, "other_rate"),
     ({"max_drop": 10}, "max_drop"),
     ({"skip_drop": 0.2}, "skip_drop"),
-    ({"monotone_constraint": [1, 0, 0, 0]}, "monotone_constraints"),
+    ({"linear_tree": True}, "linear_tree"),
     ({"lambdarank_norm": False}, "lambdarank_norm"),
-    ({"cat_smooth": 5.0}, "cat_smooth"),
-    ({"zero_as_missing": True}, "zero_as_missing"),
-    ({"use_missing": False}, "use_missing"),
+    ({"lambdarank_truncation_level": 10}, "lambdarank_truncation_level"),
+    ({"objective_seed": 7}, "objective_seed"),
+    ({"label_gain": [0, 1, 3]}, "label_gain"),
     ({"drop_rate": 0.2}, "drop_rate"),
-    ({"extra_seed": 9}, "extra_seed"),
+    ({"drop_seed": 9}, "drop_seed"),
     ({"eval_at": [1, 3]}, "eval_at"),
     ({"refit_decay_rate": 0.5}, "refit_decay_rate"),
 ])

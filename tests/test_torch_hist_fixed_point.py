@@ -137,6 +137,33 @@ def test_emulation_is_bitwise_invariant_under_a_row_permutation(kernel):
     assert np.array_equal(a, b)
 
 
+# an EFB bundle of 20 features of 255 bins and the all-default bin: int32
+# codes and two bin windows of the segment kernel
+WIDE_BINS = 1 + 20 * 256
+
+
+@pytest.mark.parametrize("seg", [(0, N), (N // 4, N // 2)],
+                         ids=["whole", "half"])
+def test_wide_bins_emulation_matches_plain_version(seg):
+    bins_T, node, stats_T = _data(WIDE_BINS, seed=5)
+    assert H.bin_windows(WIDE_BINS) == 2
+    s0, cnt = seg
+    _assert_close(
+        _emulation("segment", bins_T, node, stats_T, WIDE_BINS, s0=s0,
+                   cnt=cnt),
+        _plain("segment", bins_T, node, stats_T, WIDE_BINS, s0=s0, cnt=cnt))
+
+
+def test_wide_bins_emulation_is_bitwise_invariant_under_a_row_permutation():
+    bins_T, node, stats_T = _data(WIDE_BINS, seed=6)
+    stats_T[0] *= np.exp(np.random.RandomState(7).randn(N) * 6)
+    perm = np.random.RandomState(8).permutation(N)
+    a = _emulation("segment", bins_T, node, stats_T, WIDE_BINS)
+    b = _emulation("segment", bins_T[:, perm], node[perm], stats_T[:, perm],
+                   WIDE_BINS)
+    assert np.array_equal(a, b)
+
+
 def test_no_overflow_at_the_largest_n():
     """n * max |round(v * 2^k)| stays within 2^62 < 2^63 for every channel
     at the wrappers' largest n, in exact integer arithmetic."""

@@ -279,9 +279,11 @@ def test_out_of_slice_train_and_predict_options_raise():
     with pytest.raises(NotImplementedError, match="A14"):
         gpt.train(BASE, ds, num_boost_round=1, keep_training_booster=True,
                   device="cpu")
-    for kw in ({"pred_contrib": True}, {"pred_leaf": True}):
-        with pytest.raises(NotImplementedError, match="A12"):
-            bp.predict(X, **kw)
+    # pred_contrib and pred_leaf are ported (tests/test_torch_tree_breadth.py)
+    np.testing.assert_allclose(bp.predict(X, pred_contrib=True).sum(1),
+                               bp.predict(X, raw_score=True), rtol=0,
+                               atol=1e-12)
+    assert bp.predict(X, pred_leaf=True).shape == (len(X), 1)
     with pytest.raises(NotImplementedError, match="A12"):
         gpt.train({**BASE, "metric": "ndcg"}, ds, num_boost_round=1,
                   valid_sets=[gpt.Dataset(X, label=LABELS["l1"])],
