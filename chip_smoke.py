@@ -6,8 +6,8 @@
                                      # phases 1-2 and the groups asked for
                                      # (3-8, 9-14, 15-19, 20-22, then 23,
                                      # 24, 25, 26 each alone, 27-29, 30-32,
-                                     # 33-35, 36-38, 39-41, 42-44, 45-47
-                                     # and 48-50); no result lines
+                                     # 33-35, 36-38, 39-41, 42-44, 45-47,
+                                     # 48-50 and 51-53); no result lines
 
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -424,6 +424,35 @@ Phases; any failure exits non-zero and prints no result line:
      emulation across launches and segment forms, whole and half
      segments, under a row permutation, against the plain version (1e-5
      of the largest entry), with its times. Budget for 48-50: 40 s.
+ 51. the booster's modes on boosting_n200k_p50 (sim_boost, n = 200,000,
+     p = 50, 31 leaves, learning rate 0.1): plain gbdt, DART (drop_rate
+     0.1, max_drop 50, skip_drop 0.5) and GOSS (top_rate 0.2, other_rate
+     0.1, 10 of its rounds past the warm-up) 20 rounds each, a random
+     forest (bagging 0.632 every round, feature_fraction 0.8) of 20 trees,
+     linear trees 10 rounds; refit of the gbdt model on a second draw of
+     200,000 rows. For each: seconds a round, the host syncs of a round
+     (each tree 1 + 1 a split + 2, linear leaves one more read), the
+     device busy share of two more rounds, B1's launches (> 0), R^2 on
+     10,000 held-out rows (> 0.1); DART must drop a tree, the forest's
+     training score must be its trees' mean to 1e-10;
+ 52. the multi-output and ranking objectives: multiclass (K = 5) on
+     sim_boost's features, 10 rounds (50 trees), multi_logloss on 20,000
+     validation rows, pred_contrib on 10,000 rows (blocks sum to the raw
+     scores to 1e-6) and pred_early_stop (class decisions kept on 99 % of
+     the rows); mean_scale_regression (friedman3's f with noise of a
+     varying sd; the variance must follow it) and Grabit (tobit, yl 3.5,
+     yu 4.8) on friedman3 (tests/test_grabit_meanscale.py) at n = 200,000,
+     10 rounds;
+     lambdarank and rank_xendcg at MSLR-WEB10K's widths (136 features of
+     200 levels, relevance 0-4, queries of 40-200 documents; 200,000
+     documents, the published set's ~1.2 M cut), 10 rounds with ndcg@10 on
+     20,000 validation documents, the gradients' device time beside the
+     numpy version's (equal to 1e-12). The numbers of phase 51 for each;
+ 53. card against CPU at n = 2,000, 3 rounds of each of the nine models
+     (DART 5, GOSS 12): nodes equal or the first difference a float32 near
+     tie, else leaf values, slopes, training score and predictions to
+     1e-6; DART's drop sets and the GOSS and forest row masks equal; the
+     ranking gradients at one score to 1e-12. Budget for 51-53: 45 s.
 Every histogram row's library time is one torch.Tensor.index_add_ over the
 flat key f * B + bin (key and expanded float32 values built outside the
 timed window, sums held to the kernel's to 1e-5 of the largest entry);
@@ -439,6 +468,7 @@ import sys
 import shutil
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -6324,11 +6354,675 @@ def phase_tabular_card_vs_cpu(torch, gpt, histogram, kernel_row):
           f"|err| {err:.3g} from the plain version", flush=True)
 
 
+# ----------------------------------------------------------------------
+# phases 51-53: the booster's modes (DART, GOSS, random forests, linear
+# trees, refit) and its multi-output and ranking objectives (multiclass,
+# mean_scale_regression, Grabit, lambdarank, rank_xendcg)
+ROUNDS_MODES, ROUNDS_LINEAR, ROUNDS_MODES_OBJ = 20, 10, 10
+N_MODES_PRED, N_MODES_VALID = 10_000, 20_000
+MODES = {"dart": {"boosting": "dart", "drop_rate": 0.1, "max_drop": 50,
+                  "skip_drop": 0.5},
+         "goss": {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1},
+         "rf": {"boosting": "rf", "bagging_fraction": 0.632,
+                "bagging_freq": 1, "feature_fraction": 0.8},
+         "linear": {"linear_tree": True}}
+# host syncs of a round outside its trees' 1 + 1 a split + 2 each: the
+# linear leaves' one read of their solutions
+MODE_EXTRA_SYNCS = {"linear": 1}
+# multiclass on sim_boost's features: the argmax of five seeded scores
+K_MC, SEED_MC = 5, 31
+# Grabit and mean-scale: friedman3 of tests/test_grabit_meanscale.py:30-51
+N_GRABIT, GRABIT_YL, GRABIT_YU = 200_000, 3.5, 4.8
+FRIEDMAN3_HELD_OUT = (0.31415, 0.27182)
+# mean_scale_regression's label: friedman3's f plus Gaussian noise whose
+# sd grows from 0.05 to 0.3 with the first irrelevant column, so that the
+# variance trees have a signal. On the clipped Grabit label the
+# variance's Newton step diverges from n = 134,456 on, in the JAX package
+# as in the port: a leaf of near-constant residuals takes a step of
+# hundreds, and the next round's gradients pass float32's range in the
+# histograms.
+SEED_MS = 37
+
+
+def mean_scale_label(X, f, seed=SEED_MS):
+    """(label, noise sd) of mean_scale_regression on friedman3 rows."""
+    sd = 0.05 + 0.25 * X[:, 5]
+    return f + sd * np.random.RandomState(seed).randn(len(f)), sd
+# ranking at MSLR-WEB10K's widths (136 features, relevance 0-4, queries of
+# 40-200 documents), cut to 200,000 documents; features with 200 levels,
+# relevance by a query's utility quantiles at the set's label shares
+N_RANK, P_RANK, SEED_RANK, RANK_LEN = 200_000, 136, 41, (40, 200)
+RANK_SHARES = (0.52, 0.84, 0.97, 0.99)
+# phase 53: card against CPU at n = 2,000; DART drops in its round 5 and
+# GOSS samples after its 10 warm-up rounds
+N_MODES_CPU, ROUNDS_MODES_CPU = 2_000, {"dart": 5, "goss": 12}
+
+
+def _with_label(ds, y):
+    """A shallow copy of a binned Dataset with other labels."""
+    import copy
+    out = copy.copy(ds)
+    out.set_label(y)
+    return out
+
+
+def _r2(y, p):
+    return 1.0 - np.var(y - p) / np.var(y)
+
+
+def _record_draws(bst, masks=True):
+    """{"drop": each round's DART drop set, "mask": the row mask (bagging
+    or GOSS) of each tree, copied to the host, or None, "goss": each GOSS
+    call's (bagging RandomState's state, grad, hess) on the host}, filled
+    as bst trains; masks=False records the drop sets alone (no host
+    read)."""
+    log = {"drop": [], "mask": [], "goss": []}
+    drop, train, goss = bst._dart_drop, bst.learner.train, bst._goss_mask
+
+    def dart():
+        out = drop()
+        log["drop"].append(list(out[0]))
+        return out
+
+    def learn(*args, **kwargs):
+        m = kwargs.get("row_mask")
+        log["mask"].append(None if m is None else m.cpu().numpy())
+        return train(*args, **kwargs)
+
+    def goss_mask(grad, hess):
+        log["goss"].append((bst._bag_rng.get_state(), grad.cpu().numpy(),
+                            hess.cpu().numpy()))
+        return goss(grad, hess)
+
+    bst._dart_drop = dart
+    if masks:
+        bst.learner.train = learn
+        bst._goss_mask = goss_mask
+    return log
+
+
+def _goss_near_tie(torch, lc, lg, bc, bg):
+    """Where the GOSS row masks of CPU and card first differ, at round j:
+    the trees before it are compared (`_modes_compare`). Unless they hold
+    a split near tie, the |grad hess| keys of round j must agree to 1e-6
+    (two orders of keys that agree to d differ only among rows whose keys
+    lie within 2 d), and the card's `_goss_mask` on the CPU's gradients
+    and RandomState must give the CPU's mask exactly. Returns None when
+    every mask is equal, else (j, what was found)."""
+    j = next((i for i, (mc, mg) in enumerate(zip(lc["mask"], lg["mask"]))
+              if (mc is None) != (mg is None) or (
+                  mc is not None and not np.array_equal(mc, mg))), None)
+    if j is None:
+        return None
+    before = _modes_compare("modes goss", bc, bg, None, j)
+    if before.startswith("near tie"):
+        return j, before
+    (state, gc, hc), (_, gg, hg) = lc["goss"][j], lg["goss"][j]
+    kc, kg = np.abs(gc * hc), np.abs(gg * hg)
+    d = float(np.max(np.abs(kc - kg)))
+    moved = int(np.sum(np.argsort(-kc, kind="stable")
+                       != np.argsort(-kg, kind="stable")))
+    rng = bg._bag_rng.get_state()
+    bg._bag_rng.set_state(state)
+    m = bg._goss_mask(torch.as_tensor(gc, device=bg.device),
+                      torch.as_tensor(hc, device=bg.device))
+    bg._bag_rng.set_state(rng)
+    same = m is not None and np.array_equal(m.cpu().numpy(), lc["mask"][j])
+    if not (d <= 1e-6 and moved > 0 and same):
+        raise AssertionError(f"modes card vs cpu goss: round {j}'s row masks "
+                             f"differ (keys to {d:.3g}, {moved} rows in "
+                             f"another place, the card's mask on the CPU's "
+                             f"gradients {'equal' if same else 'differs'})")
+    return j, (f"{before}; round {j}'s row masks differ at a near tie: "
+               f"|grad hess| to {d:.3g}, {moved} rows in another place, "
+               "the card's mask on the CPU's gradients equal")
+
+
+def _round_syncs(torch, bst, what, extra=0):
+    """(host syncs of one round, [(syncs, splits)] of its trees, syncs
+    outside them) by torch's sync debug mode around bst.update(): each
+    tree must make 1 + 1 a split + 2 and the rest of the round `extra`
+    (the sites are printed where not)."""
+    import inspect
+    import warnings
+    from collections import Counter
+    trees, train = [], bst.learner.train
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*args, **kwargs):
+            n0 = len(caught)
+            out = train(*args, **kwargs)
+            trees.append((sum("synchroniz" in str(w.message)
+                              for w in caught[n0:]),
+                          int(out[0].num_leaves) - 1))
+            return out
+
+        bst.learner.train = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            bst.update()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            bst.learner.train = train
+    sites = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message))
+    # the warning of the mode switch back is the counter's own (phase 48)
+    fn = torch.cuda.set_sync_debug_mode
+    lines, first = inspect.getsourcelines(fn)
+    sites.pop(f"{os.path.relpath(inspect.getsourcefile(fn))}:"
+              + str(first + next(i for i, ln in enumerate(lines)
+                                 if "_cuda_set_sync_debug_mode" in ln)), 0)
+    total = sum(sites.values())
+    outside = total - sum(s for s, _ in trees)
+    if any(s != 1 + k + 2 for s, k in trees) or outside != extra:
+        raise AssertionError(f"{what}: {total} host syncs in a round, trees "
+                             f"(syncs, splits) {trees}, {outside} outside "
+                             f"them, not {extra}: " + ", ".join(
+                                 f"{k} x{v}" for k, v in sites.items()))
+    return total, trees, outside
+
+
+def _sync_txt(total, trees, outside):
+    return (f"{total} = " + " + ".join(f"(1 + {k} + 2)" for _, k in trees)
+            + f" + {outside}")
+
+
+def _mode_rounds(torch, bst, rounds, histogram, what, extra=0):
+    """Time `rounds` rounds of bst, then the host syncs of one and the
+    device busy share of two more: (seconds a round, B1 launches of the
+    timed rounds, sync text, busy text)."""
+    _reset_launches(histogram)
+    secs = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = histogram.hist_segment.launches
+    if launches <= 0:
+        raise AssertionError(f"{what}: no hist_segment launch")
+    syncs = _sync_txt(*_round_syncs(torch, bst, what, extra))
+    busy, wall, hist_s = _device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)], cpu=False)
+    return secs, launches, syncs, _busy_txt(busy, wall, hist_s)
+
+
+def _secs_txt(secs):
+    return (", ".join(f"{v:.3f}" for v in secs)
+            + f" (mean {np.mean(secs):.4f})")
+
+
+def phase_modes(torch, gpt, histogram, ds, X, y, kernel_row):
+    """The boosting modes on boosting_n200k_p50 (sim_boost, n = 200,000,
+    p = 50, seed 2, 31 leaves, learning rate 0.1): plain gbdt 20 rounds,
+    DART (drop_rate 0.1, max_drop 50, skip_drop 0.5) 20, GOSS (top_rate
+    0.2, other_rate 0.1) 20 (10 past its warm-up), a random forest
+    (bagging 0.632 every round, feature_fraction 0.8) 20 trees, linear
+    trees 10; then refit of the gbdt model on a second draw of 200,000
+    rows. For each: seconds a round, host syncs of a round (each tree
+    1 + 1 a split + 2, linear leaves one more read), device busy share of
+    two more rounds, B1 launches (> 0), R^2 on 10,000 held-out rows
+    (> 0.1). DART must drop a tree; the forest's training score must be
+    its trees' mean to 1e-10. Returns B1's launches over the timed
+    rounds."""
+    ds = _with_label(ds, y)
+    Xh, yh = sim_boost(N_MODES_PRED, seed=SEED_BOOST + 10)
+    launches, out, models = 0, {}, {}
+    for kind in ("gbdt", "dart", "goss", "rf", "linear"):
+        bst = gpt.Booster({**BOOST, **MODES.get(kind, {})}, ds,
+                          device="cuda")
+        rounds = ROUNDS_LINEAR if kind == "linear" else ROUNDS_MODES
+        drops = _record_draws(bst, masks=False)["drop"]
+        secs, k_launches, syncs, busy = _mode_rounds(
+            torch, bst, rounds, histogram, f"modes {kind}",
+            MODE_EXTRA_SYNCS.get(kind, 0))
+        launches += k_launches
+        r2 = _r2(yh, bst.predict(Xh))
+        extra = ""
+        if kind == "dart":
+            # the first round drops nothing and draws nothing
+            dropped = [(i + 1, d) for i, d in enumerate(drops[:rounds - 1])
+                       if d]
+            if not dropped:
+                raise AssertionError("modes dart: no tree dropped")
+            extra = "; rounds that dropped (round, trees) " + ", ".join(
+                f"({i}, {d})" for i, d in dropped)
+        if kind == "rf":
+            err = float(np.max(np.abs(bst.F.cpu().numpy() - bst.predict(X))))
+            if not err <= 1e-10:
+                raise AssertionError(f"modes rf: training score off the "
+                                     f"trees' mean by {err:.3g}")
+            extra = f"; training score = trees' mean to {err:.3g}"
+        if kind == "linear":
+            nlin = sum(len(t.leaf_linear) for t in bst.trees)
+            if not nlin:
+                raise AssertionError("modes linear: no linear leaf")
+            extra = f"; {nlin} linear leaves"
+        print(f"[modes] {CARD}: n={N_BOOST} p={P_BOOST} {kind}: seconds a "
+              f"round {_secs_txt(secs)}; host syncs of a round {syncs}; "
+              f"device busy over 2 rounds {busy}; hist_segment launches "
+              f"{k_launches}; R^2 on {N_MODES_PRED} held-out rows "
+              f"{r2:.4f}{extra}", flush=True)
+        if not r2 > TAB_MIN_R2:
+            raise AssertionError(f"modes {kind}: R^2 {r2:.3f}")
+        out[kind] = float(np.mean(secs))
+        models[kind] = bst
+    X2, y2 = sim_boost(N_BOOST, seed=SEED_BOOST + 11)
+    t0 = time.perf_counter()
+    ref = models["gbdt"].refit(X2, y2)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    p = ref.predict(Xh)
+    r2 = _r2(yh, p)
+    if not r2 > TAB_MIN_R2 or len(ref.trees) != len(models["gbdt"].trees):
+        raise AssertionError(f"modes refit: R^2 {r2:.3f}")
+    print(f"[modes] {CARD}: refit of the gbdt model's "
+          f"{len(ref.trees)} trees on {N_BOOST} new rows in {refit_s:.3f} s "
+          f"(decay {models['gbdt'].params['refit_decay_rate']}); R^2 on "
+          f"{N_MODES_PRED} held-out rows {r2:.4f}", flush=True)
+    kernel_row["modes_n200k_p50_s_a_round"] = out
+    return launches
+
+
+def friedman3_fast(n, n_irr=5, starts=(0.54234, 0.74534)):
+    """tests/test_grabit_meanscale.py friedman3 with its LCG stepped in
+    blocks (s_{i+k} = (a^k s_i + c (a^k - 1) / (a - 1)) mod m, exact in
+    int64); `starts` are the LCG's start values of the four friedman3
+    columns and of the irrelevant ones. The LCG's period is 134,456, so
+    at n = 200,000 row i + 134,456 repeats row i."""
+    def unif(count, init_c):
+        mod, a, c, blk = 134456, 8121, 28411, 4096
+        A, C = np.ones(blk, dtype=np.int64), np.zeros(blk, dtype=np.int64)
+        for k in range(1, blk):
+            A[k] = A[k - 1] * a % mod
+            C[k] = (C[k - 1] * a + c) % mod
+        out = np.empty(count, dtype=np.int64)
+        s = int(np.floor(init_c * mod))
+        for i in range(0, count, blk):
+            m = min(blk, count - i)
+            out[i:i + m] = (A[:m] * s + C[:m]) % mod
+            s = int((a * out[i + m - 1] + c) % mod)
+        return out / mod
+
+    if not np.array_equal(unif(5_000, 0.54234), lcg_unif(5_000, 0.54234)):
+        raise AssertionError("friedman3: the blocked LCG differs")
+    X = np.reshape(unif(4 * n, starts[0]), (4, n)).T.copy()
+    X[:, 0] *= 100
+    X[:, 1] = X[:, 1] * np.pi * (560 - 40) + 40 * np.pi
+    X[:, 3] = X[:, 3] * 10 + 1
+    f = np.sqrt(10) * np.arctan(
+        (X[:, 1] * X[:, 2] - 1 / (X[:, 1] * X[:, 3])) / X[:, 0])
+    X = np.column_stack([np.ones(n), X])
+    X = np.column_stack(
+        [X, np.reshape(unif(n_irr * n, starts[1]), (n_irr, n)).T])
+    return X, f
+
+
+def sim_rank(n, seed=SEED_RANK):
+    """Ranking data at MSLR-WEB10K's widths: queries of RANK_LEN
+    documents (the last one takes the rest), P_RANK features of 200
+    levels, relevance 0-4 by each query's quantiles of a utility of 10
+    features plus noise, at the shares RANK_SHARES."""
+    rng = np.random.RandomState(seed)
+    lens = []
+    while sum(lens) < n:
+        lens.append(rng.randint(RANK_LEN[0], RANK_LEN[1] + 1))
+    lens[-1] -= sum(lens) - n
+    lens = np.asarray(lens)
+    X = np.floor(rng.rand(n, P_RANK) * 200)
+    util = X[:, :10] @ rng.randn(10) / 200 + 0.5 * rng.randn(n)
+    q = np.repeat(np.arange(len(lens)), lens)
+    order = np.lexsort((util, q))
+    rank = np.empty(n)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    rank[order] = np.arange(n) - np.repeat(starts, lens)
+    frac = (rank + 0.5) / np.repeat(lens, lens)
+    return X, np.digitize(frac, RANK_SHARES).astype(float), lens
+
+
+def _ndcg_at(y, F, lens, k=10):
+    from gpboost_tpu_torch.boosting.ranking import (ndcg_metric,
+                                                    query_boundaries)
+    return ndcg_metric(y, F, query_boundaries(lens), [k])[k]
+
+
+def phase_modes_objectives(torch, gpt, histogram, ds, X, kernel_row):
+    """The multi-output and ranking objectives at full width: multiclass
+    (K = 5) on sim_boost's features with labels the argmax of five seeded
+    scores, 10 rounds (50 trees), multi_logloss on a 20,000-row
+    validation set, pred_early_stop and pred_contrib on 10,000 rows;
+    mean_scale_regression (`mean_scale_label`: friedman3's f with noise of
+    a varying sd) and Grabit (tobit, yl 3.5, yu 4.8) on friedman3 at n =
+    200,000, 10 rounds; lambdarank and rank_xendcg on ranking data
+    at MSLR-WEB10K's widths (n = 200,000, 136 features, ~1,670 queries),
+    10 rounds with ndcg@10 on 20,000 validation documents, and the
+    ranking gradients' device time beside the numpy version's. Seconds a
+    round, host syncs of a round, device busy share and B1 launches as in
+    phase 51. Returns B1's launches over the timed rounds."""
+    from gpboost_tpu_torch.boosting import ranking
+    launches, out = 0, {}
+    rng = np.random.RandomState(SEED_MC)
+    W = rng.randn(P_BOOST, K_MC)
+    Xv, _ = sim_boost(N_MODES_VALID, seed=SEED_BOOST + 12)
+
+    def mc_label(A, r):
+        return np.argmax((A[:, :10] - 0.5) @ W[:10]
+                         + 0.5 * r.randn(len(A), K_MC), 1).astype(float)
+    ymc, yv = mc_label(X, rng), mc_label(Xv, rng)
+
+    def report(kind, bst, secs, k_launches, syncs, busy, quality):
+        print(f"[modes-objectives] {CARD}: {kind}: seconds a round "
+              f"{_secs_txt(secs)}; host syncs of a round {syncs}; device "
+              f"busy over 2 rounds {busy}; hist_segment launches "
+              f"{k_launches}; {quality}", flush=True)
+        out[kind.split()[0]] = float(np.mean(secs))
+
+    # multiclass with its validation set, through train
+    params = {**BOOST, "objective": "multiclass", "num_class": K_MC,
+              "metric": "multi_logloss"}
+    ev = {}
+    _reset_launches(histogram)
+    with _RoundClock(torch, gpt) as clock:
+        bst = gpt.train(params, _with_label(ds, ymc), ROUNDS_MODES_OBJ,
+                        valid_sets=[gpt.Dataset(Xv, label=yv, reference=ds)],
+                        evals_result=ev, callbacks=[clock.callback()],
+                        device="cuda")
+    k_launches = histogram.hist_segment.launches
+    launches += k_launches
+    ll = ev["valid_0"]["multi_logloss"]
+    acc = float(np.mean(bst.predict(Xv).argmax(1) == yv))
+    if not (k_launches > 0 and ll[-1] < ll[0] and acc > 1.0 / K_MC + 0.1):
+        raise AssertionError(f"multiclass: logloss {ll}, accuracy {acc}")
+    syncs = _sync_txt(*_round_syncs(torch, bst, "multiclass"))
+    busy = _busy_txt(*_device_busy_s(
+        torch, lambda: [bst.update() for _ in range(2)], cpu=False))
+    Xp = X[:N_MODES_PRED]
+    raw = bst.predict(Xp, raw_score=True)
+    t0 = time.perf_counter()
+    contrib = bst.predict(Xp, pred_contrib=True)
+    shap_s = time.perf_counter() - t0
+    sum_err = float(np.max(np.abs(
+        contrib.reshape(N_MODES_PRED, K_MC, -1).sum(2) - raw)))
+    es = bst.predict(Xp, pred_early_stop=True, pred_early_stop_freq=2,
+                     pred_early_stop_margin=1.0)
+    agree = float(np.mean(es.argmax(1) == raw.argmax(1)))
+    if contrib.shape != (N_MODES_PRED, K_MC * (P_BOOST + 1)) \
+            or not sum_err <= 1e-6 or not agree >= 0.99:
+        raise AssertionError(f"multiclass: pred_contrib {contrib.shape}, "
+                             f"sum {sum_err:.3g}; early stop agrees on "
+                             f"{agree:.4f}")
+    report(f"multiclass K={K_MC} n={N_BOOST} p={P_BOOST}", bst,
+           clock.update_s, k_launches, syncs, busy,
+           f"{clock.txt()}; multi_logloss on {N_MODES_VALID} rows "
+           f"{ll[0]:.4f} -> {ll[-1]:.4f}, accuracy {acc:.4f}; pred_contrib "
+           f"{contrib.shape} in {shap_s:.3f} s, blocks sum to the raw "
+           f"scores to {sum_err:.3g}; pred_early_stop (freq 2, margin 1) "
+           f"agrees with the full prediction on {agree:.4f} of the rows")
+    # mean-scale and Grabit on friedman3
+    Xf, f = friedman3_fast(N_GRABIT)
+    yf = np.clip(f, GRABIT_YL, GRABIT_YU)
+    # the held-out rows from other LCG starts: no row of them is a
+    # training row (a tail of the training sequence would repeat rows)
+    Xh, fh = friedman3_fast(N_MODES_PRED, starts=FRIEDMAN3_HELD_OUT)
+    yh = np.clip(fh, GRABIT_YL, GRABIT_YU)
+    if set(map(tuple, Xh[:, 1:5])) & set(map(tuple, Xf[:, 1:5])):
+        raise AssertionError("friedman3: held-out rows among the training "
+                             "rows")
+    dsf = gpt.Dataset(Xf, label=yf)
+    dsf.construct()
+    yms, _ = mean_scale_label(Xf, f)
+    yhms, sdh = mean_scale_label(Xh, fh, seed=SEED_MS + 1)
+    for kind, params, dsk in (
+            ("mean_scale_regression", {"objective": "mean_scale_regression"},
+             _with_label(dsf, yms)),
+            ("tobit", {"objective": "tobit", "yl": GRABIT_YL,
+                       "yu": GRABIT_YU}, dsf)):
+        bst = gpt.Booster({**BOOST, **params}, dsk, device="cuda")
+        secs, k_launches, syncs, busy = _mode_rounds(
+            torch, bst, ROUNDS_MODES_OBJ, histogram, kind)
+        launches += k_launches
+        pred = bst.predict(Xh)
+        if kind == "tobit":
+            r2 = _r2(fh, pred)
+            quality = f"R^2 against the latent f on {N_MODES_PRED} held-out"
+        else:
+            _finite("mean_scale pred_var", pred["pred_var"],
+                    (N_MODES_PRED,), positive=True)
+            r2 = _r2(yhms, pred["pred_mean"])
+            # the variance trees follow the noise's sd
+            rho = float(np.corrcoef(np.log(pred["pred_var"]),
+                                    np.log(sdh))[0, 1])
+            if not rho > 0.1:
+                raise AssertionError(f"mean_scale: corr(log pred_var, "
+                                     f"log sd) {rho:.3f}")
+            quality = (f"corr(log pred_var, log sd) {rho:.4f}; R^2 of "
+                       f"pred_mean on {N_MODES_PRED} held-out")
+        if not r2 > TAB_MIN_R2:
+            raise AssertionError(f"{kind}: R^2 {r2:.3f}")
+        report(f"{kind} n={N_GRABIT}", bst, secs, k_launches, syncs, busy,
+               f"{quality} rows {r2:.4f}")
+    # the ranking objectives
+    t0 = time.perf_counter()
+    Xr, yr, lens = sim_rank(N_RANK + N_MODES_VALID)
+    nq = int(np.searchsorted(np.cumsum(lens), N_RANK, side="right"))
+    ntr = int(np.sum(lens[:nq]))
+    dsr = gpt.Dataset(Xr[:ntr], label=yr[:ntr], group=lens[:nq])
+    dsr.construct()
+    dvr = gpt.Dataset(Xr[ntr:], label=yr[ntr:], group=lens[nq:],
+                      reference=dsr)
+    data_s = time.perf_counter() - t0
+    for kind in ("lambdarank", "rank_xendcg"):
+        ev = {}
+        _reset_launches(histogram)
+        with _RoundClock(torch, gpt) as clock:
+            bst = gpt.train({**BOOST, "objective": kind, "eval_at": [10]},
+                            dsr, ROUNDS_MODES_OBJ, valid_sets=[dvr],
+                            evals_result=ev, callbacks=[clock.callback()],
+                            device="cuda")
+        k_launches = histogram.hist_segment.launches
+        launches += k_launches
+        nd = ev["valid_0"]["ndcg@10"]
+        base = _ndcg_at(yr[ntr:], np.zeros(len(yr) - ntr), lens[nq:])
+        if not (k_launches > 0 and nd[-1] > base + 0.05):
+            raise AssertionError(f"{kind}: ndcg@10 {nd}, base {base}")
+        syncs = _sync_txt(*_round_syncs(torch, bst, kind))
+        busy = _busy_txt(*_device_busy_s(
+            torch, lambda: [bst.update() for _ in range(2)], cpu=False))
+        lay, F = bst._rank, bst.F
+        if kind == "lambdarank":
+            def dev():
+                return lay.lambdarank(F)
+
+            def host():
+                return ranking.lambdarank_gradients(
+                    yr[:ntr], Fh, ranking.query_boundaries(lens[:nq]))
+        else:
+            def dev():
+                return lay.xendcg(F)
+
+            def host():
+                return ranking.xendcg_gradients(
+                    yr[:ntr], Fh, ranking.query_boundaries(lens[:nq]),
+                    seed=int(bst.params["objective_seed"]))
+        Fh = F.cpu().numpy()
+        grad_ms = _time_ms(torch, dev, reps=10)
+        t0 = time.perf_counter()
+        gh, hh = host()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        gd, hd = (t.cpu().numpy() for t in dev())
+        gerr = max(float(np.max(np.abs(gd - gh))),
+                   float(np.max(np.abs(hd - hh))))
+        if not gerr <= 1e-12:
+            raise AssertionError(f"{kind}: device gradients off the numpy "
+                                 f"version by {gerr:.3g}")
+        report(f"{kind} n={ntr} p={P_RANK} {nq} queries", bst,
+               clock.update_s, k_launches, syncs, busy,
+               f"{clock.txt()}; ndcg@10 on {len(yr) - ntr} validation "
+               f"documents {nd[0]:.4f} -> {nd[-1]:.4f} (zero scores "
+               f"{base:.4f}); gradients {grad_ms:.3f} ms on the card by "
+               f"events, numpy {host_ms:.1f} ms on the host, max |diff| "
+               f"{gerr:.3g}; data and binning {data_s:.2f} s")
+    kernel_row["modes_objectives_s_a_round"] = out
+    return launches
+
+
+def _modes_compare(what, bc, bg, X, trees=None):
+    """Card booster bg against CPU booster bc: every node's split feature
+    and bin equal, or the first difference a float32 near tie (phase 5's
+    rule; later trees are then not compared); else leaf values and
+    slopes to 1e-6, and the training score and predictions, which sum a
+    block's trees, to 1e-6 a tree they sum (the float32 histogram sums'
+    rounding moves a Grabit leaf by up to 6.5e-7 at n = 2,000). With
+    `trees`, only the first `trees` trees (those before a GOSS near tie),
+    their splits and leaf values."""
+    if trees is not None:
+        bc = types.SimpleNamespace(trees=bc.trees[:trees])
+        bg = types.SimpleNamespace(trees=bg.trees[:trees])
+    for t, (a, b) in enumerate(zip(bc.trees, bg.trees)):
+        for i in range(max(a.num_nodes, b.num_nodes)):
+            if i >= min(a.num_nodes, b.num_nodes):
+                raise AssertionError(f"{what}: tree {t} has {b.num_nodes} "
+                                     f"nodes, not {a.num_nodes}")
+            if a.is_leaf[i] and b.is_leaf[i]:
+                continue
+            if all(getattr(a, k)[i] == getattr(b, k)[i] for k in
+                   ("is_leaf", "split_feature", "threshold_bin")):
+                continue
+            gap = abs(a.split_gain[i] - b.split_gain[i]) / max(
+                abs(a.split_gain[i]), 1e-30)
+            print(f"[{what}] tree {t} node {i} differs (cpu feature "
+                  f"{a.split_feature[i]} bin {a.threshold_bin[i]}, card "
+                  f"{b.split_feature[i]} {b.threshold_bin[i]}), relative "
+                  f"gain gap {gap:.3g}", flush=True)
+            if not gap < 1e-5:
+                raise AssertionError(f"{what}: splits differ beyond an f32 "
+                                     "near tie")
+            return f"near tie at tree {t} node {i}"
+    errs = {"leaf values": 0.0, "slopes": 0.0}
+    for a, b in zip(bc.trees, bg.trees):
+        errs["leaf values"] = max(errs["leaf values"], float(np.max(np.abs(
+            a.leaf_value[:a.num_nodes] - b.leaf_value[:b.num_nodes]))))
+        if sorted(a.leaf_linear) != sorted(b.leaf_linear):
+            raise AssertionError(f"{what}: linear leaves differ")
+        for k, (fa, ca) in a.leaf_linear.items():
+            fb, cb = b.leaf_linear[k]
+            if not np.array_equal(fa, fb):
+                raise AssertionError(f"{what}: leaf {k}'s features differ")
+            errs["slopes"] = max(errs["slopes"],
+                                 float(np.max(np.abs(ca - cb))))
+    if trees is not None:
+        if not max(errs.values()) <= 1e-6:
+            raise AssertionError(f"{what}: max |diff| {errs}")
+        return f"the {trees} trees before it equal; max |diff| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+    if not max(errs.values()) <= 1e-6:
+        raise AssertionError(f"{what}: max |diff| {errs}")
+    per = max(1, len(bc.trees) // bc._nsets)
+    sums = {"training score": float((bg.F.cpu() - bc.F).abs().max())}
+    pa, pb = bc.predict(X), bg.predict(X)
+    if isinstance(pa, dict):
+        sums["predictions"] = max(float(np.max(np.abs(pa[k] - pb[k])))
+                                  for k in pa)
+    else:
+        sums["predictions"] = float(np.max(np.abs(pa - pb)))
+    if not max(sums.values()) <= 1e-6 * per:
+        raise AssertionError(f"{what}: max |diff| {errs}, {sums} over "
+                             f"{per} trees a block")
+    return "all trees equal; max |diff| " + ", ".join(
+        f"{k} {v:.3g}" for k, v in {**errs, **sums}.items()) \
+        + f" ({per} trees a block)"
+
+
+def phase_modes_card_vs_cpu(torch, gpt):
+    """Card against CPU at n = 2,000 for the nine models of phases 51-52,
+    3 rounds each (DART 5, so that it drops; GOSS 12, two past its
+    warm-up): trees under phase 5's near-tie rule, else leaf values,
+    slopes, training score and predictions to 1e-6; DART's drop sets and
+    the GOSS and random-forest row masks of every round equal, or the
+    first GOSS difference a near tie of |grad hess| (`_goss_near_tie`;
+    only the trees before it are then compared); the
+    lambdarank and rank_xendcg gradients on both devices at the CPU's
+    final score to 1e-12. Mean-scale trains on the clipped friedman3
+    label here, as tests/test_grabit_meanscale.py does (its divergence
+    starts at n = 134,456): on `mean_scale_label` its first variance
+    leaves reach ~6, where the float32 histogram sums' rounding alone
+    passes 1e-6."""
+    Xb, yb = sim_boost(N_MODES_CPU, seed=SEED_BOOST + 13)
+    ymc = np.argmax(Xb[:, :K_MC] + 0.3 * np.random.RandomState(
+        SEED_MC).randn(N_MODES_CPU, K_MC), 1).astype(float)
+    Xf, f = friedman3_fast(N_MODES_CPU)
+    Xr, yr, lens = sim_rank(N_MODES_CPU, seed=SEED_RANK + 1)
+    runs = [(k, {**BOOST, **MODES[k]}, Xb, yb, {}) for k in MODES]
+    runs += [("multiclass", {**BOOST, "objective": "multiclass",
+                             "num_class": K_MC}, Xb, ymc, {}),
+             ("mean_scale_regression", {**BOOST, "objective":
+                                        "mean_scale_regression"},
+              Xf, np.clip(f, GRABIT_YL, GRABIT_YU), {}),
+             ("tobit", {**BOOST, "objective": "tobit", "yl": GRABIT_YL,
+                        "yu": GRABIT_YU}, Xf,
+              np.clip(f, GRABIT_YL, GRABIT_YU), {}),
+             ("lambdarank", {**BOOST, "objective": "lambdarank"}, Xr, yr,
+              {"group": lens}),
+             ("rank_xendcg", {**BOOST, "objective": "rank_xendcg"}, Xr, yr,
+              {"group": lens})]
+    for kind, params, Xk, yk, kw in runs:
+        rounds = ROUNDS_MODES_CPU.get(kind, 3)
+        bs, logs, secs = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            bst = gpt.Booster(params, gpt.Dataset(Xk, label=yk, **kw),
+                              device=dev)
+            logs[dev] = _record_draws(bst)
+            for _ in range(rounds):
+                bst.update()
+            secs[dev] = time.perf_counter() - t0
+            bs[dev] = bst
+        lc, lg = logs["cpu"], logs["cuda"]
+        tie = _goss_near_tie(torch, lc, lg, bs["cpu"], bs["cuda"]) \
+            if kind == "goss" else None
+        if lc["drop"] != lg["drop"] or len(lc["mask"]) != len(lg["mask"]) \
+                or tie is None and any((mc is None) != (mg is None) or (
+                    mc is not None and not np.array_equal(mc, mg))
+                    for mc, mg in zip(lc["mask"], lg["mask"])):
+            raise AssertionError(f"modes card vs cpu {kind}: the drop sets "
+                                 "or the row masks differ")
+        draws = ""
+        if kind == "dart":
+            draws = f"; drop sets {lc['drop']}"
+            if not any(lc["drop"]):
+                raise AssertionError("modes card vs cpu dart: no drop")
+        if kind in ("goss", "rf"):
+            masked = sum(m is not None for m in lc["mask"])
+            if not masked:
+                raise AssertionError(f"modes card vs cpu {kind}: no mask")
+            draws = f"; {masked} rounds' row masks equal"
+            if tie is not None:
+                draws = f"; row masks equal before round {tie[0]}"
+        if kind in ("lambdarank", "rank_xendcg"):
+            F = bs["cpu"].F
+            fn = "lambdarank" if kind == "lambdarank" else "xendcg"
+            gc = getattr(bs["cpu"]._rank, fn)(F)
+            gg = getattr(bs["cuda"]._rank, fn)(F.to(bs["cuda"].device))
+            gerr = max(float((a.cpu() - b).abs().max())
+                       for a, b in zip(gg, gc))
+            if not gerr <= 1e-12:
+                raise AssertionError(f"modes card vs cpu {kind}: gradients "
+                                     f"differ by {gerr:.3g}")
+            draws = f"; gradients at one score max |diff| {gerr:.3g}"
+        print(f"[modes-card-vs-cpu] n={N_MODES_CPU} {kind}, {rounds} rounds "
+              f"(card {secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s): "
+              + (tie[1] if tie is not None else _modes_compare(
+                  f"modes {kind}", bs["cpu"], bs["cuda"], Xk))
+              + draws, flush=True)
+
+
 # the groups of phases that run together; --phases runs every group that
 # holds one of the phases asked for (phases 1 and 2 always run)
 GROUPS = ((3, 8), (9, 14), (15, 19), (20, 22), (23, 23), (24, 24),
           (25, 25), (26, 26), (27, 29), (30, 32), (33, 35), (36, 38),
-          (39, 41), (42, 44), (45, 47), (48, 50))
+          (39, 41), (42, 44), (45, 47), (48, 50), (51, 53))
 
 
 def _print_phase_time(fn):
@@ -6523,6 +7217,19 @@ def main(argv=None):
         phase_tabular_card_vs_cpu(torch, gpt, histogram, segment)
         print(f"[tabular] phases 48-50 in "
               f"{time.perf_counter() - t_t:.1f} s", flush=True)
+    if (51, 53) in groups:
+        t_m = time.perf_counter()
+        X, y = sim_boost()
+        if ds is None:      # phases 6-8's binned Dataset
+            ds = gpt.Dataset(X, label=y)
+            ds.construct()
+        segment["launches_modes_n200k_p50"] = phase_modes(
+            torch, gpt, histogram, ds, X, y, segment)
+        segment["launches_modes_objectives"] = phase_modes_objectives(
+            torch, gpt, histogram, ds, X, segment)
+        phase_modes_card_vs_cpu(torch, gpt)
+        print(f"[modes] phases 51-53 in "
+              f"{time.perf_counter() - t_m:.1f} s", flush=True)
     if args.phases is not None:
         print(f"[chip_smoke] phases {args.phases} done; a partial run "
               "prints no result lines", flush=True)

@@ -47,6 +47,18 @@ stopping and callbacks, by cross-validation or by grid search:
                  gp_model=gpt.GPModel(group_data=group), nfold=4,
                  num_boost_round=100, early_stopping_rounds=5)
 
+The booster's modes: DART, GOSS and random forests (`boosting`),
+linear leaves (`linear_tree`), multiclass (`num_class`), mean-scale and
+Grabit (`tobit`) regression, learning to rank (lambdarank, rank_xendcg,
+with query sizes in the Dataset and ndcg / map for validation) and
+`Booster.refit` on new data:
+
+    bst = gpt.train({"objective": "lambdarank", "eval_at": [10]},
+                    gpt.Dataset(X, label=relevance, group=query_sizes),
+                    num_boost_round=100,
+                    valid_sets=[gpt.Dataset(X_val, label=rel_val,
+                                            group=val_sizes)])
+
 The histograms of the tree learners are hand-written CUDA kernels
 (csrc/histogram.cu, csrc/hist_masked.cu); everything else is plain torch.
 The package never imports jax or gpboost_tpu; `convert` reads the JAX

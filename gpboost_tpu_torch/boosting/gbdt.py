@@ -57,18 +57,44 @@ Gaussian-regression boosting can grow its trees over a torch.distributed
 group (num_parallel_devices = the group's size, tree_learner data, feature
 or voting); each rank then keeps the score of the rows its learner holds.
 
+The booster's modes (gbdt.py:1258-1475, ranking.py): boosting="dart"
+drops trees with the reference's draws from drop_seed before the
+gradients (their contributions are their current leaf values at the leaf
+slots each tree routed the rows to, kept on the device as int32) and
+renormalises them by k / (k + 1) after the new tree of weight lr / (k +
+1); "goss" keeps the top_rate rows by |grad hess| and an other_rate
+sample of the rest, amplified by (1 - a) / b, after int(1 / lr) warm-up
+rounds (the rows sorted on the device, the sample's positions from
+bagging_seed's RandomState); "rf" grows every tree on the gradients at
+the init score over a fresh bag, unshrunk, and averages them (it needs
+bagging and no GP model). DART and GOSS run with a GP model too.
+linear_tree fits each leaf's ridge regression on its path's numeric
+features on the device (`_fit_linear_leaves`). Multi-output objectives
+grow one tree a block and round: multiclass (K blocks, softmax
+gradients, init scores the log class priors, (n, K) probabilities) and
+mean_scale_regression (the mean and the log variance, {"pred_mean",
+"pred_var"}); tobit is Grabit's censored Gaussian (sigma, yl, yu);
+lambdarank and rank_xendcg take a Dataset group and compute their
+per-query gradients on the device (`ranking.QueryLayout`), with ndcg and
+map for validation sets at eval_at's first k. `refit` refits the leaf
+values of the trees on new data with refit_decay_rate. The modes run on
+the single-device learner only.
+
 The training score F and the labels live on the booster's device in
 float64; the trees are host numpy objects (tree.py), as in the reference.
 The reference's `_psi_tilde_inv_mat` (gbdt.py:2395) is each engine's
 `psi_tilde_inv_mat` here, on the device.
 The reference's fused multi-round `lax.scan` paths wait (ROADMAP A13):
 `train` always runs the host loop. Every parameter of the reference's
-defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked; the
-options outside the port raise NotImplementedError naming the ROADMAP item
-that ports them: DART, GOSS, RF, multiclass, ranking, Grabit, mean-scale,
-linear trees and refit (A12b), init_model (A14), a GP model or a
-non-Gaussian objective or sampling on a parallel tree learner, and the
-split options below on one (A15). boost_from_average=False starts plain
+defaults (gbdt.py:448-521) and aliases (:523-539) is read or checked.
+What the reference refuses raises as there (a random forest without
+bagging or with a GP model, multiclass or a two-predictor likelihood with
+another boosting type than gbdt, ranking without query information,
+refit with a GP model or several predictor blocks); the options outside
+the port raise NotImplementedError naming the ROADMAP item that ports
+them: init_model (A14); a GP model, a non-Gaussian objective, sampling,
+DART, GOSS, random forests, linear trees or the split options below on a
+parallel tree learner (A15). boost_from_average=False starts plain
 boosting from score 0.
 
 The tree learner's split breadth passes through (gbdt.py:560-644):
@@ -84,8 +110,10 @@ model dict carries the EFB encoder and the pandas categories.
 import numpy as np
 import torch
 
+from .ranking import (DEFAULT_LABEL_GAIN, QueryLayout, check_rank_labels,
+                      map_metric, ndcg_metric, query_boundaries)
 from .tree import Tree
-from .tree_learner import SerialTreeLearner
+from .tree_learner import SerialTreeLearner, _to_device
 from ..likelihoods.base import get_likelihood
 from ..models.jit_gd import gd_fit_engine, gd_fit_laplace_engine
 from ..parallel.group import default_group
@@ -115,18 +143,19 @@ _OBJ_ALIASES = {
 }
 # objectives with their own gradient formulas instead of the likelihood
 # registry (regression_objective.hpp, binary_objective.hpp,
-# xentropy_objective.hpp)
-_SPECIAL_OBJECTIVES = ("quantile", "l1", "huber", "fair", "mape", "tweedie",
-                       "cross_entropy", "binary_lgb", "cross_entropy_lambda")
-# objectives outside the port (ROADMAP A12b)
-_UNPORTED_OBJECTIVES = ("multiclass", "tobit", "mean_scale_regression",
-                        "lambdarank", "rank_xendcg")
+# xentropy_objective.hpp, multiclass_objective.hpp, rank_objective.hpp)
+_SPECIAL_OBJECTIVES = ("multiclass", "quantile", "cross_entropy", "tobit",
+                       "mean_scale_regression", "lambdarank", "rank_xendcg",
+                       "l1", "huber", "fair", "mape", "tweedie", "binary_lgb",
+                       "cross_entropy_lambda")
+_RANK_OBJECTIVES = ("lambdarank", "rank_xendcg")
 _BINARY_OBJECTIVES = ("bernoulli_logit", "bernoulli_probit", "cross_entropy",
                       "binary_lgb")
+# boosting types (gbdt.py:795-797); random_forest is rf's alias
+_BOOSTING_TYPES = ("gbdt", "gbrt", "dart", "goss", "rf", "random_forest")
 
 # the reference's defaults (gbdt.py:448-521): every parameter the port
-# reads or checks; a non-default value of the options outside the port
-# raises
+# reads or checks
 _BOOST_PARAM_DEFAULTS = dict(
     learning_rate=0.1, num_leaves=31, max_depth=-1, min_data_in_leaf=20,
     lambda_l2=0.0, lambda_l1=0.0, min_sum_hessian_in_leaf=1e-3,
@@ -155,17 +184,13 @@ _BOOST_PARAM_DEFAULTS = dict(
     cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,
     min_data_per_group=100, cegb_tradeoff=1.0, extra_seed=6,
     use_missing=True, zero_as_missing=False,
-)
-# the options of unported features (DART, GOSS, multiclass, ranking,
-# refit; ROADMAP A12b): only their defaults pass
-_UNPORTED_DEFAULTS = dict(
+    # DART (dart.hpp), GOSS (goss.hpp), multiclass, ranking
+    # (rank_objective.hpp) and refit's leaf decay
     drop_rate=0.1, max_drop=50, skip_drop=0.5, drop_seed=4, top_rate=0.2,
     other_rate=0.1, num_class=1, lambdarank_norm=True,
     lambdarank_truncation_level=30, refit_decay_rate=0.9,
     label_gain=None, objective_seed=5, eval_at=(1, 2, 3, 4, 5),
 )
-_BOOST_PARAM_DEFAULTS.update(_UNPORTED_DEFAULTS)
-_UNPORTED_IF_CHANGED = ("boosting", "linear_tree") + tuple(_UNPORTED_DEFAULTS)
 # tree_learner values and their aliases -> the learner's parallel_mode
 # (gbdt.py:590-596)
 _TREE_LEARNERS = {
@@ -269,32 +294,18 @@ def _segment_percentiles(v, key, counts, w, alpha):
     return vs[kstart + torch.minimum(i, last)]
 
 
-def _changed(value, default):
-    """Whether a parameter differs from its default; sequences compare by
-    their entries."""
-    if isinstance(value, (list, tuple, np.ndarray)):
-        return default is None or list(np.ravel(value)) != list(default)
-    return value != default
-
-
-def _parse_params(raw, laplace=False):
-    """The booster's parameters, with the reference's aliases; laplace: a
-    non-Gaussian GP model sets the objective, so any `objective` passes."""
+def _parse_params(raw):
+    """The booster's parameters, with the reference's aliases and its
+    checks of the boosting type (gbdt.py:795-799)."""
     p = dict(_BOOST_PARAM_DEFAULTS)
     for k, v in (raw or {}).items():
         p[_PARAM_ALIASES.get(k, k)] = v
+    if p["boosting"] not in _BOOSTING_TYPES:
+        raise ValueError(f"unknown boosting type {p['boosting']!r}")
+    if p["boosting"] == "random_forest":
+        p["boosting"] = "rf"
     if p["use_nesterov_acc"] and p["boosting"] != "gbdt":
         raise ValueError("use_nesterov_acc requires boosting='gbdt'")
-    changed = [k for k in _UNPORTED_IF_CHANGED
-               if _changed(p[k], _BOOST_PARAM_DEFAULTS[k])]
-    if changed:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP A12b): "
-            + ", ".join(f"{k}={p[k]!r}" for k in changed))
-    obj = p["objective"]
-    if not laplace and _OBJ_ALIASES.get(obj, obj) in _UNPORTED_OBJECTIVES:
-        raise NotImplementedError(f"objective '{obj}' is not ported yet "
-                                  "(ROADMAP A12b)")
     if str(p["tree_learner"]) not in _TREE_LEARNERS:
         raise ValueError(f"Unknown tree_learner '{p['tree_learner']}'")
     return p
@@ -354,28 +365,40 @@ class _RunningScore:
     the booster grows (LightGBM's ScoreUpdater of a validation set), one
     score per predictor block (tree i adds to block i % nsets). Each new
     tree is added, with the Nesterov recursion replayed, by the float
-    operations `Booster.predict` does, in its order (trees summed from 0,
-    the init score added last), so the score after k rounds equals
-    `predict(num_iteration=k, raw_score=True)` bit for bit."""
+    operations `Booster.predict` does, in its order (trees summed from 0, a
+    random forest's sum divided by its trees, the init score added last),
+    so the score after k rounds equals `predict(num_iteration=k,
+    raw_score=True)` bit for bit (the blocks stacked). A DART round that
+    rescaled grown trees makes the score start again from tree 0, as
+    the reference's per-round predict does."""
 
     def __init__(self, booster, data):
         self.X = booster._prep_X(data)
+        self._restart(booster)
+
+    def _restart(self, booster):
         self.F = [np.zeros(len(self.X)) for _ in range(booster._nsets)]
         self.lag = None
         self.k = 0
+        self.rescales = booster._rescales
 
     def advance(self, booster):
         """Take the trees grown since the last call; returns the raw score
-        with the init score (both predictor blocks stacked for a
-        two-predictor model)."""
+        with the init score (the predictor blocks stacked for a
+        multi-output model)."""
+        if self.rescales != booster._rescales:
+            self._restart(booster)
         K = len(self.F)
         while self.k < len(booster.trees):
             F, self.lag = booster._add_tree(self.F[self.k % K], self.lag,
                                             self.k, self.X)
             self.F[self.k % K] = F
             self.k += 1
+        F = self.F
+        if booster.params["boosting"] == "rf" and self.k:
+            F = [s / self.k for s in F]
         return np.concatenate([s + c for s, c in zip(
-            self.F, (booster.init_score, booster.init_score2))])
+            F, booster._block_inits())])
 
 
 class Booster:
@@ -394,8 +417,18 @@ class Booster:
             self._load(model_dict, device)
             return
         laplace = gp_model is not None and gp_model.likelihood != "gaussian"
-        self.params = _parse_params(params, laplace)
+        self.params = _parse_params(params)
         p = self.params
+        if p["boosting"] == "rf":
+            # rf.hpp Init (gbdt.py:798-807)
+            if gp_model is not None:
+                raise ValueError("boosting='rf' cannot be combined with a "
+                                 "gp_model; use boosting='gbdt'")
+            if not (int(p["bagging_freq"]) > 0
+                    and 0.0 < float(p["bagging_fraction"]) < 1.0):
+                raise ValueError(
+                    "boosting='rf' requires bagging_freq > 0 and "
+                    "0 < bagging_fraction < 1 (rf.hpp Init)")
         if gp_model is not None:
             if int(p["num_parallel_devices"] or 1) > 1:
                 raise NotImplementedError("a GP model with a parallel tree "
@@ -429,18 +462,22 @@ class Booster:
         self._lik = None
         self._aux = None
         self._binary_lw = None
+        self._label_gain = None
         if laplace:
             self.objective_name = gp_model.likelihood
         else:
-            self.objective_name = self._set_objective(y, w, gp_model)
+            self.objective_name = self._set_objective(y, w, gp_model,
+                                                      train_set)
         if group is not None and (
                 self.objective_name != "gaussian"
                 or float(p["bagging_fraction"]) < 1.0
                 and int(p["bagging_freq"]) > 0
-                or float(p["feature_fraction"]) < 1.0):
+                or float(p["feature_fraction"]) < 1.0
+                or p["boosting"] != "gbdt" or p["linear_tree"]):
             raise NotImplementedError(
-                "a non-Gaussian objective, bagging or feature_fraction on a "
-                "parallel tree learner is not ported yet (ROADMAP A15)")
+                "a non-Gaussian objective, bagging, feature_fraction, DART, "
+                "GOSS, random forests or linear trees on a parallel tree "
+                "learner are not ported yet (ROADMAP A15)")
         cegb = _cegb_config(p, train_set.num_features)
         self.learner = SerialTreeLearner(
             train_set, num_leaves=int(p["num_leaves"]),
@@ -466,18 +503,41 @@ class Booster:
         self._cegb_used = None if cegb is None \
             else np.zeros(self.learner.p, dtype=np.float32)
         self.trees = []
-        # a likelihood with two predictor sets (num_sets_fixed_effects = 2,
-        # c_api.cpp:132): two trees a round, one per block, interleaved in
-        # self.trees (gbdt.py:733-740)
+        # multi-output boosting, one tree a block and round, interleaved in
+        # self.trees (gbdt.py:721-742): multiclass (num_class blocks),
+        # mean_scale_regression (mean and log variance) and a likelihood
+        # with two predictor sets (num_sets_fixed_effects = 2,
+        # c_api.cpp:132)
         self._nsets = 1
         self.init_score2 = 0.0
+        self._init_scores = None
+        if self.objective_name == "multiclass":
+            self._nsets = int(p["num_class"])
+            if p["boosting"] != "gbdt":
+                raise ValueError("objective='multiclass' supports "
+                                 "boosting='gbdt' only")
+        elif self.objective_name == "mean_scale_regression":
+            self._nsets = 2
         if laplace and getattr(gp_model._likelihood_obj, "num_sets_fe",
                                1) == 2:
             self._nsets = 2
             if p["boosting"] != "gbdt":
                 raise ValueError("two-predictor likelihoods support "
                                  "boosting='gbdt' only")
-        if laplace:
+        if self.objective_name == "multiclass":
+            # boost from the log class priors (multiclass BoostFromScore)
+            counts = np.bincount(y.astype(int), minlength=self._nsets)
+            self._init_scores = np.log(np.maximum(counts, 1)
+                                       / float(self.n))
+            self.init_score = float(self._init_scores[0])
+        elif self.objective_name == "mean_scale_regression":
+            # BoostFromScore per block: the mean and the log variance
+            # (regression_objective.hpp:1056-1095 MeanScaleLoss)
+            self._init_scores = np.array([
+                float(np.mean(y)), float(np.log(max(np.var(y), 1e-30)))])
+            self.init_score = float(self._init_scores[0])
+            self.init_score2 = float(self._init_scores[1])
+        elif laplace:
             # the intercept-only Laplace fit, one intercept per predictor
             # set, from the closed-form intercepts (FindInitialValueBoosting,
             # re_model.cpp:634-690)
@@ -497,8 +557,7 @@ class Booster:
         self.y = torch.as_tensor(y[self.learner.rows], device=self.device)
         self.F = torch.cat([
             torch.full((self.learner.n,), c, dtype=torch.float64,
-                       device=self.device)
-            for c in (self.init_score, self.init_score2)[:self._nsets]])
+                       device=self.device) for c in self._block_inits()])
         # Dataset weights scale grad and hess without a GP model
         # (gbdt.py:1107-1108); with one the reference ignores them
         self._w = None if w is None or gp_model is not None \
@@ -506,6 +565,17 @@ class Booster:
         if self._lik is not None:
             self._aux = torch.as_tensor(self._lik.init_aux(y),
                                         device=self.device)
+        self._onehot = self._rank = None
+        if self.objective_name == "multiclass":
+            onehot = np.zeros((self._nsets, self.n))
+            onehot[y.astype(int), np.arange(self.n)] = 1.0
+            self._onehot = torch.as_tensor(onehot, device=self.device)
+        elif self.objective_name in _RANK_OBJECTIVES:
+            self._rank = QueryLayout(
+                query_boundaries(train_set.group), y, self.device,
+                self._label_gain, int(p["lambdarank_truncation_level"]),
+                int(p["objective_seed"])
+                if self.objective_name == "rank_xendcg" else None)
         self._gp_init_pars = None
         self._gp_lr = 0.1
         self._gp_refit_iter = -1
@@ -514,12 +584,32 @@ class Booster:
         self._bag_rng = np.random.RandomState(int(p["bagging_seed"]))
         self._feat_rng = np.random.RandomState(int(p["feature_fraction_seed"]))
         self._row_mask = None
+        # DART's draws, each tree's leaf slot of every row (the rows'
+        # routes for a later drop) and the count of rounds that rescaled
+        # grown trees, random forests' fixed gradients and tree sum, linear
+        # leaves' raw features on the device
+        self._drop_rng = np.random.RandomState(int(p["drop_seed"]))
+        self._tree_slots = []
+        self._rescales = 0
+        self._rf_grad = None
+        self._rf_sum = 0.0
+        self._X_lin = None
+
+    def _block_inits(self):
+        """The init score of each predictor block."""
+        if self._nsets == 1:
+            return [self.init_score]
+        if self._init_scores is not None:
+            return [float(c) for c in self._init_scores]
+        return [self.init_score, self.init_score2]
 
     # ------------------------------------------------------------------
-    def _set_objective(self, y, w, gp_model):
+    def _set_objective(self, y, w, gp_model, train_set):
         """The objective without a non-Gaussian GP model, with its label
         checks and state (gbdt.py:646-718): the binary label weights of
-        binary_lgb, the likelihood of a registry objective."""
+        binary_lgb, multiclass' class count, the ranking objectives' query
+        information and label gains, the likelihood of a registry
+        objective."""
         p = self.params
         obj = p["objective"]
         name = _OBJ_ALIASES.get(obj, obj)
@@ -562,6 +652,24 @@ class Booster:
             if w is not None and np.any(np.asarray(w) <= 0):
                 raise ValueError("cross_entropy_lambda requires positive "
                                  "weights")
+        elif name == "multiclass":
+            K = int(p["num_class"])
+            if K < 2:
+                raise ValueError("objective='multiclass' needs num_class >= 2")
+            yv = y.astype(int)
+            if not np.all((yv >= 0) & (yv < K)):
+                raise ValueError(f"multiclass labels must be in [0, {K})")
+        elif name in _RANK_OBJECTIVES:
+            if train_set.group is None:
+                raise ValueError("Ranking tasks require query information: "
+                                 "Dataset(..., group=...)")
+            if int(np.sum(train_set.group)) != len(y):
+                raise ValueError("sum(group) must equal the number of data "
+                                 "points")
+            self._label_gain = DEFAULT_LABEL_GAIN \
+                if p["label_gain"] is None \
+                else np.asarray(p["label_gain"], dtype=np.float64)
+            check_rank_labels(y, self._label_gain)
         elif name != "gaussian" and name not in _SPECIAL_OBJECTIVES:
             self._lik = get_likelihood(name)
             self._lik.check_y(y)
@@ -604,6 +712,10 @@ class Booster:
             # xentropy_objective.hpp:244-265: log(exp(havg) - 1)
             havg = float(np.average(y, weights=w))
             return float(np.log(max(np.exp(havg) - 1.0, 1e-15)))
+        if name in _RANK_OBJECTIVES:
+            # ranking objectives do not boost from an average score
+            # (rank_objective.hpp: BoostFromScore not overridden)
+            return 0.0
         if self._lik is not None:
             return self._lik.init_intercept(y, 1.0)
         # Gaussian regression: the unweighted mean, as the reference
@@ -682,11 +794,38 @@ class Booster:
 
     def _objective_gradients(self):
         """The objective's (grad, hess) without a GP model (gbdt.py:
-        959-1109), elementwise on the device, times the Dataset weights
-        (inside the loss for cross_entropy_lambda)."""
+        959-1109) on the device, times the Dataset weights (inside the loss
+        for cross_entropy_lambda, tiled over the blocks of multiclass and
+        mean_scale_regression): elementwise formulas, multiclass' softmax
+        over its K blocks, the ranking objectives' per-query gradients
+        (`QueryLayout`)."""
         F, y, w = self.F, self.y, self._w
         name = self.objective_name
         p = self.params
+        if name == "multiclass":
+            # softmax gradients (multiclass_objective.hpp:87-108)
+            K = self._nsets
+            S = F.reshape(K, -1)
+            S = S - S.max(0, keepdim=True).values
+            P = torch.exp(S)
+            P = P / P.sum(0, keepdim=True)
+            g = (P - self._onehot).reshape(-1)
+            h = torch.clamp_min(K / (K - 1.0) * P * (1.0 - P),
+                                1e-12).reshape(-1)
+            if w is not None:
+                g, h = g * w.repeat(K), h * w.repeat(K)
+            return g, h
+        if name == "mean_scale_regression":
+            # (regression_objective.hpp:1010-1034 MeanScaleLoss)
+            m, sv = F.reshape(2, -1)
+            inv_var = torch.exp(-sv)
+            neg_resid = m - y
+            h2 = inv_var * neg_resid ** 2 / 2.0
+            g = torch.cat([inv_var * neg_resid, -h2 + 0.5])
+            h = torch.clamp_min(torch.cat([inv_var, h2]), 1e-12)
+            if w is not None:
+                g, h = g * w.repeat(2), h * w.repeat(2)
+            return g, h
         one = torch.ones_like(F)
         if name == "gaussian":
             if w is None:
@@ -730,6 +869,32 @@ class Booster:
             g, h = z - y, torch.clamp_min(z * (1.0 - z), 1e-12)
             if name == "cross_entropy_lambda":
                 return g, h
+        elif name == "tobit":
+            # censored-Gaussian (Grabit) gradients
+            # (regression_objective.hpp:938-960); scipy's norm.logpdf and
+            # norm.logcdf (log_ndtr)
+            sig = float(p.get("sigma", 1.0))
+            yl = float(p.get("yl", -np.inf))
+            yu = float(p.get("yu", np.inf))
+            diff = (y - F) / sig
+            logpdf = -diff ** 2 / 2.0 - np.log(np.sqrt(2 * np.pi))
+            r_lo = torch.exp(logpdf - torch.special.log_ndtr(diff))
+            r_up = torch.exp(logpdf - torch.special.log_ndtr(-diff))
+            lower, upper = y <= yl, y >= yu
+            g = torch.where(lower, r_lo / sig,
+                            torch.where(upper, -r_up / sig, -diff / sig))
+            h = torch.where(lower, (r_lo * diff + r_lo ** 2) / sig ** 2,
+                            torch.where(upper,
+                                        (-r_up * diff + r_up ** 2) / sig ** 2,
+                                        _full(F, 1.0 / sig ** 2)))
+            h = torch.clamp_min(h, 1e-12)
+        elif name == "lambdarank":
+            g, h = self._rank.lambdarank(F, sigmoid=float(p["sigmoid"]),
+                                         norm=bool(p["lambdarank_norm"]))
+            h = torch.clamp_min(h, 1e-12)
+        elif name == "rank_xendcg":
+            g, h = self._rank.xendcg(F)
+            h = torch.clamp_min(h, 1e-12)
         elif name == "binary_lgb":
             # (binary_objective.hpp:106-137)
             sig = float(p["sigmoid"])
@@ -873,7 +1038,7 @@ class Booster:
         bagging_fraction subset of the rows (the tree grows on it, and
         every row's score is updated); a new feature_fraction subset of the
         features for every tree. The draws are the reference's numpy
-        RandomState draws."""
+        RandomState draws, copied to the device without a host sync."""
         p = self.params
         row_mask = None
         bf = float(p["bagging_fraction"])
@@ -884,7 +1049,7 @@ class Booster:
                 sel = self._bag_rng.choice(self.n, size=k, replace=False)
                 m = np.zeros(self.n)
                 m[sel] = 1.0
-                self._row_mask = torch.as_tensor(m, device=self.device)
+                self._row_mask = _to_device(torch.as_tensor(m), self.device)
             row_mask = self._row_mask
         feat_mask = None
         ff = float(p["feature_fraction"])
@@ -894,7 +1059,7 @@ class Booster:
             sel = self._feat_rng.choice(pfeat, size=k, replace=False)
             m = np.zeros(pfeat, dtype=np.float32)
             m[sel] = 1.0
-            feat_mask = torch.as_tensor(m, device=self.device)
+            feat_mask = _to_device(torch.as_tensor(m), self.device)
         return row_mask, feat_mask
 
     def _renew_leaf_values(self, tree, slot_of_row, leaf_value_of_slot,
@@ -941,13 +1106,181 @@ class Booster:
                                   float(p["nesterov_acc_rate"]),
                                   int(p["momentum_offset"]))
 
+    def _slot_values(self, tree):
+        """A tree's current leaf values by the learner's leaf slot, on the
+        device (copied without a host sync)."""
+        v = np.zeros(self.learner.num_leaves + 8)
+        for slot, node in tree.slot_to_node.items():
+            v[slot] = tree.leaf_value[node]
+        return _to_device(torch.as_tensor(v), self.device)
+
+    def _dart_drop(self):
+        """DART dropout (dart.hpp:97 DroppingTrees, uniform mode;
+        gbdt.py:1258-1280): with the reference's draws from drop_seed's
+        RandomState (one for skip_drop, then one per tree), a subset of the
+        trees leaves the training score. Each dropped tree's contribution
+        is its current leaf values at the leaf slots it routed the rows to
+        when it grew, on the device. Returns (indices, contributions)."""
+        p = self.params
+        if self._drop_rng.rand() < float(p["skip_drop"]):
+            return [], []
+        drop_rate = float(p["drop_rate"])
+        max_drop = int(p["max_drop"])
+        if max_drop > 0:
+            drop_rate = min(drop_rate, max_drop / max(len(self.trees), 1.0))
+        drop_idx = [i for i in range(len(self.trees))
+                    if self._drop_rng.rand() < drop_rate]
+        if max_drop > 0:
+            drop_idx = drop_idx[:max_drop]
+        contribs = []
+        for i in drop_idx:
+            c = self._slot_values(self.trees[i])[self._tree_slots[i]]
+            self.F = self.F - c
+            contribs.append(c)
+        return drop_idx, contribs
+
+    def _goss_mask(self, grad, hess):
+        """Gradient-based one-side sampling (goss.hpp; gbdt.py:1282-1301):
+        after int(1 / learning_rate) warm-up rounds, the top_rate share of
+        the rows by |grad hess| and an other_rate sample of the rest,
+        amplified by (1 - a) / b (a float32 factor, as the reference's
+        mask). The rows are ordered on the device; the sample's positions
+        in that order come from bagging_seed's RandomState, as in the
+        reference, and go up without a host read. np.argsort is not stable,
+        so rows with tied |grad hess| may be ordered otherwise than the
+        reference orders them. Returns a float32 (n,) mask or None."""
+        p = self.params
+        if self.current_iteration_ < int(1.0 / float(p["learning_rate"])):
+            return None
+        a, b = float(p["top_rate"]), float(p["other_rate"])
+        n = self.learner.n
+        top_k = max(1, int(round(a * n)))
+        rest_k = max(1, int(round(b * n)))
+        order = torch.sort(torch.abs(grad * hess), descending=True,
+                           stable=True).indices
+        # index_fill_ takes the value as a scalar argument: no host copy,
+        # no sync (an indexed assignment copies the value up and waits)
+        mask = torch.zeros(n, dtype=torch.float32, device=grad.device)
+        mask.index_fill_(0, order[:top_k], 1.0)
+        if n > top_k:
+            sel = self._bag_rng.choice(n - top_k, size=min(rest_k, n - top_k),
+                                       replace=False)
+            mask.index_fill_(0, order[top_k + _to_device(
+                torch.as_tensor(sel), grad.device)], (1.0 - a) / b)
+        return mask
+
+    def _fit_linear_leaves(self, tree, grad, hess, slot_of_row):
+        """Linear leaves (linear_tree_learner.cpp; gbdt.py:2659-2696): each
+        leaf's ridge regression of the Newton targets on the numeric
+        features of its path (categorical split features left out,
+        nan_to_num on X), M = A'HA + (linear_lambda + lambda_l2 + 1e-8) I,
+        rhs = -A'g with A = [1, X_path], over every row of the leaf. A leaf
+        with no such feature, fewer than 2 (d + 1) rows or a solve that is
+        not finite keeps its constant. On the device: one index_add_ of
+        h A A' per leaf slot over rows padded to the longest path (the
+        padded block's identity keeps the solve that of the leaf's own
+        size), one batched solve, one host read of the solutions. The
+        constant part replaces the leaf value; the slopes go to
+        tree.leaf_linear. Returns A = [1, X_path] (n, D + 1) on the device
+        (zeros past each row's own leaf model) for `_linear_score`, or None
+        when no leaf has a model to fit."""
+        p = self.params
+        lam = float(p.get("linear_lambda", 0.0)) + float(p["lambda_l2"])
+        path = {0: []}
+        for node in range(tree.num_nodes):
+            if not tree.is_leaf[node]:
+                f = int(tree.split_feature[node])
+                base = path.get(node, [])
+                path[int(tree.left[node])] = base + [f]
+                path[int(tree.right[node])] = base + [f]
+        cat = {int(tree.split_feature[nd]) for nd in tree.cat_left_bins}
+        fits = {}
+        for slot, node in tree.slot_to_node.items():
+            feats = sorted(set(f for f in path.get(node, []) if f not in cat))
+            # the learner's cover is the leaf's row count, every row
+            if feats and round(tree.cover[node]) >= 2 * (len(feats) + 1):
+                fits[slot] = feats
+        if not fits:
+            return None
+        n, S = self.learner.n, self.learner.num_leaves + 8
+        D = max(len(f) for f in fits.values())
+        fi = np.full((S, D), -1, dtype=np.int64)
+        for slot, feats in fits.items():
+            fi[slot, :len(feats)] = feats
+        fi = _to_device(torch.as_tensor(fi), self.device)
+        if self._X_lin is None:
+            self._X_lin = torch.as_tensor(np.nan_to_num(np.asarray(
+                self.train_set.data, dtype=np.float64)[self.learner.rows]),
+                device=self.device)
+        # each row's leaf model's raw features (0 where the leaf has fewer)
+        f = fi[slot_of_row]
+        x = torch.gather(self._X_lin, 1, f.clamp_min(0))
+        A = torch.cat([torch.ones((n, 1), dtype=torch.float64,
+                                  device=self.device),
+                       torch.where(f >= 0, x, torch.zeros_like(x))], dim=1)
+        M = torch.zeros((S, D + 1, D + 1), dtype=torch.float64,
+                        device=self.device)
+        # rows in chunks of at most 2^24 products
+        step = max(1, (1 << 24) // (D + 1) ** 2)
+        for r in range(0, n, step):
+            Ar = A[r:r + step]
+            M.index_add_(0, slot_of_row[r:r + step],
+                         hess[r:r + step, None, None] * Ar[:, :, None]
+                         * Ar[:, None, :])
+        rhs = torch.zeros((S, D + 1), dtype=torch.float64,
+                          device=self.device).index_add_(
+            0, slot_of_row, -A * grad[:, None])
+        dims = (fi >= 0).sum(1)
+        j = torch.arange(D + 1, device=self.device)
+        ridge = torch.where(j[None, :] <= dims[:, None],
+                            torch.full((S, D + 1), lam + 1e-8,
+                                       dtype=torch.float64,
+                                       device=self.device),
+                            torch.ones((S, D + 1), dtype=torch.float64,
+                                       device=self.device))
+        W, info = torch.linalg.solve_ex(M + torch.diag_embed(ridge),
+                                        rhs[:, :, None])
+        W = torch.cat([W[:, :, 0], info[:, None].to(torch.float64)],
+                      dim=1).cpu().numpy()
+        for slot, feats in fits.items():
+            d = len(feats)
+            w = W[slot, :d + 1]
+            if W[slot, -1] != 0 or not np.all(np.isfinite(w)):
+                continue
+            node = tree.slot_to_node[slot]
+            tree.leaf_value[node] = w[0]
+            tree.leaf_linear[node] = (np.asarray(feats, dtype=int),
+                                      w[1:].copy())
+        return A
+
+    def _linear_score(self, tree, A, slot_of_row):
+        """A tree with linear leaves on the training rows (Tree.predict_raw
+        by the rows' leaf slots): each row's A = [1, X_path] from
+        `_fit_linear_leaves` times its leaf's current constant and slopes
+        (a leaf without slopes keeps its constant), on the device."""
+        coef = np.zeros((self.learner.num_leaves + 8, A.shape[1]))
+        for slot, node in tree.slot_to_node.items():
+            coef[slot, 0] = tree.leaf_value[node]
+            if node in tree.leaf_linear:
+                c = tree.leaf_linear[node][1]
+                coef[slot, 1:1 + len(c)] = c
+        coef = _to_device(torch.as_tensor(coef), self.device)
+        return (A * coef[slot_of_row]).sum(1)
+
     def update(self):
-        """One boosting iteration (gbdt.cpp:412 TrainOneIter): one tree per
-        predictor block, each on its block's half of one gradient (two for
-        a two-predictor likelihood, gbdt.py:1312-1330, interleaved in
-        self.trees), then the refit."""
+        """One boosting iteration (gbdt.cpp:412 TrainOneIter; gbdt.py:
+        1311-1475): one tree per predictor block, each on its block's part
+        of one gradient (multiclass, mean_scale_regression and a
+        two-predictor likelihood; interleaved in self.trees), then the
+        refit. A single-block model runs its boosting type: DART drops
+        trees before the gradients and renormalises them after the new
+        tree, GOSS samples the rows by |grad hess|, a random forest fits
+        every tree to the gradients at the init score and averages them;
+        with linear_tree the leaves get their linear models."""
         K, n = self._nsets, self.learner.n
-        if self.params["use_nesterov_acc"] and K == 1:
+        p = self.params
+        boosting = p["boosting"] if K == 1 else "gbdt"
+        if p["use_nesterov_acc"] and K == 1:
             # the momentum step on the score comes before the gradients;
             # with a GP model the covariance parameters are refitted on the
             # post-momentum residuals (gbdt.cpp:428 condition iii)
@@ -958,35 +1291,78 @@ class Booster:
             self._F_lag1, self.F = self.F, F_new
             if self.gp_model is not None:
                 self._refit_gp_cov()
-        grad, hess = self._gradients()
+        drop_idx, drop_contrib = [], []
+        if boosting == "dart" and self.trees:
+            drop_idx, drop_contrib = self._dart_drop()
+        if boosting == "rf":
+            # random forest (rf.hpp): the gradients at the init score,
+            # taken once
+            if self._rf_grad is None:
+                F_save = self.F
+                self.F = torch.full_like(F_save, self.init_score)
+                self._rf_grad = self._gradients()
+                self.F = F_save
+            grad, hess = self._rf_grad
+        else:
+            grad, hess = self._gradients()
         row_mask, feat_mask = self._sampling_masks()
-        lr = float(self.params["learning_rate"])
+        if boosting == "goss":
+            gm = self._goss_mask(grad, hess)
+            if gm is not None:
+                row_mask = gm
+        lr = float(p["learning_rate"])
+        if boosting == "dart":
+            # dart.hpp:137: the new tree's weight lr / (k + 1)
+            lr = lr / (1.0 + len(drop_idx))
+        linear = K == 1 and bool(p["linear_tree"])
         for k in range(K):
             blk = slice(k * n, (k + 1) * n)
             tree, slot_of_row, leaf_value_of_slot = self.learner.train(
                 grad[blk], hess[blk], row_mask=row_mask, feat_mask=feat_mask,
                 cegb_used=self._cegb_used,
-                extra_seed=int(self.params["extra_seed"])
-                + 131 * len(self.trees))
+                extra_seed=int(p["extra_seed"]) + 131 * len(self.trees))
             self._note_cegb_usage(tree)
-            if self.gp_model is None and self.objective_name in (
-                    "l1", "quantile", "mape"):
+            A_lin = self._fit_linear_leaves(tree, grad, hess, slot_of_row) \
+                if linear else None
+            if K == 1 and self.gp_model is None and not linear \
+                    and self.objective_name in ("l1", "quantile", "mape"):
                 self._renew_leaf_values(tree, slot_of_row,
                                         leaf_value_of_slot, row_mask)
-            if self.gp_model is not None \
+            if K == 1 and self.gp_model is not None \
                     and self.gp_model._likelihood_obj is None:
-                if self.params["leaves_newton_update"]:
+                if p["leaves_newton_update"]:
                     self._newton_leaf_values(tree, slot_of_row,
                                              leaf_value_of_slot)
-                if self.params["line_search_step_length"]:
+                if p["line_search_step_length"]:
                     leaf_value_of_slot = self._line_search(
                         tree, slot_of_row, leaf_value_of_slot)
+            lv = _to_device(torch.as_tensor(leaf_value_of_slot), self.device)
+            if boosting == "rf":
+                # trees unshrunk; the score is the init score plus their
+                # mean
+                self._rf_sum = self._rf_sum + lv[slot_of_row]
+                self.trees.append(tree)
+                self.current_iteration_ = len(self.trees)
+                self.F = self.init_score + self._rf_sum / len(self.trees)
+                return False
             tree.shrinkage(lr)
-            lv = torch.as_tensor(leaf_value_of_slot, device=self.device)
             F = self.F.clone()
-            F[blk] += lr * lv[slot_of_row]
+            if tree.leaf_linear:
+                F[blk] += self._linear_score(tree, A_lin, slot_of_row)
+            else:
+                F[blk] += lr * lv[slot_of_row]
             self.F = F
+            if boosting == "dart":
+                self._tree_slots.append(slot_of_row.to(torch.int32))
             self.trees.append(tree)
+        if drop_idx:
+            # dart.hpp:158 Normalize: the dropped trees keep k / (k + 1) of
+            # their weight, and so their contributions to the score
+            kk = float(len(drop_idx))
+            for i, c in zip(drop_idx, drop_contrib):
+                self.trees[i].shrinkage(kk / (kk + 1.0))
+                self.F = self.F + c * (kk / (kk + 1.0))
+            self._rescales += 1
         self.current_iteration_ = len(self.trees) // K
         # refit on the post-tree residuals so get_cov_pars(), predictions
         # and the next round's gradients see the current ensemble
@@ -1042,19 +1418,40 @@ class Booster:
                      pred_early_stop_freq, pred_early_stop_margin):
         """The ensemble's raw score on X over trees [start_iteration,
         start_iteration + num_iteration), the init score added when the
-        slice starts at 0 (gbdt.py:2031-2074)."""
+        slice starts at 0 (gbdt.py:1967-2074); a multi-output model's K
+        blocks stacked, a random forest's trees averaged."""
         s = int(start_iteration)
-        if self._nsets == 2:
-            # interleaved trees: even ones the first block, odd ones the
-            # second (gbdt.py:2017-2030), each block summed from 0 and its
-            # init score added last, as _RunningScore sums them
-            nit = len(self.trees) // 2 - s if num_iteration is None \
+        K = self._nsets
+        if K > 1:
+            # interleaved trees: tree i adds to block i % K (gbdt.py:
+            # 1967-2030), each block summed from 0 and its init score added
+            # last, as _RunningScore sums them
+            nit = len(self.trees) // K - s if num_iteration is None \
                 or num_iteration <= 0 else int(num_iteration)
-            Fk = [np.zeros(len(X)), np.zeros(len(X))]
-            for i, tree in enumerate(self.trees[2 * s: 2 * (s + nit)]):
-                Fk[i % 2] = Fk[i % 2] + self._tree_predict(tree, X)
+            used = self.trees[K * s: K * (s + nit)]
+            inits = np.asarray(self._block_inits() if s == 0 else [0.0] * K)
+            Fk = [np.zeros(len(X)) for _ in range(K)]
+            if pred_early_stop and self.objective_name == "multiclass":
+                # per-row early stopping on the top1 - top2 margin of the
+                # raw scores, checked every freq * K trees
+                # (prediction_early_stop.cpp:38 MulticlassScoreFunction)
+                active = np.ones(len(X), dtype=bool)
+                freq = max(1, int(pred_early_stop_freq)) * K
+                for i, tree in enumerate(used):
+                    if i and i % freq == 0:
+                        top2 = np.sort(np.stack(Fk)[:, active]
+                                       + inits[:, None], axis=0)[-2:]
+                        active[np.flatnonzero(active)[
+                            (top2[1] - top2[0])
+                            >= float(pred_early_stop_margin)]] = False
+                        if not active.any():
+                            break
+                    Fk[i % K][active] += self._tree_predict(tree, X[active])
+            else:
+                for i, tree in enumerate(used):
+                    Fk[i % K] = Fk[i % K] + self._tree_predict(tree, X)
             if s == 0:
-                Fk = [Fk[0] + self.init_score, Fk[1] + self.init_score2]
+                Fk = [f + c for f, c in zip(Fk, inits)]
             return np.concatenate(Fk)
         ntrees = len(self.trees) - s if num_iteration is None \
             or num_iteration <= 0 else int(num_iteration)
@@ -1084,6 +1481,8 @@ class Booster:
         else:
             for it in used:
                 F = F + self._tree_predict(self.trees[it], X)
+        if self.params["boosting"] == "rf" and len(used):
+            F = F / len(used)       # rf.hpp: average_output_
         if s == 0:
             # the init score belongs to iteration 0, so raw slices over
             # start_iteration sum to the full prediction
@@ -1134,8 +1533,10 @@ class Booster:
             # TreeSHAP (gbdt.py:1943-1966): (n, p + 1) per predictor block,
             # the expected value last; the init scores belong to iteration 0
             mats = [self._shap_matrix(used[k::K], X) for k in range(K)]
+            if self.params["boosting"] == "rf" and used:
+                mats = [m / len(used) for m in mats]
             if int(start_iteration) == 0:
-                for k, c in enumerate((self.init_score, self.init_score2)[:K]):
+                for k, c in enumerate(self._block_inits()):
                     mats[k][:, -1] += c
             return np.concatenate(mats, axis=1)
         F_pred = self._raw_predict(
@@ -1216,12 +1617,25 @@ class Booster:
                         predict_cov_mat=False, ignore_gp_model=False,
                         cov_pars=None, **sampling):
         """`predict` from the ensemble's raw score F_pred (gbdt.py:
-        2076-2153): the objective's output transform, or the GP model's
-        prediction around it."""
+        1967-2153): the objective's output transform, or the GP model's
+        prediction around it. Multiclass gives (n, K) probabilities (raw
+        scores with raw_score), mean_scale_regression {"pred_mean",
+        "pred_var"} (its two stacked blocks with raw_score)."""
         if self.gp_model is None or ignore_gp_model:
             name = self.objective_name
+            if name == "multiclass":
+                Fk = F_pred.reshape(self._nsets, -1)
+                if raw_score:
+                    return Fk.T
+                S = Fk - Fk.max(0, keepdims=True)
+                P = np.exp(S)
+                P /= P.sum(0, keepdims=True)
+                return P.T
             if raw_score:
                 return F_pred
+            if name == "mean_scale_regression":
+                m, sv = F_pred.reshape(2, -1)
+                return {"pred_mean": m, "pred_var": np.exp(sv)}
             if name == "cross_entropy":
                 return 1.0 / (1.0 + np.exp(-F_pred))
             if name == "tweedie":
@@ -1271,7 +1685,9 @@ class Booster:
         without a GP model, its response mean (or the latent mean with
         pred_latent) with one."""
         pred = self._predict_output(F_pred, **kwargs)
-        if isinstance(pred, dict):
+        if isinstance(pred, dict) and "pred_mean" in pred:
+            pred = pred["pred_mean"]
+        elif isinstance(pred, dict):
             pred = pred.get("response_mean",
                             pred["fixed_effect"] + pred["random_effect_mean"])
         return np.asarray(pred)
@@ -1324,6 +1740,56 @@ class Booster:
         return self.gp_model.predict_training_data_random_effects(
             predict_var=predict_var)
 
+    def refit(self, data, label, decay_rate=None):
+        """A new booster with this one's tree structures and their leaf
+        values refitted on new data (basic.py:3804 Booster.refit;
+        gbdt.cpp:314 RefitTree; gbdt.py:2217-2259): tree by tree, at the
+        score of the trees refitted before it, each leaf's value becomes
+        decay_rate * old + (1 - decay_rate) * new, with new the Newton step
+        -sum g / (sum h + lambda_l2) (sum g soft-thresholded by lambda_l1)
+        times the tree's shrinkage; decay_rate defaults to
+        refit_decay_rate. The gradients and the leaf sums are on the device
+        (one host read a tree); the rows' leaves are found on the host.
+        Not with a GP model or a multi-output objective, as in the
+        reference."""
+        import copy
+        if self.gp_model is not None:
+            raise NotImplementedError("refit with a gp_model is not "
+                                      "supported; retrain instead")
+        if self._nsets > 1:
+            raise NotImplementedError("refit is not supported for "
+                                      "multi-output objectives")
+        if decay_rate is None:
+            decay_rate = float(self.params.get("refit_decay_rate", 0.9))
+        X = _raw_X(data)
+        y = np.asarray(label, dtype=np.float64)
+        new = copy.copy(self)
+        new.trees = [copy.deepcopy(t) for t in self.trees]
+        new.train_set = None
+        new.n = len(y)
+        new.y = torch.as_tensor(y, device=self.device)
+        new._w = None
+        new.F = torch.full((len(y),), self.init_score, dtype=torch.float64,
+                           device=self.device)
+        lam = float(self.params["lambda_l2"])
+        l1 = float(self.params["lambda_l1"])
+        for tree in new.trees:
+            g, h = new._objective_gradients()
+            leaves, node = np.unique(tree.leaf_index_raw(X),
+                                     return_inverse=True)
+            node = _to_device(torch.as_tensor(node.reshape(-1)), self.device)
+            sums = torch.zeros((2, len(leaves)), dtype=torch.float64,
+                               device=self.device).index_add_(
+                1, node, torch.stack([g, h])).cpu().numpy()
+            sg, sh = sums[0], sums[1] + 1e-15
+            sg = np.sign(sg) * np.maximum(np.abs(sg) - l1, 0.0)
+            newv = -sg / (sh + lam) * tree.shrinkage_applied
+            tree.leaf_value[leaves] = (decay_rate * tree.leaf_value[leaves]
+                                       + (1.0 - decay_rate) * newv)
+            new.F = new.F + _to_device(torch.as_tensor(
+                tree.leaf_value[leaves]), self.device)[node]
+        return new
+
     # ------------------------------------------------------------------
     def reset_parameter(self, params):
         """Update training parameters between rounds (the reset_parameter
@@ -1350,7 +1816,8 @@ class Booster:
         """The training residuals' variance, the plug-in predictive
         variance of the variance metrics without a GP model
         (regression_metric.hpp:473-480; gbdt.py:2541)."""
-        return float(np.var((self.y - self.F).cpu().numpy(), ddof=1))
+        return float(np.var((self.y - self.F[:len(self.y)]).cpu().numpy(),
+                            ddof=1))
 
     # ------------------------------------------------------------------
     def model_to_dict(self):
@@ -1367,6 +1834,8 @@ class Booster:
             "num_sets": self._nsets,
             "init_score2": self.init_score2,
         }
+        if self._init_scores is not None:
+            d["init_scores"] = np.asarray(self._init_scores).tolist()
         if self._binary_lw is not None:
             d["binary_label_weights"] = list(self._binary_lw)
         if self._pandas_categorical:
@@ -1406,23 +1875,20 @@ class Booster:
         """Rebuild a booster that predicts from a model dict (gbdt.py:2330
         _load), with its GP model, if it has one, on `device`."""
         from ..gp_model import GPModel
-        unsupported = [k for k in ("init_scores",) if d.get(k)]
         laplace = bool(d.get("has_gp_model")) \
             and d["gp_model"]["likelihood"] not in ("gaussian", "regression")
         self._nsets = int(d.get("num_sets", 1))
-        if self._nsets != 1 and not (
+        if self._nsets != 1 and d.get("has_gp_model") and not (
                 self._nsets == 2 and laplace and getattr(
                     get_likelihood(d["gp_model"]["likelihood"]),
                     "num_sets_fe", 1) == 2):
-            # multi-output boosting without a two-predictor GP model
-            # (multiclass, mean_scale_regression)
-            unsupported.append("num_sets (ROADMAP A12b)")
-        if d["objective"] in _UNPORTED_OBJECTIVES:
-            unsupported.append(f"objective '{d['objective']}'")
-        if unsupported:
+            # with a GP model, several predictor blocks come only from a
+            # likelihood with two predictor sets
             raise NotImplementedError(
-                "model dict holds parts that are not ported yet: "
-                + ", ".join(unsupported))
+                f"model dict with {self._nsets} predictor sets and a GP "
+                f"model of likelihood '{d['gp_model']['likelihood']}'")
+        self._init_scores = None if d.get("init_scores") is None \
+            else np.asarray(d["init_scores"], dtype=np.float64)
         self.params = dict(_BOOST_PARAM_DEFAULTS)
         self.params.update(d.get("params", {}))
         self.init_score = float(d["init_score"])
@@ -1551,7 +2017,10 @@ def train(params, train_set, num_boost_round=100, gp_model=None,
 
     valid_sets: Datasets with labels, scored after every round by the
     `metric` parameter (or feval(preds, dataset) -> (name, value,
-    higher_better)); with early_stopping_rounds, training stops when the
+    higher_better)); ndcg and map (ndcg by default for the ranking
+    objectives, multi_logloss for multiclass) score the raw score of a set
+    with a group, reported as "ndcg@k" at eval_at's first k; with
+    early_stopping_rounds, training stops when the
     first set's metric has not improved (by more than 1e-15) for that many
     rounds, and best_iteration is the round of its best value. Predictions
     go through the GP model when use_gp_model_for_validation and the set
@@ -1592,18 +2061,36 @@ def train(params, train_set, num_boost_round=100, gp_model=None,
     chosen = raw.get("metric")
     if isinstance(chosen, (list, tuple)):
         chosen = chosen[0] if chosen else None
+    if chosen is None and booster.objective_name in _RANK_OBJECTIVES:
+        chosen = "ndcg"
     chosen_canon = _METRIC_ALIASES.get(chosen, chosen) if chosen else None
-    if chosen_canon in _RANK_METRICS:
-        raise NotImplementedError(f"metric '{chosen}' (ranking) is not "
-                                  "ported yet (ROADMAP A12b)")
     if vsets and chosen_canon in _GP_TRAIN_METRICS and gp_model is None:
         raise ValueError(f"metric '{chosen}' requires a gp_model")
     # each validation set's running raw score, advanced once a round
     scores = [_RunningScore(booster, v.data) for v in vsets]
 
+    def _rank_metric(v, F_raw):
+        """ndcg@k or map@k of a validation set with query information
+        (rank_metric.hpp, map_metric.hpp; gbdt.py:2484-2500), reported at
+        the first of eval_at."""
+        if v.group is None:
+            raise ValueError(f"metric '{chosen}' requires query information "
+                             "on the validation Dataset (group=...)")
+        qb = query_boundaries(v.group)
+        ks = np.atleast_1d(np.asarray(booster.params["eval_at"], dtype=int))
+        if chosen_canon == "ndcg":
+            lg = booster._label_gain if booster._label_gain is not None \
+                else DEFAULT_LABEL_GAIN
+            vals = ndcg_metric(v.get_label(), F_raw, qb, ks, lg)
+        else:
+            vals = map_metric(v.get_label(), F_raw, qb, ks)
+        return f"{chosen_canon}@{int(ks[0])}", vals[int(ks[0])]
+
     def _metric(y, p):
         if chosen:
             return chosen, _metric_fn(chosen)(y, p)
+        if booster.objective_name == "multiclass":
+            return "multi_logloss", _metric_fn("multi_logloss")(y, p)
         if booster.objective_name == "gaussian":
             return "l2", float(np.mean((y - p) ** 2))
         if "bernoulli" in booster.objective_name:
@@ -1679,6 +2166,8 @@ def train(params, train_set, num_boost_round=100, gp_model=None,
                         maximize_feval = bool(hib)
                         maximize = maximize_feval
                         best_score = -np.inf if maximize else np.inf
+                elif chosen_canon in _RANK_METRICS:
+                    mname, score = _rank_metric(v, sc.advance(booster))
                 else:
                     mname, score = _metric(yv, booster._point_prediction(
                         sc.advance(booster), ignore_gp_model=not use_gp,

@@ -44,12 +44,15 @@ def gp_model_from_jax_dict(d, device=None):
 def booster_from_jax_dict(d, device=None):
     """(Booster, GPModel) of the port from a JAX `Booster.model_to_dict()`,
     ready to `predict` on `device` (default: the first CUDA card). The
-    GPModel is None for a booster trained without one. Gaussian regression
-    boosting, alone or with a GP model that `gp_model_from_jax_dict`
-    loads, and LaGaBoost with such a non-Gaussian GP model are ported,
-    with a two-predictor likelihood's interleaved trees (num_sets = 2:
-    even trees the first block, odd ones the second); any other model,
-    among them multi-output boosting without a GP model (multiclass,
-    mean_scale_regression; ROADMAP A12b), raises NotImplementedError."""
+    GPModel is None for a booster trained without one. Every boosting
+    model without a GP model loads: the LightGBM objectives, multiclass
+    and mean_scale_regression (num_sets blocks of interleaved trees, their
+    init_scores), tobit, lambdarank and rank_xendcg, random forests
+    (boosting "rf": the trees averaged), DART and GOSS models, linear
+    leaves (each tree's leaf_linear). With a GP model, Gaussian boosting
+    with a GP model that `gp_model_from_jax_dict` loads, and LaGaBoost with
+    such a non-Gaussian GP model, with a two-predictor likelihood's
+    interleaved trees (num_sets = 2); several predictor blocks with any
+    other GP model raise NotImplementedError."""
     booster = Booster(model_dict=d, device=device)
     return booster, booster.gp_model

@@ -51,8 +51,8 @@ _METRIC_ALIASES = {
 # metrics where larger is better (LightGBM metric headers)
 _MAXIMIZE_METRICS = {"auc", "ndcg", "map"}
 
-# metrics needing query information (rank_metric.hpp, map_metric.hpp);
-# they wait with the ranking objectives (ROADMAP A12b)
+# metrics needing query information (rank_metric.hpp, map_metric.hpp):
+# `train` scores them on validation sets with a group
 _RANK_METRICS = {"ndcg", "map"}
 
 # GP-routed metrics evaluated on the training data from the GP model's
@@ -91,9 +91,6 @@ def _var_metric_fn(name):
 
 def _metric_fn(name):
     name = _METRIC_ALIASES.get(name, name)
-    if name in _RANK_METRICS:
-        raise NotImplementedError(f"metric '{name}' (ranking) is not ported "
-                                  "yet (ROADMAP A12b)")
     if name == "mae":
         return lambda y, p: float(np.mean(np.abs(y - p)))
     if name == "l2":

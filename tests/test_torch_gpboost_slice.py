@@ -103,10 +103,15 @@ def test_unported_jax_model_dicts_raise(trained, change):
     d = trained[0].model_to_dict()
     if change == "no_gp_model":
         # a booster without a GP model loads (test_torch_parallel_learner),
-        # with the ported objectives too (test_torch_objectives.py); one of
-        # an objective outside the port does not
+        # with every objective (test_torch_objectives.py,
+        # test_torch_booster_modes.py): a multiclass dict of one block, as
+        # the JAX package loads it, predicts its class probabilities
         d["has_gp_model"] = 0
         d["objective"] = "multiclass"
+        b, gp = booster_from_jax_dict(d, device="cpu")
+        assert gp is None and b._nsets == 1
+        np.testing.assert_allclose(b.predict(_new_points(seed=4)[0]), 1.0)
+        return
     elif change == "dense_gp":
         # a dense GP loads, with cluster_ids too
         # (tests/test_torch_weights_clusters.py) and with GP random
@@ -154,18 +159,23 @@ def test_float32_engine_trains():
 
 
 # use_nesterov_acc is ported (tests/test_torch_weights_clusters.py),
-# bagging with a GP model (tests/test_torch_objectives.py) and extra_trees
-# (tests/test_torch_tree_breadth.py); random forests and linear trees are
-# not
-@pytest.mark.parametrize("params", [{"boosting": "dart"},
+# bagging with a GP model (tests/test_torch_objectives.py), extra_trees
+# (tests/test_torch_tree_breadth.py), DART, GOSS and linear trees
+# (tests/test_torch_booster_modes.py); what the reference refuses with a
+# GP model still raises: DART with Nesterov momentum, random forests, and
+# (in the port) an objective other than the Gaussian GP model's
+@pytest.mark.parametrize("params", [{"boosting": "dart",
+                                     "use_nesterov_acc": True},
                                     {"boosting": "rf"},
                                     {"objective": "binary"},
-                                    {"linear_tree": True}])
+                                    {"objective": "multiclass",
+                                     "num_class": 3}])
 def test_unported_booster_options_raise(params):
     coords, X, y = _data(n=300, seed=6)
     gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
                      gp_approx="vecchia", num_neighbors=M, device="cpu")
-    with pytest.raises(NotImplementedError):
+    err = NotImplementedError if "objective" in params else ValueError
+    with pytest.raises(err):
         gpt.Booster({**PARAMS, **params}, gpt.Dataset(X, label=y),
                     gp_model=gp)
 
@@ -232,10 +242,20 @@ def test_plain_boosting_options_match_jax(case):
     ({"refit_decay_rate": 0.5}, "refit_decay_rate"),
 ])
 def test_plain_boosting_unported_options_raise(params, key):
+    """The booster's modes and their options are ported
+    (tests/test_torch_booster_modes.py): each is read under its canonical
+    name, and only what the reference refuses raises, a random forest
+    without bagging."""
     X, y, _ = _plain_data()
-    with pytest.raises(NotImplementedError, match=key):
-        gpt.train({**PLAIN, **params}, gpt.Dataset(X, label=y),
-                   num_boost_round=1, device="cpu")
+    if params.get("boost") == "rf":
+        with pytest.raises(ValueError, match="bagging"):
+            gpt.train({**PLAIN, **params}, gpt.Dataset(X, label=y),
+                      num_boost_round=1, device="cpu")
+        return
+    bst = gpt.train({**PLAIN, **params}, gpt.Dataset(X, label=y),
+                    num_boost_round=1, device="cpu")
+    assert bst.params[key] == list(params.values())[0]
+    assert bst.num_trees() == 1
 
 
 def test_reference_defaults_pass_and_every_key_is_known():

@@ -142,8 +142,9 @@ def test_objective_inferred_and_fisher_rejected(data):
     with pytest.raises(ValueError):
         gpt.train({**BOOST, "objective": "binary"}, ds, num_boost_round=1,
                   gp_model=gp)
-    # without a GP model the objectives outside the port still raise (the
-    # ported ones: tests/test_torch_objectives.py)
-    with pytest.raises(NotImplementedError):
+    # without a GP model the objective's own checks apply (the objectives:
+    # tests/test_torch_objectives.py, tests/test_torch_booster_modes.py):
+    # multiclass needs num_class >= 2
+    with pytest.raises(ValueError, match="num_class"):
         gpt.train({**BOOST, "objective": "multiclass"}, ds,
-                  num_boost_round=1)
+                  num_boost_round=1, device="cpu")

@@ -254,21 +254,30 @@ def test_eval_train_and_reset_parameter():
                      num_boost_round=1, device="cpu").eval_train() == []
 
 
+# the booster's modes and objectives are ported
+# (tests/test_torch_booster_modes.py): what the reference refuses raises,
+# the ranking objectives without query information and a random forest
+# without bagging; the others train
 @pytest.mark.parametrize("params,item", [
-    ({"objective": "multiclass", "num_class": 3}, "A12"),
-    ({"objective": "lambdarank"}, "A12"),
-    ({"objective": "rank_xendcg"}, "A12"),
-    ({"objective": "tobit"}, "A12"),
-    ({"objective": "mean_scale_regression"}, "A12"),
-    ({"boosting": "dart"}, "A12"),
-    ({"boosting": "goss"}, "A12"),
-    ({"boosting": "rf"}, "A12"),
+    ({"objective": "multiclass", "num_class": 3}, None),
+    ({"objective": "lambdarank"}, "query information"),
+    ({"objective": "rank_xendcg"}, "query information"),
+    ({"objective": "tobit"}, None),
+    ({"objective": "mean_scale_regression"}, None),
+    ({"boosting": "dart"}, None),
+    ({"boosting": "goss"}, None),
+    ({"boosting": "rf"}, "bagging"),
 ])
 def test_out_of_slice_options_raise(params, item):
     label = np.floor(3 * X[:, 0])
-    with pytest.raises(NotImplementedError, match=item):
-        gpt.train({**BASE, **params}, gpt.Dataset(X, label=label),
-                  num_boost_round=1, device="cpu")
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            gpt.train({**BASE, **params}, gpt.Dataset(X, label=label),
+                      num_boost_round=1, device="cpu")
+        return
+    bst = gpt.train({**BASE, **params}, gpt.Dataset(X, label=label),
+                    num_boost_round=1, device="cpu")
+    assert bst.num_trees() == bst._nsets
 
 
 def test_out_of_slice_train_and_predict_options_raise():
@@ -284,7 +293,9 @@ def test_out_of_slice_train_and_predict_options_raise():
                                bp.predict(X, raw_score=True), rtol=0,
                                atol=1e-12)
     assert bp.predict(X, pred_leaf=True).shape == (len(X), 1)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ndcg is ported (tests/test_torch_booster_modes.py); it needs query
+    # information on the validation set, as in the reference
+    with pytest.raises(ValueError, match="query information"):
         gpt.train({**BASE, "metric": "ndcg"}, ds, num_boost_round=1,
                   valid_sets=[gpt.Dataset(X, label=LABELS["l1"])],
                   device="cpu")
